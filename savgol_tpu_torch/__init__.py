@@ -1,0 +1,46 @@
+"""savgol_tpu_torch — the PyTorch / CUDA port of ``savgol_tpu`` for one
+NVIDIA H100.
+
+It imports ``torch`` and numpy, never JAX. The batched 1D path is ported:
+host-f64 weights, the same-length POLYNOMIAL apply (CUDA kernel K1) and the
+VALID correlation (CUDA kernel K3), and the :class:`Savgol1D` module. The
+kernels are built with ``nvcc`` at their first call on a CUDA tensor; CPU
+tensors take their plain PyTorch versions.
+
+Quick start::
+
+    import torch
+    import savgol_tpu_torch as sgt
+
+    f = sgt.Savgol1D.create(sgt.SavgolConfig(12, 4), device="cuda")
+    y = f.apply(x)                          # x: (..., N) tensor on the card
+"""
+
+from savgol_tpu_torch.config import (
+    Boundary2D,
+    BoundaryMode,
+    MAX_DERIVATIVE,
+    MAX_HALF_WINDOW,
+    MAX_POLY_ORDER,
+    Savgol2DConfig,
+    SavgolConfig,
+    deriv1,
+    deriv2,
+    num_terms_2d,
+    smooth,
+)
+from savgol_tpu_torch.models import Savgol1D
+from savgol_tpu_torch.ops.apply import savgol_apply, savgol_apply_valid
+from savgol_tpu_torch.ops.weights import (savgol_all_weights_np,
+                                          savgol_weights_np)
+
+__version__ = "0.3.0"
+
+__all__ = [
+    "BoundaryMode", "Boundary2D", "SavgolConfig", "Savgol2DConfig",
+    "MAX_HALF_WINDOW", "MAX_POLY_ORDER", "MAX_DERIVATIVE",
+    "smooth", "deriv1", "deriv2", "num_terms_2d",
+    "Savgol1D",
+    "savgol_weights_np", "savgol_all_weights_np",
+    "savgol_apply", "savgol_apply_valid",
+]

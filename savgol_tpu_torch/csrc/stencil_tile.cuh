@@ -1,0 +1,135 @@
+// Shared tile stencil of the 1D kernels (sg1d_poly.cu, corr1d_valid.cu).
+//
+// One block computes TILE consecutive outputs of one row:
+//
+//     acc[i] = sum_{k < ws} w[k] * x[in0 + i + k],   0 <= i < TILE
+//
+// where in0 is the input index of the tile's first tap (t0 - n for the
+// same-length apply, t0 for the VALID correlation). Samples outside [0, N)
+// read as zero. The TILE + ws - 1 samples the tile needs (rounded up to
+// whole 16-byte register loads) are staged once in shared memory, so each
+// sample of a row is read from device memory once plus a halo of about ws
+// samples per tile.
+//
+// Each thread owns Q = 4 consecutive outputs and slides a register window
+// over the staged span: every 4 taps cost one 16-byte shared load of x and
+// one broadcast 16-byte load of w for 16 FMAs. Taps past the last full
+// group of 4 run one at a time, so no padded (zero-weight) tap ever reads a
+// sample outside the window: an inf or NaN there would otherwise turn the
+// output into NaN.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace sgt {
+
+constexpr int kThreads = 256;
+constexpr int kQ = 4;
+constexpr int kTile = kThreads * kQ;      // outputs per block
+// Blocks per SM that __launch_bounds__ asks to keep resident: 8 x 256
+// threads fill the SM's 2048 and cap registers at 32 a thread. The kernels
+// wait on device memory, and more resident blocks keep more loads in flight.
+constexpr int kMinBlocks = 8;
+constexpr int kMaxWs = 65;                // 2 * MAX_HALF_WINDOW + 1
+constexpr int kMaxWsPad = 68;             // kMaxWs rounded up to kQ
+// The deepest staged index a thread reads is kTile + (ws & ~3) + 3, so a
+// tile stages kTile + (ws & ~3) + 4 samples, at most kStage.
+constexpr int kStage = kTile + kMaxWsPad + 4;
+
+__device__ __forceinline__ float madd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double madd(double a, double b, double c) {
+  return ::fma(a, b, c);
+}
+
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
+  __device__ static void load(const float* p, float r[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+  }
+  __device__ static void store(float* p, const float r[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  }
+};
+template <> struct Vec4<double> {
+  __device__ static void load(const double* p, double r[4]) {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y;
+  }
+  __device__ static void store(double* p, const double r[4]) {
+    reinterpret_cast<double2*>(p)[0] = make_double2(r[0], r[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(r[2], r[3]);
+  }
+};
+
+// Shared buffers of one block. xs holds the staged input and, after the
+// compute, the block's TILE outputs.
+template <typename T> struct TileSmem {
+  __align__(16) T xs[kStage];
+  __align__(16) T w[kMaxWsPad];
+};
+
+// Stages x[in0, in0 + stage) (zero outside [0, N)) and w, computes the
+// tile, and leaves acc[i] in s.xs[i] for 0 <= i < kTile. Ends synchronised.
+template <typename T>
+__device__ void tile_correlate(const T* __restrict__ xrow, long long N,
+                               long long in0, const T* __restrict__ w,
+                               int ws, TileSmem<T>& s) {
+  const int tid = threadIdx.x;
+  const int full = ws & ~(kQ - 1);        // taps in whole groups of kQ
+  const int stage = kTile + full + kQ;
+  for (int i = tid; i < stage; i += kThreads) {
+    const long long g = in0 + i;
+    s.xs[i] = (g >= 0 && g < N) ? xrow[g] : T(0);
+  }
+  for (int k = tid; k < kMaxWsPad; k += kThreads)
+    s.w[k] = k < ws ? w[k] : T(0);
+  __syncthreads();
+
+  const int base = tid * kQ;
+  T acc[kQ] = {T(0), T(0), T(0), T(0)};
+  T r[2 * kQ];
+  Vec4<T>::load(&s.xs[base], r);
+  for (int k = 0; k < full; k += kQ) {
+    Vec4<T>::load(&s.xs[base + k + kQ], r + kQ);
+    T wv[kQ];
+    Vec4<T>::load(&s.w[k], wv);
+#pragma unroll
+    for (int kk = 0; kk < kQ; ++kk)
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) acc[q] = madd(wv[kk], r[q + kk], acc[q]);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) r[q] = r[q + kQ];
+  }
+  const int rem = ws - full;
+  if (rem > 0) {
+    Vec4<T>::load(&s.xs[base + full + kQ], r + kQ);
+#pragma unroll
+    for (int kk = 0; kk < kQ - 1; ++kk) {
+      if (kk < rem) {
+        const T wk = s.w[full + kk];
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) acc[q] = madd(wk, r[q + kk], acc[q]);
+      }
+    }
+  }
+  __syncthreads();                       // every thread is done reading xs
+  Vec4<T>::store(&s.xs[base], acc);
+  __syncthreads();
+}
+
+// Blocks cover (row, tile) pairs flattened into gridDim.x, so any batch
+// size launches (gridDim.y would cap B at 65,535).
+inline cudaError_t grid_for(long long B, long long n_out, dim3* grid,
+                            long long* tiles) {
+  *tiles = (n_out + kTile - 1) / kTile;
+  const long long blocks = B * *tiles;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  *grid = dim3(static_cast<unsigned>(blocks));
+  return cudaSuccess;
+}
+
+}  // namespace sgt

@@ -1,0 +1,296 @@
+"""1D Savitzky-Golay application on tensors (counterpart of
+``savgol_tpu.ops.apply``).
+
+Semantics match the JAX package exactly (region layout of the reference,
+src/savgolFilter.c:743-804):
+
+  * center region (output j in [n, N-n)): correlation with the centered
+    stencil;
+  * POLYNOMIAL boundary: the n leading outputs come from the edge-weight
+    matrix applied to the *reversed* first window, the n trailing outputs
+    from the same rows applied forward to the last window;
+  * REFLECT / PERIODIC / CONSTANT boundaries: the virtual samples are built
+    on the host side of the kernel (symmetric / wrap / edge pad), then one
+    VALID correlation runs over the padded row;
+  * derivative outputs scaled by ``dt_inv`` = 1 / time_step**derivative;
+  * odd derivatives take the mathematically correct leading-edge sign
+    unless ``reference_edge_sign=True`` reproduces the C's flipped one.
+
+``method`` keeps the JAX package's values. "auto": the CUDA kernels for a
+CUDA tensor, their plain PyTorch versions for a CPU tensor. "xla": the
+plain versions. "pallas" / "mxu": the kernels, which need a CUDA tensor.
+"bf16" is not ported yet. Dispatch is by the tensor's device only: a CUDA
+tensor reaches a kernel or an error, never the plain version by fallback.
+
+Gradients: the kernels run forward inside ``torch.autograd.Function``s
+whose backward is autograd through the plain version, as the JAX package's
+custom VJPs take the VJP of their XLA twins.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from savgol_tpu_torch.config import PAD_MODE, BoundaryMode
+from savgol_tpu_torch.ops.cuda_conv import (correlate_valid_cuda,
+                                            correlate_valid_plain,
+                                            savgol_polynomial_cuda,
+                                            savgol_polynomial_plain,
+                                            scalar_like)
+
+__all__ = [
+    "savgol_apply_core",
+    "savgol_apply",
+    "savgol_apply_valid",
+]
+
+_METHODS = ("auto", "xla", "pallas", "mxu", "bf16")
+
+
+def _use_kernel(method: str, x: torch.Tensor) -> bool:
+    """Whether ``method`` routes through the kernel wrappers (which pick
+    the plain version for a CPU tensor themselves) or straight to the
+    plain version."""
+    if method not in _METHODS:
+        raise ValueError(
+            f"method must be 'auto', 'xla', 'pallas', 'mxu' or 'bf16', "
+            f"got {method!r}")
+    if method == "bf16":
+        raise NotImplementedError(
+            "method='bf16' is not ported yet: see ROADMAP.md, Queue 1, "
+            "'The rest of the 1D apply' (fused pad kernel K2 and bf16)")
+    if method in ("pallas", "mxu") and x.device.type != "cuda":
+        raise ValueError(
+            f"method={method!r} runs the CUDA kernel and needs a CUDA "
+            f"tensor, got one on {x.device}")
+    return method != "xla"
+
+
+def _check_device(x: torch.Tensor, *weights) -> None:
+    for w in weights:
+        if w is not None and w.device != x.device:
+            raise ValueError(
+                f"filter weights are on {w.device} but the input is on "
+                f"{x.device}")
+
+
+def _ensure_float(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Promote integer/bool inputs to the weights' floating dtype (casting
+    the weights down to an int dtype would truncate them to zero)."""
+    if not (x.is_floating_point() or x.is_complex()):
+        return x.to(w.dtype)
+    return x
+
+
+def _compute_dtype(x: torch.Tensor):
+    """Half-precision inputs compute in f32 (quantizing the weights to
+    bf16/f16 would cost ~1e-2 accuracy); returns (x_f32, restore_dtype)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.to(torch.float32), x.dtype
+    return x, None
+
+
+def _complex_split(fn, x: torch.Tensor) -> torch.Tensor:
+    """Apply a real-linear filter to complex data: real and imaginary parts
+    stacked as one extra batch pair (one kernel pass), then recombined."""
+    y = fn(torch.stack([x.real, x.imag]))
+    return torch.complex(y[0], y[1])
+
+
+def _move_axis_last(x: torch.Tensor, axis: int):
+    axis = axis % x.dim()
+    if axis == x.dim() - 1:
+        return x, None
+    return x.movedim(axis, -1), axis
+
+
+def _restore_axis(y: torch.Tensor, axis):
+    if axis is None:
+        return y
+    return y.movedim(-1, axis)
+
+
+def _pad_boundary(x: torch.Tensor, n: int, pad_mode: str) -> torch.Tensor:
+    """Pad the last axis by n virtual samples on each side, as ``jnp.pad``
+    does for ``pad_mode`` (the strips of ``_boundary_strips``,
+    pallas_conv.py:858-869). ``F.pad`` has no 'symmetric' mode, which the
+    reference's edge-duplicating REFLECT needs."""
+    if pad_mode == "symmetric":
+        left, right = x[..., :n].flip(-1), x[..., -n:].flip(-1)
+    elif pad_mode == "wrap":
+        left, right = x[..., -n:], x[..., :n]
+    elif pad_mode == "edge":
+        shape = x.shape[:-1] + (n,)
+        left, right = x[..., :1].expand(shape), x[..., -1:].expand(shape)
+    else:
+        raise ValueError(f"unsupported pad mode {pad_mode!r}")
+    return torch.cat([left, x, right], dim=-1)
+
+
+def _grads_through(plain, saved, needs, g):
+    """Gradients of ``plain(*saved)`` against cotangent ``g`` for the
+    inputs flagged in ``needs`` (None for the others)."""
+    inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+    wanted = [t for t, need in zip(inputs, needs) if need]
+    if not wanted:
+        return [None] * len(saved)
+    with torch.enable_grad():
+        y = plain(*inputs)
+    grads = iter(torch.autograd.grad(y, wanted, g))
+    return [next(grads) if need else None for need in needs]
+
+
+class _SavgolPolyFn(torch.autograd.Function):
+    """Fused POLYNOMIAL apply (kernel K1 on CUDA) whose backward is
+    autograd through ``savgol_polynomial_plain`` — the counterpart of
+    ``savgol_tpu.ops.apply._pallas_poly_diff``."""
+
+    @staticmethod
+    def forward(ctx, x, cw, ew, dt_inv, n: int, lead_sign: float):
+        ctx.save_for_backward(x, cw, ew, dt_inv)
+        ctx.n, ctx.lead_sign = n, lead_sign
+        return savgol_polynomial_cuda(x, cw, ew, n, dt_inv, lead_sign)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(x, cw, ew, dt):
+            return savgol_polynomial_plain(x, cw, ew, ctx.n, dt,
+                                           ctx.lead_sign)
+        grads = _grads_through(plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:4], g)
+        return (*grads, None, None)
+
+
+class _CorrValidFn(torch.autograd.Function):
+    """VALID correlation (kernel K3 on CUDA) whose backward is autograd
+    through ``correlate_valid_plain`` — the counterpart of
+    ``savgol_tpu.ops.apply._pallas_corr_diff``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return correlate_valid_cuda(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(_grads_through(correlate_valid_plain, ctx.saved_tensors,
+                                    ctx.needs_input_grad[:2], g))
+
+
+def _correlate(x: torch.Tensor, w: torch.Tensor, kernel: bool):
+    if kernel:
+        return _CorrValidFn.apply(x.contiguous(), w)
+    return correlate_valid_plain(x, w)
+
+
+def savgol_apply_core(
+    x: torch.Tensor,
+    center_w: torch.Tensor,
+    edge_w: Optional[torch.Tensor],
+    half_window: int,
+    boundary: BoundaryMode,
+    dt_inv: float | torch.Tensor = 1.0,
+    *,
+    derivative: int = 0,
+    reference_edge_sign: bool = False,
+    method: str = "auto",
+) -> torch.Tensor:
+    """Filter the last axis of ``x``; same-length output.
+
+    ``center_w``: (2n+1,) stencil; ``edge_w``: (n, 2n+1) edge rows (required
+    for POLYNOMIAL boundary, ignored otherwise). Differentiable in ``x``,
+    the weights and a tensor ``dt_inv``.
+    """
+    if not isinstance(boundary, BoundaryMode):
+        boundary = BoundaryMode(boundary)
+    n = int(half_window)
+    ws = 2 * n + 1
+    kernel = _use_kernel(method, x)
+    N = x.shape[-1]
+    if N < ws:
+        raise ValueError(
+            f"data length ({N}) must be >= window size ({ws})")
+    _check_device(x, center_w, edge_w)
+    if x.is_complex():
+        return _complex_split(
+            lambda v: savgol_apply_core(
+                v, center_w, edge_w, half_window, boundary, dt_inv,
+                derivative=derivative,
+                reference_edge_sign=reference_edge_sign, method=method), x)
+    x = _ensure_float(x, center_w)
+    x, restore = _compute_dtype(x)
+    dt = scalar_like(dt_inv, x)
+
+    if boundary is BoundaryMode.POLYNOMIAL:
+        lead_sign = 1.0
+        if not reference_edge_sign and int(derivative) % 2 == 1:
+            lead_sign = -1.0
+        if kernel:
+            y = _SavgolPolyFn.apply(x.contiguous(), center_w, edge_w, dt, n,
+                                    lead_sign)
+        else:
+            y = savgol_polynomial_plain(x, center_w, edge_w, n, dt,
+                                        lead_sign)
+    else:
+        xp = _pad_boundary(x, n, PAD_MODE[boundary])
+        y = _correlate(xp, center_w, kernel) * dt
+    return y.to(restore) if restore is not None else y
+
+
+def savgol_apply(
+    x: torch.Tensor,
+    center_w: torch.Tensor,
+    edge_w: Optional[torch.Tensor] = None,
+    *,
+    half_window: int,
+    boundary: BoundaryMode = BoundaryMode.POLYNOMIAL,
+    dt_inv: float | torch.Tensor = 1.0,
+    derivative: int = 0,
+    reference_edge_sign: bool = False,
+    axis: int = -1,
+    method: str = "auto",
+) -> torch.Tensor:
+    """Apply a precomputed Savitzky-Golay filter along ``axis`` of ``x``
+    (reference ``savgol_apply``, src/savgolFilter.c:743, generalized to ND
+    tensors; ``axis`` replaces ``savgol_apply_strided``)."""
+    xl, moved = _move_axis_last(x, axis)
+    y = savgol_apply_core(
+        xl, center_w, edge_w, half_window, boundary, dt_inv,
+        derivative=derivative, reference_edge_sign=reference_edge_sign,
+        method=method)
+    return _restore_axis(y, moved)
+
+
+def savgol_apply_valid(
+    x: torch.Tensor,
+    center_w: torch.Tensor,
+    *,
+    half_window: int,
+    dt_inv: float | torch.Tensor = 1.0,
+    axis: int = -1,
+    method: str = "auto",
+) -> torch.Tensor:
+    """VALID-mode apply: only positions with a full window; output length
+    N - 2*half_window (reference src/savgolFilter.c:821-850)."""
+    ws = 2 * int(half_window) + 1
+    xl, moved = _move_axis_last(x, axis)
+    kernel = _use_kernel(method, xl)
+    if xl.shape[-1] < ws:
+        raise ValueError(
+            f"data length ({xl.shape[-1]}) must be >= window size ({ws})")
+    _check_device(xl, center_w)
+    if xl.is_complex():
+        y = _complex_split(
+            lambda v: savgol_apply_valid(
+                v, center_w, half_window=half_window, dt_inv=dt_inv,
+                method=method), xl)
+        return _restore_axis(y, moved)
+    xl = _ensure_float(xl, center_w)
+    xl, restore = _compute_dtype(xl)
+    dt = scalar_like(dt_inv, xl)
+    y = _correlate(xl, center_w, kernel) * dt
+    if restore is not None:
+        y = y.to(restore)
+    return _restore_axis(y, moved)
