@@ -3,9 +3,12 @@ NVIDIA H100.
 
 It imports ``torch`` and numpy, never JAX. The batched 1D path is ported:
 host-f64 weights, the same-length POLYNOMIAL apply (CUDA kernel K1) and the
-VALID correlation (CUDA kernel K3), and the :class:`Savgol1D` module. The
-kernels are built with ``nvcc`` at their first call on a CUDA tensor; CPU
-tensors take their plain PyTorch versions.
+VALID correlation (CUDA kernel K3), and the :class:`Savgol1D` module. So is
+the 2D path: host-f64 2D stencils, :class:`Savgol2D`, ``savgol2d_apply``,
+the stacked gradient / Hessian and the Laplacian, on a dense (K2D-dense) and
+a separable (K2D-sep) 2D correlation kernel. The kernels are built with
+``nvcc`` at their first call on a CUDA tensor; CPU tensors take their plain
+PyTorch versions.
 
 Quick start::
 
@@ -14,6 +17,8 @@ Quick start::
 
     f = sgt.Savgol1D.create(sgt.SavgolConfig(12, 4), device="cuda")
     y = f.apply(x)                          # x: (..., N) tensor on the card
+    f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(5, 5, 3), device="cuda")
+    img = f2.apply(images)                  # images: (..., R, C)
 """
 
 from savgol_tpu_torch.config import (
@@ -29,9 +34,18 @@ from savgol_tpu_torch.config import (
     num_terms_2d,
     smooth,
 )
-from savgol_tpu_torch.models import Savgol1D
+from savgol_tpu_torch.models import Savgol1D, Savgol2D
 from savgol_tpu_torch.ops.apply import savgol_apply, savgol_apply_valid
-from savgol_tpu_torch.ops.weights import (savgol_all_weights_np,
+from savgol_tpu_torch.ops.apply2d import (
+    savgol2d_apply,
+    savgol2d_apply_stack,
+    savgol2d_gradient,
+    savgol2d_hessian,
+    savgol2d_laplacian,
+)
+from savgol_tpu_torch.ops.weights import (monomial_index,
+                                          savgol2d_weights_np,
+                                          savgol_all_weights_np,
                                           savgol_weights_np)
 
 __version__ = "0.3.0"
@@ -40,7 +54,10 @@ __all__ = [
     "BoundaryMode", "Boundary2D", "SavgolConfig", "Savgol2DConfig",
     "MAX_HALF_WINDOW", "MAX_POLY_ORDER", "MAX_DERIVATIVE",
     "smooth", "deriv1", "deriv2", "num_terms_2d",
-    "Savgol1D",
+    "Savgol1D", "Savgol2D",
     "savgol_weights_np", "savgol_all_weights_np",
+    "savgol2d_weights_np", "monomial_index",
     "savgol_apply", "savgol_apply_valid",
+    "savgol2d_apply", "savgol2d_apply_stack", "savgol2d_gradient",
+    "savgol2d_hessian", "savgol2d_laplacian",
 ]

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels at first use.
 
 The kernel sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain ``extern "C"`` interface,
-which is loaded with ``ctypes``. Nothing here includes PyTorch's headers, so
-a build takes seconds rather than minutes. The library is named after a hash
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain ``extern "C"`` interface, which
+is loaded with ``ctypes``. Nothing here includes PyTorch's headers, so a
+build takes seconds rather than minutes. The library is named after a hash
 of the sources and flags, so an edited source builds anew and an unchanged
 one is loaded from ``build/savgol_tpu_torch/``.
 
@@ -20,18 +21,21 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 
 __all__ = ["build", "library", "BUILD_DIR"]
 
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "savgol_tpu_torch"
-_SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu")
+_SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr2d_valid.cu",
+            "corr2d_sep.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
+_I = ctypes.c_int
 _SIGNATURES = {
     "sg1d_poly_f32": [_P, _P, _P, _P, _LL, _LL, ctypes.c_int,
                       ctypes.c_float, _P],
@@ -39,6 +43,12 @@ _SIGNATURES = {
                       ctypes.c_double, _P],
     "corr1d_valid_f32": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
     "corr1d_valid_f64": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
+    # x, w, out, B, R, C, K, H, W, mode, stream
+    "corr2d_valid_f32": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
+    "corr2d_valid_f64": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
+    # x, u, v, out, B, R, C, rank, H, W, mode, stream
+    "corr2d_sep_f32": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
+    "corr2d_sep_f64": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
 }
 
 
@@ -68,6 +78,19 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the output of the first
+    that fails, after all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> pathlib.Path:
     """Compile the kernels unless a library for these sources exists;
     returns its path. Raises RuntimeError with nvcc's output on failure."""
@@ -75,16 +98,15 @@ def build() -> pathlib.Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)          # atomic: a concurrent loader sees all or none
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        nvcc, tmp = _nvcc(), pathlib.Path(tmp_dir)
+        objs = [tmp / f"{pathlib.Path(s).stem}.o" for s in _SOURCES]
+        _run_all([[nvcc, *_FLAGS, "-c", str(_CSRC / s), "-o", str(o)]
+                  for s, o in zip(_SOURCES, objs)])
+        tmp_lib = tmp / lib.name
+        _run_all([[nvcc, *_FLAGS, "-shared", "-o", str(tmp_lib),
+                   *map(str, objs)]])
+        os.replace(tmp_lib, lib)  # atomic: a concurrent loader sees all or none
     return lib
 
 

@@ -1,4 +1,6 @@
-// Shared tile stencil of the 1D kernels (sg1d_poly.cu, corr1d_valid.cu).
+// The tap loop of a staged row (row_taps4: the 1D kernels and the row pass
+// of corr2d_sep.cu) and the shared tile stencil of the 1D kernels
+// (sg1d_poly.cu, corr1d_valid.cu).
 //
 // One block computes TILE consecutive outputs of one row:
 //
@@ -11,12 +13,8 @@
 // sample of a row is read from device memory once plus a halo of about ws
 // samples per tile.
 //
-// Each thread owns Q = 4 consecutive outputs and slides a register window
-// over the staged span: every 4 taps cost one 16-byte shared load of x and
-// one broadcast 16-byte load of w for 16 FMAs. Taps past the last full
-// group of 4 run one at a time, so no padded (zero-weight) tap ever reads a
-// sample outside the window: an inf or NaN there would otherwise turn the
-// output into NaN.
+// Each thread owns Q = 4 consecutive outputs and runs row_taps4 over the
+// staged span.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,6 +63,44 @@ template <> struct Vec4<double> {
   }
 };
 
+// acc[j] += sum_{k < W} w[k] * row[j + k] for the 4 outputs j < 4 of one
+// staged row. row and w are 16-byte aligned, w is zero-padded to a multiple
+// of 4, and row[0, (W & ~3) + 8) is readable. A register window slides over
+// the row: each group of 4 taps costs one 16-byte load of the row and one
+// broadcast 16-byte load of the taps for 16 FMAs. The last W mod 4 taps run
+// one at a time, so no padding tap reads a sample outside the window: an
+// inf there would make the output NaN.
+template <typename T>
+__device__ __forceinline__ void row_taps4(const T* __restrict__ row,
+                                          const T* __restrict__ w, int W,
+                                          T acc[kQ]) {
+  const int full = W & ~(kQ - 1);          // taps in whole groups of kQ
+  T r[2 * kQ];
+  Vec4<T>::load(row, r);
+  for (int g = 0; g < full; g += kQ) {
+    Vec4<T>::load(row + g + kQ, r + kQ);
+    T wv[kQ];
+    Vec4<T>::load(w + g, wv);
+#pragma unroll
+    for (int kk = 0; kk < kQ; ++kk)
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) acc[j] = madd(wv[kk], r[j + kk], acc[j]);
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) r[j] = r[j + kQ];
+  }
+  const int rem = W - full;
+  if (rem == 0) return;
+  Vec4<T>::load(row + full + kQ, r + kQ);
+#pragma unroll
+  for (int kk = 0; kk < kQ - 1; ++kk) {
+    if (kk < rem) {
+      const T wk = w[full + kk];
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) acc[j] = madd(wk, r[j + kk], acc[j]);
+    }
+  }
+}
+
 // Shared buffers of one block. xs holds the staged input and, after the
 // compute, the block's TILE outputs.
 template <typename T> struct TileSmem {
@@ -79,8 +115,7 @@ __device__ void tile_correlate(const T* __restrict__ xrow, long long N,
                                long long in0, const T* __restrict__ w,
                                int ws, TileSmem<T>& s) {
   const int tid = threadIdx.x;
-  const int full = ws & ~(kQ - 1);        // taps in whole groups of kQ
-  const int stage = kTile + full + kQ;
+  const int stage = kTile + (ws & ~(kQ - 1)) + kQ;
   for (int i = tid; i < stage; i += kThreads) {
     const long long g = in0 + i;
     s.xs[i] = (g >= 0 && g < N) ? xrow[g] : T(0);
@@ -91,31 +126,7 @@ __device__ void tile_correlate(const T* __restrict__ xrow, long long N,
 
   const int base = tid * kQ;
   T acc[kQ] = {T(0), T(0), T(0), T(0)};
-  T r[2 * kQ];
-  Vec4<T>::load(&s.xs[base], r);
-  for (int k = 0; k < full; k += kQ) {
-    Vec4<T>::load(&s.xs[base + k + kQ], r + kQ);
-    T wv[kQ];
-    Vec4<T>::load(&s.w[k], wv);
-#pragma unroll
-    for (int kk = 0; kk < kQ; ++kk)
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) acc[q] = madd(wv[kk], r[q + kk], acc[q]);
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) r[q] = r[q + kQ];
-  }
-  const int rem = ws - full;
-  if (rem > 0) {
-    Vec4<T>::load(&s.xs[base + full + kQ], r + kQ);
-#pragma unroll
-    for (int kk = 0; kk < kQ - 1; ++kk) {
-      if (kk < rem) {
-        const T wk = s.w[full + kk];
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) acc[q] = madd(wk, r[q + kk], acc[q]);
-      }
-    }
-  }
+  row_taps4(&s.xs[base], s.w, ws, acc);
   __syncthreads();                       // every thread is done reading xs
   Vec4<T>::store(&s.xs[base], acc);
   __syncthreads();

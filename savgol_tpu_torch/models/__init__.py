@@ -1,6 +1,7 @@
 """Filter modules mirroring the reference's create/apply lifecycle
-(counterpart of ``savgol_tpu.models``; only the 1D filter is ported)."""
+(counterpart of ``savgol_tpu.models``; the 1D and 2D filters are ported)."""
 
 from savgol_tpu_torch.models.filter1d import Savgol1D
+from savgol_tpu_torch.models.filter2d import Savgol2D
 
-__all__ = ["Savgol1D"]
+__all__ = ["Savgol1D", "Savgol2D"]
