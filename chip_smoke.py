@@ -11,9 +11,16 @@ kernels and their plain versions with CUDA events. Then the same for the 2D
 path: a grid of windows, boundaries, stencil stacks, images and dtypes
 through the dense and separable kernels, ``Savgol2D.create(Savgol2DConfig(5,
 5, 3)).apply`` and the derivative stacks on a (16, 2048, 2048) float32
-batch against a float64 reference, gradients, and timings. Every phase
-prints one line; any failure raises and the script exits nonzero. The last
-line is the JSON device record; the line before it lists the kernels.
+batch against a float64 reference, gradients, and timings. Then the masked
+(missing-data) path: the plane solves K8a/K8b, the fused masked kernels K9
+(1D) and K10 (2D) against their plain versions over grids of orders,
+masks, boundaries, shapes and dtypes; ``savgol_apply_masked`` (normal and
+``solver="qr"``) on a (64, 131,072) float32 batch and
+``savgol2d_apply_masked`` on a 1024 x 1024 image, 20% holes, against
+float64, with each entry point's kernel launches counted; gradients; and
+timings, K9 and K10 also at the headline batches. Every phase prints one
+line; any failure raises and the script exits nonzero. The last line is the
+JSON device record; the line before it lists the kernels.
 
 Exits nonzero without a CUDA device. Imports nothing of JAX.
 """
@@ -42,6 +49,34 @@ WINDOWS_2D = ((3, 3), (5, 3), (11, 11), (7, 13), (23, 23), (33, 33))
 IMAGES_2D = ((1, 2047, 2049), (3, 37, 29), (2, 3, 5))
 BOUNDARIES_2D = ("valid", "constant", "reflect", "periodic")
 DERIVS_2D = ([(1, 1)], [(1, 0), (0, 1)], [(2, 0), (1, 1), (0, 2)])
+
+
+# the masked (missing-data) path: bench.py:581-633's rows, holes at 20%
+MASK_FRAC = 0.2
+MASKED_1D = (64, 131_072)      # n = 12, m = 4, fill 0; "qr" on 8 rows
+MASKED_2D = (1024, 1024)       # 11x11, order 3, fill 0
+MASKED_1D_HEAD = (B_FULL, N_FULL)   # K9 timed alone at the 1D headline batch
+# gates: tests/test_fused_masked.py (K9 vs its plain version, 2e-5 scaled),
+# bench.py:601-605 (2e-4 abs vs f64 on windows >= 18 of 25 valid),
+# tests/test_masked.py:240 (qr 5e-5 scaled vs f64), and
+# tests/test_masked2d_fused.py:60-81 (K10 5e-5 scaled vs f64)
+K9_TOL, K9_SLICE_ABS, QR_TOL, K10_TOL = 2e-5, 2e-4, 5e-5, 5e-5
+MASKED_F64_TOL = 1e-9
+WELL = 0.7                     # "well covered": >= 70% of a window valid
+BOUNDARIES_MASKED = ("truncate", "constant", "reflect", "periodic")
+K8_KS = (1, 3, 5, 10, 15, 28, 33)
+# (n, m, d): m up to 2n, k past the local arrays at m = 40
+K9_CONFIGS = ((2, 2, 0), (2, 4, 1), (4, 2, 2), (12, 4, 1), (32, 6, 0),
+              (64, 3, 1), (64, 40, 0))
+K9_GRID_FRAC = 0.12            # holes in the K9 and K10 grids
+# (nx, ny, m): 3x3, 5x5, 11x11, 7x13 and 23x23 windows, orders 2-4 (5x5
+# order 4 is left out: 15 terms in 25 samples, nearly determined under
+# holes), then order 6 (P = 28) at 23x23 and the largest window, 33x33
+K10_CONFIGS = ((1, 1, 2), (2, 2, 2), (2, 2, 3), (5, 5, 2),
+               (5, 5, 3), (5, 5, 4), (3, 6, 2), (3, 6, 3), (3, 6, 4),
+               (11, 11, 2), (11, 11, 3), (11, 11, 4), (11, 11, 6),
+               (16, 16, 6))
+K10_DERIVS = ((0, 0), (1, 0), (0, 1), (1, 1), (2, 0))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -103,6 +138,561 @@ def grid_2d(sgt, c2, dev) -> str:
     return (f"2D grid: {cases} cases, worst scaled error "
             f"dense={worst['corr2d_valid']:.3e} sep={worst['corr2d_sep']:.3e}"
             f" (tol f32 {F32_TOL_2D}, f64 {F64_TOL}), launches {launches}")
+
+
+# -- the masked path ---------------------------------------------------------
+
+
+def masked_modules():
+    from savgol_tpu_torch.ops import (cuda_conv, cuda_conv2d, cuda_masked,
+                                      cuda_masked2d, cuda_solve)
+    return (cuda_conv, cuda_conv2d, cuda_solve, cuda_masked, cuda_masked2d)
+
+
+def counted_all(run, want: dict, what: str):
+    """run() with every kernel's launch count zeroed just before and read
+    just after; kernels not named in ``want`` must not launch."""
+    mods = masked_modules()
+    torch.cuda.synchronize()
+    for mod in mods:
+        mod.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    got = {}
+    for mod in mods:
+        got.update(mod.LAUNCHES)
+    expect = {k: want.get(k, 0) for k in got}
+    require(got == expect, f"{what} launched {got}, expected {expect}")
+    return out, got
+
+
+def holed(rng, shape, frac):
+    """float32 values with NaN holes (as float64) and their validity."""
+    x = rng.standard_normal(shape).astype(np.float32).astype(np.float64)
+    valid = rng.random(shape) >= frac
+    x[~valid] = np.nan
+    return x, valid
+
+
+def coverage(valid: torch.Tensor, boundary: str, nx: int, ny=None):
+    """Share of each output's window samples that are valid, the window
+    extended by the boundary's padding as the masked path pads (1D when
+    ``ny`` is None)."""
+    import torch.nn.functional as F
+    from savgol_tpu_torch.config import PAD_MODE, Boundary2D, BoundaryMode
+    from savgol_tpu_torch.ops.apply2d import _PAD_MODE_2D
+    from savgol_tpu_torch.ops.cuda_conv import correlate_valid_plain
+    from savgol_tpu_torch.ops.cuda_conv2d import (correlate2d_valid_plain,
+                                                  pad2d_plain)
+    from savgol_tpu_torch.ops.masked import _pad_last
+    ind = valid.to(torch.float64)
+    trunc = boundary == "truncate"
+    if ny is None:
+        p = _pad_last(ind, nx, None if trunc
+                      else PAD_MODE[BoundaryMode(boundary)])
+        ones = torch.ones(2 * nx + 1, dtype=ind.dtype, device=ind.device)
+        return correlate_valid_plain(p, ones) / (2 * nx + 1)
+    p = (F.pad(ind, (nx, nx, ny, ny)) if trunc else
+         pad2d_plain(ind, ny, nx, _PAD_MODE_2D[Boundary2D(boundary)]))
+    area = (2 * nx + 1) * (2 * ny + 1)
+    ones = torch.ones(2 * ny + 1, 2 * nx + 1, dtype=ind.dtype,
+                      device=ind.device)
+    return correlate2d_valid_plain(p, ones) / area
+
+
+def masked_err(got, want, tol, where, what, decided=None):
+    """Scaled max error of ``got`` against ``want`` on the outputs finite in
+    both and in ``where``; finiteness must agree on ``decided`` (everywhere
+    by default). Returns (scaled error, finiteness mismatches elsewhere)."""
+    got, want = got.double(), want.double()
+    fg, fw = torch.isfinite(got), torch.isfinite(want)
+    differ = fg != fw
+    if decided is None:
+        decided = torch.ones_like(differ)
+    bad = int((differ & decided).sum())
+    require(bad == 0, f"{what}: finiteness differs at {bad} decided outputs")
+    sel = fg & fw & where
+    if not bool(sel.any()):
+        return 0.0, int(differ.sum())
+    scale = max(1.0, want[sel].abs().max().item())
+    err = (got - want)[sel].abs().max().item() / scale
+    require(err <= tol, f"{what}: scaled error {err:.3e} > {tol:.1e}")
+    return err, int(differ.sum())
+
+
+def k8_grid(dev) -> str:
+    """K8a and K8b against their plain versions over k, dtype and rcond on
+    random SPD planes with under-quorum, badly scaled (rcond-rejected) and
+    rank-one (shifted-factor) positions."""
+    from savgol_tpu_torch.ops import cuda_solve as cs
+    from savgol_tpu_torch.ops import lsq
+    rng = np.random.default_rng(8)
+    worst = {"K8a": 0.0, "K8b": 0.0}
+    cases = 0
+    cs.reset_launches()
+    for k in K8_KS:
+        pos = 20_000 if k <= 10 else 3_000
+        A = rng.standard_normal((pos, 3 * k + 2, k))
+        scaled = rng.random(pos) < 0.05
+        A[scaled, :, -1] *= 1e-5
+        G = np.einsum("pwi,pwj->pij", A, A) / (3 * k + 2)
+        v = rng.standard_normal((pos, k))
+        rank_one = (rng.random(pos) < 0.05) & ~scaled
+        G[rank_one] = np.einsum("pi,pj->pij", v, v)[rank_one]
+        pi = np.zeros((k, k), np.int32)
+        iu = [(a, b) for a in range(k) for b in range(a, k)]
+        for e, (a, b) in enumerate(iu):
+            pi[a, b] = pi[b, a] = e
+        gram = np.stack([G[:, a, b] for a, b in iu])
+        rhs = rng.standard_normal((k, pos))
+        lo_noise = rng.standard_normal(gram.shape)
+        quorum = torch.from_numpy(rng.random(pos) < 0.9).to(dev)
+        good = torch.from_numpy(~scaled & ~rank_one).to(dev)
+        # where ok must agree: off the rank-one Grams, whose factor is
+        # rounding noise; in f32 also off the scaled ones (cond 1e10, past
+        # 1/eps); in f64 rcond 1e-8 rejects those on both sides
+        decided = {torch.float32: good,
+                   torch.float64: torch.from_numpy(~rank_one).to(dev)}
+        for dtype, tol, rc, ulp in ((torch.float32, 1e-5, 1e-6, 2.0 ** -30),
+                                    (torch.float64, 1e-12, 1e-8,
+                                     2.0 ** -60)):
+            g = torch.from_numpy(gram).to(dev, dtype)
+            r = torch.from_numpy(rhs).to(dev, dtype)
+            # lo words below half an ulp of the hi words
+            glo = (g.double() * torch.from_numpy(lo_noise).to(dev) * ulp
+                   ).to(dtype)
+            rlo = torch.zeros_like(r)
+            for rcond in (None, rc):
+                for name in ("K8a", "K8b"):
+                    if name == "K8a":
+                        got, ok = cs.plane_solve_cuda(g, pi, r, quorum, rcond)
+                        want, wok = lsq.cholesky_solve_planes(g, pi, r, quorum,
+                                                              rcond)
+                    else:
+                        got, ok = cs.plane_solve_dd_cuda(g, glo, pi, r, rlo,
+                                                         quorum, rcond)
+                        want, wok = lsq.cholesky_solve_planes_dd(
+                            g, glo, pi, r, rlo, quorum, rcond)
+                    what = f"{name} k={k} {dtype} rcond={rcond}"
+                    sel = decided[dtype]
+                    require(torch.equal(ok[sel], wok[sel]),
+                            f"{what}: ok differs")
+                    e, s = max_err(got[:, good], want[:, good])
+                    require(e <= tol * s, f"{what}: {e:.3e} (scale {s:.3e})")
+                    worst[name] = max(worst[name], e / s)
+                    cases += 1
+    torch.cuda.synchronize()
+    launches = dict(cs.LAUNCHES)
+    require(all(v > 0 for v in launches.values()),
+            f"K8 grid did not reach every kernel: {launches}")
+    return (f"K8 grid: {cases} cases (k {K8_KS}, f32/f64, rcond off/on), "
+            f"worst scaled error K8a={worst['K8a']:.3e} "
+            f"K8b={worst['K8b']:.3e} (tol f32 1e-5, f64 1e-12), ok "
+            f"identical where decided, launches {launches}")
+
+
+def k9_cases(n: int, m: int):
+    """(shape, dtype, weighted, boundary, hole share) for the K9 grid."""
+    f32, f64 = torch.float32, torch.float64
+    if m > 10:
+        # 861 pair stencils: the plain version takes ~1 s a call. A degree-40
+        # fit over 129 samples gives a window's end samples a leverage of ~1,
+        # so one hole there leaves G singular for any solver: hole-free,
+        # every window whole (reflect)
+        return [((3, 131), f64, False, "reflect", 0.0),
+                ((3, 131), f32, True, "reflect", 0.0)]
+    cases = [(shape, dt, w, b, K9_GRID_FRAC)
+             for shape in ((1, 2 * n + 1), (3, 131), (3, 4099))
+             for dt in (f32, f64) for w in (False, True)
+             for b in BOUNDARIES_MASKED]
+    # the bench shape once a dtype, the boundary turning with n
+    cases += [(MASKED_1D, dt, bool(i), BOUNDARIES_MASKED[(n + i) % 4],
+               K9_GRID_FRAC) for i, dt in enumerate((f32, f64))]
+    return cases
+
+
+def k9_grid(sgt, dev) -> str:
+    """K9 (savgol_apply_masked, solver="normal") against the plain staged
+    version on the card over n, m, d, shapes, dtypes, masks and boundaries,
+    then the JAX package's two K9 gates that its moment-form kernel misses
+    (fault R1)."""
+    from savgol_tpu_torch.ops import cuda_masked as c9
+    rng = np.random.default_rng(9)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    cases = 0
+    c9.reset_launches()
+    for n, m, d in K9_CONFIGS:
+        for shape, dtype, weighted, bnd, frac in k9_cases(n, m):
+            x_np, valid_np = holed(rng, shape, frac)
+            x = torch.from_numpy(x_np).to(dev, dtype)
+            valid = torch.from_numpy(valid_np).to(dev)
+            mask = valid
+            if weighted:
+                mask = torch.from_numpy(np.where(
+                    valid_np, rng.uniform(0.2, 2.0, shape), 0.0).astype(
+                    np.float32)).to(dev, dtype)
+            kw = dict(half_window=n, poly_order=m, derivative=d,
+                      time_step=0.5, mask=mask, boundary=bnd)
+            got = sgt.savgol_apply_masked(x, **kw)
+            want = sgt.savgol_apply_masked(x, method="xla", **kw)
+            tol = K9_TOL if dtype == torch.float32 else MASKED_F64_TOL
+            well = coverage(valid, bnd, n) >= WELL
+            e, _ = masked_err(got, want, tol, well,
+                              f"K9 n={n} m={m} d={d} {shape} {dtype} "
+                              f"weighted={weighted} {bnd}")
+            worst[dtype] = max(worst[dtype], e)
+            cases += 1
+    # tests/test_fused_masked.py::test_weighted and
+    # ::test_odd_length_partial_block, their data and gates, on the card
+    named = {}
+    for name, seed, shape, n, m, weighted in (
+            ("test_weighted", 7, (2, 400), 6, 3, True),
+            ("test_odd_length_partial_block", 13, (1, 131), 4, 2, False)):
+        r = np.random.default_rng(seed)
+        x_np = r.standard_normal(shape).astype(np.float32)
+        valid_np = r.random(shape) > 0.15
+        x_np[~valid_np] = np.nan
+        mask = torch.from_numpy(valid_np).to(dev)
+        if weighted:
+            mask = torch.from_numpy(np.where(
+                valid_np, r.uniform(0.2, 2.0, shape), 0.0).astype(
+                np.float32)).to(dev)
+        x = torch.from_numpy(x_np).to(dev)
+        kw = dict(half_window=n, poly_order=m, mask=mask)
+        got = sgt.savgol_apply_masked(x, **kw)
+        want = sgt.savgol_apply_masked(x, method="xla", **kw)
+        fin = torch.isfinite(want)
+        require(torch.equal(torch.isfinite(got), fin), f"K9 {name}: fill")
+        err = (got - want)[fin].abs().max().item()
+        gate = K9_TOL * (max(1.0, want[fin].abs().max().item())
+                         if weighted else 1.0)
+        require(err <= gate, f"K9 {name}: {err:.3e} > {gate:.3e}")
+        named[name] = err
+    torch.cuda.synchronize()
+    require(c9.LAUNCHES["masked1d"] == cases + 2,
+            f"K9 grid launched {c9.LAUNCHES}, expected {cases + 2}")
+    return (f"K9 grid: {cases} cases, worst scaled error on windows >= "
+            f"{WELL:.0%} valid f32={worst[torch.float32]:.3e} "
+            f"f64={worst[torch.float64]:.3e} (tol {K9_TOL}, "
+            f"{MASKED_F64_TOL}), finiteness identical everywhere; "
+            + ", ".join(f"{k} {v:.3e}" for k, v in named.items())
+            + f" (gate {K9_TOL}); launches {dict(c9.LAUNCHES)}")
+
+
+def k10_grid(sgt, dev) -> str:
+    """K10 (savgol2d_apply_masked, method="auto") in f32 and f64 against the
+    plain staged version in f64 over windows, orders, derivatives, masks,
+    boundaries and the images of IMAGES_2D. The two use different bases (a
+    tensor-product basis for the Gram moments, a joint QR basis), so the
+    rcond rule may decide differently where the window's samples barely
+    determine the fit: finiteness must agree on windows >= 70% valid, and
+    the mismatches elsewhere are counted."""
+    from savgol_tpu_torch.ops import cuda_masked2d as c10
+    rng = np.random.default_rng(10)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    cases = loose = 0
+    c10.reset_launches()
+    for ci, (nx, ny, m) in enumerate(K10_CONFIGS):
+        dx, dy = K10_DERIVS[ci % len(K10_DERIVS)]
+        if dx + dy > m:
+            dx, dy = 0, 0
+        for si, shape in enumerate(IMAGES_2D):
+            x_np, valid_np = holed(rng, shape, K9_GRID_FRAC)
+            x64 = torch.from_numpy(x_np).to(dev)
+            valid = torch.from_numpy(valid_np).to(dev)
+            w64 = torch.from_numpy(np.where(
+                valid_np, rng.uniform(0.2, 2.0, shape), 0.0).astype(
+                np.float32).astype(np.float64)).to(dev)
+            for weighted in (False, True):
+                for bi, bnd in enumerate(BOUNDARIES_MASKED):
+                    # the 4 M pixel image once a configuration up to order
+                    # 4 (the plain version's 406 order-6 Gram planes would
+                    # take 14 GB a copy there)
+                    if si == 0 and (m > 4 or bi != ci % 4
+                                    or weighted != bool(ci % 2)):
+                        continue
+                    kw = dict(half_window_x=nx, half_window_y=ny,
+                              poly_order=m, deriv_x=dx, deriv_y=dy,
+                              delta_x=0.5, delta_y=2.0, boundary=bnd)
+                    mask64 = w64 if weighted else valid
+                    want = sgt.savgol2d_apply_masked(
+                        x64, mask=mask64, method="xla", **kw)
+                    well = coverage(valid, bnd, nx, ny) >= WELL
+                    for dtype in (torch.float32, torch.float64):
+                        mask = mask64.to(dtype) if weighted else valid
+                        got = sgt.savgol2d_apply_masked(
+                            x64.to(dtype), mask=mask, **kw)
+                        tol = (K10_TOL if dtype == torch.float32
+                               else MASKED_F64_TOL)
+                        e, nloose = masked_err(
+                            got, want, tol, well,
+                            f"K10 {nx}x{ny} m={m} d=({dx},{dy}) {shape} "
+                            f"{dtype} weighted={weighted} {bnd}",
+                            decided=well)
+                        worst[dtype] = max(worst[dtype], e)
+                        loose += nloose
+                        cases += 1
+    torch.cuda.synchronize()
+    require(c10.LAUNCHES["masked2d"] == cases,
+            f"K10 grid launched {c10.LAUNCHES}, expected {cases}")
+    return (f"K10 grid: {cases} cases vs f64 plain, worst scaled error on "
+            f"windows >= {WELL:.0%} valid f32={worst[torch.float32]:.3e} "
+            f"f64={worst[torch.float64]:.3e} (tol {K10_TOL}, "
+            f"{MASKED_F64_TOL}); {loose} outputs on thinner windows decided "
+            f"differently by rcond; launches {dict(c10.LAUNCHES)}")
+
+
+def masked_slice(sgt, dev, card) -> list:
+    """The masked path at the bench sizes through the user's entry points:
+    launch counts per entry point, accuracy against f64, gradients, and
+    CUDA-event timings of each kernel and its plain version. Returns the
+    masked kernels' records for the {"kernels": ...} line."""
+    from savgol_tpu_torch.ops import cuda_masked as c9
+    from savgol_tpu_torch.ops import cuda_masked2d as c10
+    from savgol_tpu_torch.ops import cuda_solve as cs
+    from savgol_tpu_torch.ops import lsq
+    from savgol_tpu_torch.ops import masked as mk
+    from savgol_tpu_torch.utils.timing import cuda_time_ms
+
+    rng = np.random.default_rng(1002)
+    x_np, valid_np = holed(rng, MASKED_1D, MASK_FRAC)
+    x = torch.from_numpy(x_np).to(dev, torch.float32)
+    valid = torch.from_numpy(valid_np).to(dev)
+    kw1 = dict(half_window=12, poly_order=4, mask=valid, fill=0.0)
+    # -- launch counts, one zeroed window an entry point --
+    y1, l_normal = counted_all(lambda: sgt.savgol_apply_masked(x, **kw1),
+                               {"masked1d": 1}, "savgol_apply_masked")
+    yq, l_qr = counted_all(
+        lambda: sgt.savgol_apply_masked(x[:8], solver="qr", **{
+            **kw1, "mask": valid[:8]}),
+        {"plane_solve_dd": 1}, "savgol_apply_masked(solver='qr')")
+    rng2 = np.random.default_rng(1003)
+    img_np, valid2_np = holed(rng2, MASKED_2D, MASK_FRAC)
+    img = torch.from_numpy(img_np).to(dev, torch.float32)
+    valid2 = torch.from_numpy(valid2_np).to(dev)
+    kw2 = dict(half_window_x=5, half_window_y=5, poly_order=3, mask=valid2,
+               fill=0.0)
+    y2, l_2d = counted_all(lambda: sgt.savgol2d_apply_masked(img, **kw2),
+                           {"masked2d": 1}, "savgol2d_apply_masked")
+    # outside fused2d_supported: two K2D-dense banks (the weights with the
+    # pair stencils, the values with the basis stencils), then K8a
+    y2u, l_2du = counted_all(
+        lambda: sgt.savgol2d_apply_masked(
+            img[:256, :256], half_window_x=1, half_window_y=5,
+            poly_order=3, mask=valid2[:256, :256], fill=0.0),
+        {"corr2d_valid": 2, "plane_solve": 1},
+        "savgol2d_apply_masked(3x11 window, order 3)")
+
+    # -- accuracy: f32 results against the same data in f64, plain staged --
+    counts1 = coverage(valid, "truncate", 12) * 25
+    ref1 = sgt.savgol_apply_masked(x.double(), method="xla", **kw1)
+    require(y1.shape == x.shape and bool(torch.isfinite(y1).all()),
+            "masked 1D output shape or finiteness")
+    require(torch.equal(y1 == 0, ref1 == 0), "masked 1D fill pattern")
+    require(torch.equal(ref1 == 0, counts1 < 4.5), "masked 1D quorum")
+    e1 = (y1.double() - ref1)[counts1 >= 18].abs().max().item()
+    require(e1 <= K9_SLICE_ABS, f"masked 1D vs f64: {e1:.3e}")
+    eq, _ = masked_err(yq, ref1[:8], QR_TOL, torch.ones_like(valid[:8]),
+                       "masked 1D qr vs f64")
+    require(torch.equal(yq == 0, ref1[:8] == 0), "qr fill pattern")
+    ref2 = sgt.savgol2d_apply_masked(img.double(), method="xla", **kw2)
+    det = (ref2 != 0) & (y2 != 0)
+    require(torch.equal(ref2 == 0, y2 == 0), "masked 2D fill pattern")
+    e2, _ = masked_err(y2, ref2, K10_TOL, det, "masked 2D vs f64")
+    ref2u = sgt.savgol2d_apply_masked(
+        img[:256, :256].double(), half_window_x=1, half_window_y=5,
+        poly_order=3, mask=valid2[:256, :256], fill=0.0, method="xla")
+    e2u, _ = masked_err(y2u, ref2u, K10_TOL,
+                        coverage(valid2[:256, :256], "truncate", 1, 5) >= WELL,
+                        "masked 2D staged kernels vs f64",
+                        decided=coverage(valid2[:256, :256], "truncate", 1,
+                                         5) >= WELL)
+    print(f"masked slice: savgol_apply_masked {MASKED_1D} f32 n=12 m=4 "
+          f"launches {l_normal}; vs f64 max abs err {e1:.3e} on windows >= 18 "
+          f"of 25 valid (gate {K9_SLICE_ABS}), fill pattern identical; "
+          f"solver='qr' (8, {MASKED_1D[1]}) launches {l_qr}, scaled err "
+          f"{eq:.3e} (gate {QR_TOL}); savgol2d_apply_masked {MASKED_2D} 11x11 "
+          f"order 3 launches {l_2d}, scaled err {e2:.3e} on determined pixels "
+          f"(gate {K10_TOL}); 3x11 window order 3 (staged kernels) launches "
+          f"{l_2du}, scaled err {e2u:.3e}")
+
+    # -- each kernel's wrapper against its plain version at the path's shape --
+    Q, Rinv, pair_w, pair_index = mk._masked_tables(12, 4)
+    ex1 = Rinv[0, :]
+    xz = torch.where(valid, x, torch.zeros((), device=dev))
+    xzp = torch.nn.functional.pad(xz, (12, 12))
+    wp = torch.nn.functional.pad(valid.float(), (12, 12))
+    tabs = (pair_w, pair_index, Q.T, ex1)
+    k9 = c9.savgol_masked1d_fused_cuda(xzp, wp, *tabs, half_window=12, kmin=5,
+                                       fill=0.0)
+    k9p = c9.masked1d_plain(xzp, wp, *tabs, half_window=12, kmin=5, fill=0.0)
+    k9_err, _ = masked_err(k9, k9p, K9_TOL, counts1 >= 18, "K9 vs plain")
+    k9_abs = (k9 - k9p)[counts1 >= 18].abs().max().item()
+    # K8a on the 2D slice's planes (P = 10), K8b on the qr slice's (k = 5)
+    xv2 = torch.nn.functional.pad(torch.where(valid2, img, 0.0), (5,) * 4)
+    wp2 = torch.nn.functional.pad(valid2.float(), (5,) * 4)
+    Q3, _, pw2, pi2, _ = mk._masked_tables_2d(5, 5, 3)
+    gram2 = mk._corr2d_bank(wp2, pw2, True)
+    rhs2 = mk._corr2d_bank(xv2, Q3, True)
+    quorum2 = gram2[int(pi2[0, 0])] * 121 >= 9.5
+    well2 = coverage(valid2, "truncate", 5, 5) >= WELL
+    k8a, ok8a = cs.plane_solve_cuda(gram2, pi2, rhs2, quorum2, 1e-6)
+    k8ap, ok8ap = lsq.cholesky_solve_planes(gram2, pi2, rhs2, quorum2, 1e-6)
+    require(torch.equal(ok8a, ok8ap), "K8a ok at the 2D slice")
+    k8a_err, k8a_s = max_err(k8a[:, well2], k8ap[:, well2])
+    require(k8a_err <= 1e-5 * k8a_s, f"K8a vs plain: {k8a_err:.3e}")
+    # K8b solves in FP64 double-word, its plain version in float32 pairs
+    # (eps 2^-48): compare where cond(G) leaves the plain version exact
+    xq, wq = xzp[:8], wp[:8]
+    ghi, glo = lsq.correlate_valid_dd(wq, pair_w)
+    rhi, rlo = lsq.correlate_valid_dd(xq, Q.T)
+    quorum_q = ghi[int(pair_index[0, 0])] * 25 >= 4.5
+    k8b, ok8b = cs.plane_solve_dd_cuda(ghi, glo, pair_index, rhi, rlo,
+                                       quorum_q)
+    k8bp, ok8bp = lsq.cholesky_solve_planes_dd(ghi, glo, pair_index, rhi,
+                                               rlo, quorum_q)
+    require(torch.equal(ok8b, ok8bp), "K8b ok at the qr slice")
+    well_q = counts1[:8] >= 18
+    k8b_err, k8b_s = max_err(k8b[:, well_q], k8bp[:, well_q])
+    require(k8b_err <= 1e-5 * k8b_s, f"K8b vs plain: {k8b_err:.3e}")
+    k10_args = dict(half_window_x=5, half_window_y=5, poly_order=3, kmin=10,
+                    fill=0.0, rcond=1e-6)
+    k10 = c10.savgol_masked2d_fused_cuda(xv2, wp2, **k10_args)
+    k10p = mk._masked2d_staged(xv2, wp2, nx=5, ny=5, m=3, dx=0, dy=0,
+                               delta_x=1.0, delta_y=1.0, kmin=10, fill=0.0,
+                               rcond=1e-6, weighted=False, kernels=False)
+    k10_err, _ = masked_err(k10, k10p, K10_TOL, well2, "K10 vs plain",
+                            decided=well2)
+    k10_abs = (k10 - k10p)[well2].abs().max().item()
+    print(f"masked kernels vs plain at the slice's shapes: K9 {k9_abs:.3e} "
+          f"abs ({k9_err:.3e} scaled, windows >= 18 of 25); K8a (P=10, "
+          f"{MASKED_2D}) {k8a_err:.3e}; K8b (k=5, 8 x {MASKED_1D[1]}) "
+          f"{k8b_err:.3e}; K10 {k10_abs:.3e} abs on windows >= {WELL:.0%} "
+          f"valid (f32 basis difference, gate {K10_TOL} scaled)")
+
+    # -- gradients at a small size: each kernel route against the plain one --
+    gr = np.random.default_rng(16)
+    g_np, gv_np = holed(gr, (3, 700), 0.15)
+    gw = torch.from_numpy(np.where(gv_np, gr.uniform(0.2, 2.0, gv_np.shape),
+                                   0.0)).to(dev)
+    gx = torch.from_numpy(g_np).to(dev)
+    i_np, iv_np = holed(gr, (2, 48, 64), 0.15)
+    iw = torch.from_numpy(np.where(iv_np, gr.uniform(0.2, 2.0, iv_np.shape),
+                                   0.0)).to(dev)
+    ix = torch.from_numpy(i_np).to(dev)
+    grad_err = {}
+    for what, run, inputs in (
+            ("K9", lambda v, w, meth: sgt.savgol_apply_masked(
+                v, half_window=6, poly_order=2, derivative=1, mask=w,
+                fill=0.0, method=meth), (gx, gw)),
+            ("qr", lambda v, w, meth: sgt.savgol_apply_masked(
+                v, half_window=6, poly_order=3, mask=w, fill=0.0,
+                solver="qr", method=meth), (gx, gw)),
+            ("K10", lambda v, w, meth: sgt.savgol2d_apply_masked(
+                v, half_window_x=2, half_window_y=3, poly_order=2,
+                deriv_y=1, mask=w, fill=0.0, method=meth), (ix, iw))):
+        grads = {}
+        for meth in ("auto", "xla"):
+            v, w = (t.float().clone().requires_grad_() for t in inputs)
+            loss = run(v, w, meth).square().sum()
+            grads[meth] = torch.autograd.grad(loss, [v, w])
+        grad_err[what] = 0.0
+        for got, want in zip(grads["auto"], grads["xla"]):
+            e, s = max_err(got, want)
+            require(e <= 1e-4 * s, f"{what} gradient {e:.3e} (scale {s:.3e})")
+            grad_err[what] = max(grad_err[what], e / s)
+    print("masked gradients (x and float weights) vs the plain routes: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in grad_err.items())
+          + " scaled (tol 1e-4)")
+
+    # -- timings: each kernel and its plain version, then the entry points --
+    t = {
+        "K9": (cuda_time_ms(lambda: c9.savgol_masked1d_fused_cuda(
+            xzp, wp, *tabs, half_window=12, kmin=5, fill=0.0)),
+               cuda_time_ms(lambda: c9.masked1d_plain(
+                   xzp, wp, *tabs, half_window=12, kmin=5, fill=0.0),
+                   warmup=1, reps=5)),
+        "K8a": (cuda_time_ms(lambda: cs.plane_solve_cuda(
+            gram2, pi2, rhs2, quorum2, 1e-6)),
+                cuda_time_ms(lambda: lsq.cholesky_solve_planes(
+                    gram2, pi2, rhs2, quorum2, 1e-6), warmup=1, reps=5)),
+        "K8b": (cuda_time_ms(lambda: cs.plane_solve_dd_cuda(
+            ghi, glo, pair_index, rhi, rlo, quorum_q)),
+                cuda_time_ms(lambda: lsq.cholesky_solve_planes_dd(
+                    ghi, glo, pair_index, rhi, rlo, quorum_q), warmup=1,
+                    reps=5)),
+        "K10": (cuda_time_ms(lambda: c10.savgol_masked2d_fused_cuda(
+            xv2, wp2, **k10_args)),
+                cuda_time_ms(lambda: mk._masked2d_staged(
+                    xv2, wp2, nx=5, ny=5, m=3, dx=0, dy=0, delta_x=1.0,
+                    delta_y=1.0, kmin=10, fill=0.0, rcond=1e-6,
+                    weighted=False, kernels=False), warmup=1, reps=5)),
+        "savgol_apply_masked": (
+            cuda_time_ms(lambda: sgt.savgol_apply_masked(x, **kw1)),
+            cuda_time_ms(lambda: sgt.savgol_apply_masked(
+                x, method="xla", **kw1), warmup=1, reps=5)),
+        "savgol_apply_masked qr": (
+            cuda_time_ms(lambda: sgt.savgol_apply_masked(
+                x[:8], solver="qr", **{**kw1, "mask": valid[:8]})),
+            cuda_time_ms(lambda: sgt.savgol_apply_masked(
+                x[:8], solver="qr", method="xla",
+                **{**kw1, "mask": valid[:8]}), warmup=1, reps=5)),
+        "savgol2d_apply_masked": (
+            cuda_time_ms(lambda: sgt.savgol2d_apply_masked(img, **kw2)),
+            cuda_time_ms(lambda: sgt.savgol2d_apply_masked(
+                img, method="xla", **kw2), warmup=1, reps=5)),
+    }
+    sizes = {"K9": x.numel(), "K8a": img.numel(), "K8b": 8 * MASKED_1D[1],
+             "K10": img.numel(), "savgol_apply_masked": x.numel(),
+             "savgol_apply_masked qr": 8 * MASKED_1D[1],
+             "savgol2d_apply_masked": img.numel()}
+    for name, (k, p) in t.items():
+        print(f"time {name} ({sizes[name]} outputs) f32: kernel {k:.4f} ms = "
+              f"{sizes[name] / k / 1e6:.3f} G/s; plain {p:.4f} ms = "
+              f"{sizes[name] / p / 1e6:.3f} G/s [{card}]")
+    # the kernels alone at the headline batches (the plain staged versions
+    # there would need tens of GB of planes)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xh = torch.randn(MASKED_1D_HEAD, generator=gen, device=dev)
+    wh = (torch.rand(MASKED_1D_HEAD, generator=gen, device=dev)
+          >= MASK_FRAC).float()
+    xh, wh = (torch.nn.functional.pad(a, (12, 12)) for a in (xh * wh, wh))
+    k9_head = cuda_time_ms(lambda: c9.savgol_masked1d_fused_cuda(
+        xh, wh, *tabs, half_window=12, kmin=5, fill=0.0), warmup=1, reps=5)
+    del xh, wh
+    ih = torch.randn(IMG_FULL, generator=gen, device=dev)
+    iwh = (torch.rand(IMG_FULL, generator=gen, device=dev) >= MASK_FRAC
+           ).float()
+    ih, iwh = (torch.nn.functional.pad(a, (5,) * 4) for a in (ih * iwh, iwh))
+    k10_head = cuda_time_ms(lambda: c10.savgol_masked2d_fused_cuda(
+        ih, iwh, **k10_args), warmup=1, reps=5)
+    del ih, iwh
+    n1, n2 = MASKED_1D_HEAD[0] * MASKED_1D_HEAD[1], int(np.prod(IMG_FULL))
+    print(f"time K9 alone {MASKED_1D_HEAD} f32 n=12 m=4: {k9_head:.4f} ms = "
+          f"{n1 / k9_head / 1e6:.3f} Gs/s; K10 alone {IMG_FULL} 11x11 order "
+          f"3: {k10_head:.4f} ms = {n2 / k10_head / 1e3:.1f} Mpix/s [{card}]")
+
+    kernels = [
+        {"name": "plane_solve", "route": "cuda",
+         "source": "savgol_tpu_torch/csrc/plane_solve.cu",
+         "replaces": "savgol_tpu/ops/pallas_solve.py:55",
+         "launches": l_qr["plane_solve_dd"] + l_2du["plane_solve"],
+         "max_abs_err": max(k8a_err, k8b_err),
+         "ms": t["K8a"][0], "plain_ms": t["K8a"][1],
+         "dd_ms": t["K8b"][0], "dd_plain_ms": t["K8b"][1]},
+        {"name": "masked1d", "route": "cuda",
+         "source": "savgol_tpu_torch/csrc/masked1d.cu",
+         "replaces": "savgol_tpu/ops/pallas_masked.py:56",
+         "launches": l_normal["masked1d"], "max_abs_err": k9_abs,
+         "ms": t["K9"][0], "plain_ms": t["K9"][1], "headline_ms": k9_head},
+        {"name": "masked2d", "route": "cuda",
+         "source": "savgol_tpu_torch/csrc/masked2d.cu",
+         "replaces": "savgol_tpu/ops/pallas_masked2d.py:205",
+         "launches": l_2d["masked2d"], "max_abs_err": k10_abs,
+         "ms": t["K10"][0], "plain_ms": t["K10"][1],
+         "headline_ms": k10_head},
+    ]
+    return kernels
 
 
 def main() -> int:
@@ -424,6 +1014,13 @@ def main() -> int:
         print(f"time {name} {IMG_FULL} f32 11x11: kernel {k:.4f} ms = "
               f"{pix / k / 1e6:.2f} Gpix/s; plain {p:.4f} ms = "
               f"{pix / p / 1e6:.2f} Gpix/s [{card}]")
+    del img, img0
+
+    # -- 12-17. the masked path ---------------------------------------------
+    print(k8_grid(dev))
+    print(k9_grid(sgt, dev))
+    print(k10_grid(sgt, dev))
+    masked_kernels = masked_slice(sgt, dev, card)
 
     kernels = [
         {"name": "sg1d_poly", "route": "cuda",
@@ -448,7 +1045,7 @@ def main() -> int:
          "replaces": "savgol_tpu/ops/pallas_conv.py:1814",
          "launches": launches_sep["corr2d_sep"], "max_abs_err": ks_err,
          "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1]},
-    ]
+    ] + masked_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,11 @@ host-f64 weights, the same-length POLYNOMIAL apply (CUDA kernel K1) and the
 VALID correlation (CUDA kernel K3), and the :class:`Savgol1D` module. So is
 the 2D path: host-f64 2D stencils, :class:`Savgol2D`, ``savgol2d_apply``,
 the stacked gradient / Hessian and the Laplacian, on a dense (K2D-dense) and
-a separable (K2D-sep) 2D correlation kernel. The kernels are built with
+a separable (K2D-sep) 2D correlation kernel. So is the masked
+(missing-data) path: ``savgol_apply_masked`` (1D, normal and double-word
+"qr" solvers) and ``savgol2d_apply_masked``, on the plane-Cholesky solve
+kernels (K8a, K8b) and the fused masked kernels (K9 in 1D, K10 in 2D). The
+kernels are built with
 ``nvcc`` at their first call on a CUDA tensor; CPU tensors take their plain
 PyTorch versions.
 
@@ -36,6 +40,8 @@ from savgol_tpu_torch.config import (
 )
 from savgol_tpu_torch.models import Savgol1D, Savgol2D
 from savgol_tpu_torch.ops.apply import savgol_apply, savgol_apply_valid
+from savgol_tpu_torch.ops.masked import (savgol2d_apply_masked,
+                                         savgol_apply_masked)
 from savgol_tpu_torch.ops.apply2d import (
     savgol2d_apply,
     savgol2d_apply_stack,
@@ -60,4 +66,5 @@ __all__ = [
     "savgol_apply", "savgol_apply_valid",
     "savgol2d_apply", "savgol2d_apply_stack", "savgol2d_gradient",
     "savgol2d_hessian", "savgol2d_laplacian",
+    "savgol_apply_masked", "savgol2d_apply_masked",
 ]

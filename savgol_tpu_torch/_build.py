@@ -29,13 +29,15 @@ _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "savgol_tpu_torch"
 _SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr2d_valid.cu",
-            "corr2d_sep.cu")
+            "corr2d_sep.cu", "plane_solve.cu", "masked1d.cu", "masked2d.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "sg1d_poly_f32": [_P, _P, _P, _P, _LL, _LL, ctypes.c_int,
                       ctypes.c_float, _P],
@@ -49,6 +51,28 @@ _SIGNATURES = {
     # x, u, v, out, B, R, C, rank, H, W, mode, stream
     "corr2d_sep_f32": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
     "corr2d_sep_f64": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
+    # gram, rhs, quorum, pair_index, coef, ok, k, pos, use_rcond,
+    # sqrt_rcond, scratch, scratch_threads, stream
+    "plane_solve_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _D, _P, _LL, _P],
+    "plane_solve_f64": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _D, _P, _LL, _P],
+    # gram hi, lo, rhs hi, lo, quorum, pair_index, coef, ok, k, pos,
+    # use_rcond, sqrt_rcond, scratch, scratch_threads, stream
+    "plane_solve_dd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _D,
+                           _P, _LL, _P],
+    "plane_solve_dd_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _D,
+                           _P, _LL, _P],
+    # x, w, out, B, Np, n, k, pairs, qt, extract, kmin, fill, scratch,
+    # scratch_threads, stream
+    "masked1d_f32": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _I, _F, _P,
+                     _LL, _P],
+    "masked1d_f64": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _I, _D, _P,
+                     _LL, _P],
+    # x, w, out, B, Rp, Cp, nx, ny, m, P, Sx, Sy, M, ftab, itab, kmin, fill,
+    # use_rcond, sqrt_rcond, stream
+    "masked2d_f32": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
+                     _P, _P, _I, _F, _I, _D, _P],
+    "masked2d_f64": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
+                     _P, _P, _I, _D, _I, _D, _P],
 }
 
 
