@@ -18,9 +18,18 @@ masks, boundaries, shapes and dtypes; ``savgol_apply_masked`` (normal and
 ``solver="qr"``) on a (64, 131,072) float32 batch and
 ``savgol2d_apply_masked`` on a 1024 x 1024 image, 20% holes, against
 float64, with each entry point's kernel launches counted; gradients; and
-timings, K9 and K10 also at the headline batches. Every phase prints one
-line; any failure raises and the script exits nonzero. The last line is the
-JSON device record; the line before it lists the kernels.
+timings, K9 and K10 also at the headline batches. Then the irregular-sampling
+path: the fused nonuniform fit K11 (and its planes mode K11p) and the
+resample gather-evaluate K12 against their plain versions over grids of
+orders, shapes, x and t dtypes (epoch-scale time stamps included), masks
+and query sets; ``savgol_apply_nonuniform`` and ``savgol_resample`` at
+``bench.py``'s (8, 131,072) rows against float64, with each entry point's
+launches counted; gradients; and timings, K11 also at the 1D headline
+batch. Beside each kernel's time it prints its bound (bytes or operations
+at the data sheet's rates) and, where one PyTorch call computes the same
+function, that call's time. Every phase prints one line; any failure raises
+and the script exits nonzero. The last line is the JSON device record; the
+line before it lists the kernels.
 
 Exits nonzero without a CUDA device. Imports nothing of JAX.
 """
@@ -77,6 +86,106 @@ K10_CONFIGS = ((1, 1, 2), (2, 2, 2), (2, 2, 3), (5, 5, 2),
                (11, 11, 2), (11, 11, 3), (11, 11, 4), (11, 11, 6),
                (16, 16, 6))
 K10_DERIVS = ((0, 0), (1, 0), (0, 1), (1, 1), (2, 0))
+
+# the irregular-sampling path: bench.py:635-661's rows, uncut (n = 12, m = 4,
+# fill 0, f32; t = cumsum(U(0, 1) + 0.5)), nonuniform also with 20% holes;
+# K11 also timed alone at the 1D headline batch
+NONUNI = (8, 131_072)
+# (n, m, d): up to 2n = 200 (past the TPU kernel's 2n <= 128); and (n, m)
+# with k = m + 1 = 41, past plane_chol.cuh's local arrays (device scratch)
+K11_CONFIGS = ((2, 1, 0), (3, 2, 2), (12, 4, 0), (12, 4, 1), (32, 6, 2),
+               (100, 3, 1))
+K11_SCRATCH = (24, 40)
+# (x dtype, t dtype, offset of t): epoch-scale f64 time stamps included
+K11_TYPES = ((torch.float32, torch.float32, 0.0),
+             (torch.float32, torch.float64, 0.0),
+             (torch.float32, torch.float64, 1.6e9),
+             (torch.float64, torch.float64, 0.0),
+             (torch.float64, torch.float64, 1.6e9))
+K11_HOLES = (0.0, 0.1, 0.5)
+# gates: tests/test_hw_parity.py:499-503 (the on-chip planes gate, 1e-5
+# scaled) for kernel vs plain in f32, and :519 / :460 (1e-4 scaled) for the
+# bench rows against f64 and auto against direct
+NONUNI_F32_TOL, NONUNI_F64_TOL, NONUNI_SLICE_TOL = 1e-5, 1e-12, 1e-4
+
+# the least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the memory
+# rate and its operations (an fma counted as two) over the peak rate of
+# their type, outside the tensor cores (H100 SXM data sheet)
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+
+
+def bound(nbytes: float, flops, kind: str = "f32") -> dict:
+    """{"bound_ms", "bound_by"} for a kernel moving ``nbytes`` and doing
+    ``flops`` operations of type ``kind`` (or a {kind: flops} mapping, the
+    times of the types added)."""
+    ops = flops if isinstance(flops, dict) else {kind: flops}
+    t_b = nbytes / HBM_BPS * 1e3
+    t_o = sum(f / PEAK_FLOPS[k] for k, f in ops.items()) * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def plain_chol_flops(k: int) -> int:
+    """The least k x k SPD solve: the Cholesky factor (square roots and
+    reciprocals of the diagonal counted as one operation each) and two
+    triangular substitutions."""
+    factor = sum(2 * j + 2 + (k - 1 - j) * (2 * j + 1) for j in range(k))
+    return factor + 2 * k * k
+
+
+def chol_flops(k: int) -> int:
+    """plane_chol.cuh chol_solve: the factor, two solves (the second for
+    the refinement) and the compensated residual."""
+    return plain_chol_flops(k) + 2 * k * k + 11 * k * k + k
+
+
+# double-word operations in FP64 flops, as plane_chol.cuh writes them
+DD_ADD, DD_MUL, DD_MUL_D, DD_SQRT, DD_DIV = 11, 10, 8, 13, 51
+
+
+def dd_chol_flops(k: int) -> int:
+    """plane_chol.cuh dd_chol_solve: the factor and two substitutions."""
+    factor = sum(j * (DD_MUL + DD_ADD) + DD_SQRT + DD_DIV
+                 + (k - 1 - j) * (j * (DD_MUL + DD_ADD) + DD_MUL)
+                 for j in range(k))
+    return factor + 2 * sum(i * (DD_MUL + DD_ADD) + DD_MUL for i in range(k))
+
+
+def nonuniform_flops(n: int, m: int) -> dict:
+    """The operations one float32 K11 output needs, by type: the design in
+    float32 (pass 1's offset and max, then the offset, u/s and w*x a tap),
+    and in FP64 a tap's 2m powers and its 2m+1 moment and m+1 rhs
+    multiply-adds, then the plain k = m+1 solve. FP64 sums (eps 2^-53) meet
+    the float32 contract, which the plain version's double-word float32
+    (eps ~2^-48) sets."""
+    ws = 2 * n + 1
+    tap = 2 * m + 2 * (2 * m + 1) + 2 * (m + 1)
+    return {"f32": 5 * ws, "f64": ws * tap + plain_chol_flops(m + 1)}
+
+
+def nonuniform_dd_flops(n: int, m: int) -> int:
+    """FP64 flops K11 spends on one output (nonuniform.cu, double-word for
+    both dtypes): a tap's 2m+1 moment, m+1 rhs and 2m power products and
+    their 3m+2 sums, then the double-word solve."""
+    tap = (5 * m + 2) * DD_MUL_D + (3 * m + 2) * DD_ADD
+    return (2 * n + 1) * tap + dd_chol_flops(m + 1)
+
+
+def k10_flops(nx: int, ny: int, m: int) -> float:
+    """FP64 flops of one K10 pixel (masked2d.cu): vertical profiles shared
+    by a 32-wide tile row, moment and rhs correlations, the Gram assembly
+    from the comb table's nonzeros, the solve and the extraction."""
+    from savgol_tpu_torch.ops.cuda_masked2d import tensor_tables_2d
+    tab = tensor_tables_2d(nx, ny, m)
+    wx, wy = 2 * nx + 1, 2 * ny + 1
+    sy = tab["PhiY"].shape[1]
+    P, M = len(tab["basis"]), len(tab["moments"])
+    share = (32 + 2 * nx) / 32
+    fmas = ((sy + m + 1) * wy * share + (M + P) * wx
+            + int((np.asarray(tab["comb"]) != 0).sum()) + P)
+    return 2 * fmas + wy * share + wx + chol_flops(P)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -143,16 +252,18 @@ def grid_2d(sgt, c2, dev) -> str:
 # -- the masked path ---------------------------------------------------------
 
 
-def masked_modules():
+def kernel_modules():
     from savgol_tpu_torch.ops import (cuda_conv, cuda_conv2d, cuda_masked,
-                                      cuda_masked2d, cuda_solve)
-    return (cuda_conv, cuda_conv2d, cuda_solve, cuda_masked, cuda_masked2d)
+                                      cuda_masked2d, cuda_nonuniform,
+                                      cuda_resample, cuda_solve)
+    return (cuda_conv, cuda_conv2d, cuda_solve, cuda_masked, cuda_masked2d,
+            cuda_nonuniform, cuda_resample)
 
 
 def counted_all(run, want: dict, what: str):
     """run() with every kernel's launch count zeroed just before and read
     just after; kernels not named in ``want`` must not launch."""
-    mods = masked_modules()
+    mods = kernel_modules()
     torch.cuda.synchronize()
     for mod in mods:
         mod.reset_launches()
@@ -672,27 +783,472 @@ def masked_slice(sgt, dev, card) -> list:
           f"{n1 / k9_head / 1e6:.3f} Gs/s; K10 alone {IMG_FULL} 11x11 order "
           f"3: {k10_head:.4f} ms = {n2 / k10_head / 1e3:.1f} Mpix/s [{card}]")
 
+    # -- yardsticks: one batched torch.linalg call for each K8 solve (LU; no
+    # quorum and no rcond rule), timed here only, and each kernel's bound --
+    G2 = gram2[torch.as_tensor(pi2.reshape(-1).astype(np.int64), device=dev)]
+    G2 = G2.reshape(10, 10, -1).permute(2, 0, 1).contiguous()
+    r2 = rhs2.reshape(10, -1).t().unsqueeze(-1).contiguous()
+    lib_k8a = cuda_time_ms(lambda: torch.linalg.solve_ex(G2, r2))
+    del G2, r2
+    Gq = (ghi.double() + glo.double())[torch.as_tensor(
+        pair_index.reshape(-1).astype(np.int64), device=dev)]
+    Gq = Gq.reshape(5, 5, -1).permute(2, 0, 1).contiguous()
+    rq = (rhi.double() + rlo.double()).reshape(5, -1).t().unsqueeze(-1)
+    lib_k8b = cuda_time_ms(lambda: torch.linalg.solve_ex(Gq, rq.contiguous()))
+    del Gq, rq
+    pos_a, pos_b = img.numel(), 8 * MASKED_1D[1]
+    b8a = bound(pos_a * (4 * (55 + 10 + 10) + 2), pos_a * chol_flops(10))
+    # K8b on float32 pairs: a plain FP64 solve of hi + lo meets its contract
+    b8b = bound(pos_b * (8 * (15 + 5) + 4 * 5 + 2),
+                pos_b * plain_chol_flops(5), "f64")
+    nb, nn = MASKED_1D
+    b9 = bound(2 * 4 * nb * (nn + 24) + 4 * nb * nn,
+               nb * nn * (2 * 20 * 25 + 25 + chol_flops(5) + 10))
+    b10 = bound(2 * 4 * xv2.numel() + 4 * img.numel(),
+                img.numel() * k10_flops(5, 5, 3), "f64")
+    print(f"library: torch.linalg.solve_ex (P=10, {pos_a} f32 systems) "
+          f"{lib_k8a:.4f} ms, (k=5, {pos_b} f64) {lib_k8b:.4f} ms; bounds: "
+          + ", ".join(f"{k} {b['bound_ms']:.4f} ms ({b['bound_by']})"
+                      for k, b in (("K8a", b8a), ("K8b", b8b), ("K9", b9),
+                                   ("K10", b10))) + f" [{card}]")
+
     kernels = [
         {"name": "plane_solve", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/plane_solve.cu",
          "replaces": "savgol_tpu/ops/pallas_solve.py:55",
          "launches": l_qr["plane_solve_dd"] + l_2du["plane_solve"],
          "max_abs_err": max(k8a_err, k8b_err),
-         "ms": t["K8a"][0], "plain_ms": t["K8a"][1],
-         "dd_ms": t["K8b"][0], "dd_plain_ms": t["K8b"][1]},
+         "ms": t["K8a"][0], "plain_ms": t["K8a"][1], **b8a,
+         "library_ms": lib_k8a, "dd_ms": t["K8b"][0],
+         "dd_plain_ms": t["K8b"][1], "dd_bound_ms": b8b["bound_ms"],
+         "dd_library_ms": lib_k8b},
         {"name": "masked1d", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/masked1d.cu",
          "replaces": "savgol_tpu/ops/pallas_masked.py:56",
          "launches": l_normal["masked1d"], "max_abs_err": k9_abs,
-         "ms": t["K9"][0], "plain_ms": t["K9"][1], "headline_ms": k9_head},
+         "ms": t["K9"][0], "plain_ms": t["K9"][1], **b9, "library_ms": None,
+         "headline_ms": k9_head},
         {"name": "masked2d", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/masked2d.cu",
          "replaces": "savgol_tpu/ops/pallas_masked2d.py:205",
          "launches": l_2d["masked2d"], "max_abs_err": k10_abs,
-         "ms": t["K10"][0], "plain_ms": t["K10"][1],
-         "headline_ms": k10_head},
+         "ms": t["K10"][0], "plain_ms": t["K10"][1], **b10,
+         "library_ms": None, "headline_ms": k10_head},
     ]
     return kernels
+
+
+# -- the irregular-sampling path ---------------------------------------------
+
+
+def k11_grid(sgt, dev) -> str:
+    """K11 (savgol_apply_nonuniform, method="auto") against the plain staged
+    version (method="xla") on the card over (n, m, d), shapes, x and t
+    dtypes (epoch-scale f64 t included), bool and float masks and hole
+    shares, and K11p (the planes mode) against its plain version on every
+    third case: finiteness (the fill pattern), s and ok identical
+    everywhere, values within the gates everywhere in f64 and on windows >=
+    70% valid in f32. The f32 plain version accumulates in float32 pairs
+    (eps 2^-48), the kernel in FP64 pairs, on the same rounded design; a
+    window the rcond rule still accepts may have cond(G) near 1e12 (a
+    truncated edge window, or one thinned by holes), where the plain
+    version's own error passes the gate: those outputs are counted, and
+    their largest difference printed. So every f32 window, thin ones
+    included, is also held, fill pattern and values, to a witness without
+    that error: the plain version on the same float32 design with the
+    moments and the solve in double-word float64 (``acc=torch.float64``),
+    the kernel's own arithmetic. Each (config, type) pair runs one
+    shape, the shapes taken in turn so that every config and every type
+    meets all three: a plain call costs up to ~1 s of small launches."""
+    from savgol_tpu_torch.ops import cuda_nonuniform as c11
+    rng = np.random.default_rng(11)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    cases = planes = thin = 0
+    thin_err = worst_wit = 0.0
+    c11.reset_launches()
+    for ci, (n, m, d) in enumerate(K11_CONFIGS):
+        shapes = ((1, 2 * n + 1), (3, 1000), (8, 8192))
+        for ti, (xd, td, off) in enumerate(K11_TYPES):
+            i = len(K11_TYPES) * ci + ti
+            shape = shapes[(ci + ti) % 3]
+            frac, weighted = K11_HOLES[i % 3], i // 3 % 2 == 1
+            t_np = off + np.cumsum(rng.uniform(0.5, 1.5, shape), -1)
+            x_np = rng.standard_normal(shape)
+            valid_np = rng.random(shape) >= frac
+            x_np[~valid_np] = np.nan
+            x = torch.from_numpy(x_np).to(dev, xd)
+            t = torch.from_numpy(t_np).to(dev, td)
+            mask = None
+            if weighted:
+                mask = torch.from_numpy(np.where(
+                    valid_np, rng.uniform(0.2, 2.0, shape), 0.0)).to(dev, xd)
+            kw = dict(half_window=n, poly_order=m, derivative=d, mask=mask)
+            got = sgt.savgol_apply_nonuniform(x, t, **kw)
+            want = sgt.savgol_apply_nonuniform(x, t, method="xla", **kw)
+            tol = NONUNI_F32_TOL if xd == torch.float32 else NONUNI_F64_TOL
+            what = (f"K11 n={n} m={m} d={d} {shape} x {xd} t {td} +{off:g} "
+                    f"holes {frac} weighted={weighted}")
+            valid = torch.from_numpy(valid_np).to(dev)
+            xz = torch.where(valid, x, 0.0)
+            w = mask if weighted else valid.to(xd)
+            rcond = 1e-6 if xd == torch.float32 else 1e-12
+            well = torch.ones_like(valid)
+            if xd == torch.float32:
+                well = coverage(valid, "truncate", n) >= WELL
+                both = torch.isfinite(got) & torch.isfinite(want) & ~well
+                thin += int(both.sum())
+                if bool(both.any()):
+                    thin_err = max(thin_err,
+                                   max_err(got[both], want[both])[0])
+                # every window, thin ones included, against the witness
+                wit = c11.nonuniform_plain(
+                    xz, w, t, half_window=n, poly_order=m, derivative=d,
+                    kmin=m + 1, fill=float("nan"), rcond=rcond,
+                    acc=torch.float64)
+                e, _ = masked_err(got, wit, tol, torch.ones_like(valid),
+                                  what + " vs the FP64-pair witness")
+                worst_wit = max(worst_wit, e)
+            e, _ = masked_err(got, want, tol, well, what)
+            worst[xd] = max(worst[xd], e)
+            cases += 1
+            if i % 3:
+                continue
+            kwp = dict(half_window=n, poly_order=m, kmin=m + 1, rcond=rcond)
+            gp = c11.savgol_nonuniform_planes_cuda(xz, w, t, **kwp)
+            wp = c11.nonuniform_planes_plain(xz, w, t, **kwp)
+            require(torch.equal(gp[m + 1:], wp[m + 1:]),
+                    f"{what}: K11p s or ok differ")
+            e, _ = masked_err(gp[:m + 1], wp[:m + 1], tol,
+                              well.expand_as(gp[:m + 1]), what + " K11p")
+            worst[xd] = max(worst[xd], e)
+            planes += 1
+
+    # k = 41 (device scratch), float32 (the on-card test lane holds
+    # float64): a degree-40 monomial fit is never identified, so K11p's
+    # planes (s, ok and the raw rhs the solve leaves) are held against the
+    # plain ones, and K11's fill pattern against their ok. The plain solve
+    # alone is ~250 k small launches.
+    n, m = K11_SCRATCH
+    t = torch.from_numpy(np.cumsum(rng.uniform(0.5, 1.5, (2, 100)), -1)).to(
+        dev, torch.float32)
+    x = torch.from_numpy(rng.standard_normal((2, 100))).to(dev, torch.float32)
+    kwp = dict(half_window=n, poly_order=m, kmin=m + 1, rcond=1e-6)
+    gp = c11.savgol_nonuniform_planes_cuda(x, torch.ones_like(x), t, **kwp)
+    wp = c11.nonuniform_planes_plain(x, torch.ones_like(x), t, **kwp)
+    what = f"K11p n={n} m={m} (2, 100) f32"
+    require(torch.equal(gp[m + 1:], wp[m + 1:]), f"{what}: s or ok differ")
+    e, _ = masked_err(gp[:m + 1], wp[:m + 1], NONUNI_F32_TOL,
+                      torch.ones_like(gp[:m + 1], dtype=torch.bool), what)
+    worst[torch.float32] = max(worst[torch.float32], e)
+    y = sgt.savgol_apply_nonuniform(x, t, half_window=n, poly_order=m)
+    require(torch.equal(torch.isfinite(y), wp[m + 2] > 0.5),
+            f"K11 n={n} m={m}: fill pattern against the plain planes' ok")
+    cases += 1
+    planes += 1
+    torch.cuda.synchronize()
+    require(c11.LAUNCHES["nonuniform"] == cases + planes,
+            f"K11 grid launched {c11.LAUNCHES}, expected {cases + planes}")
+    return (f"K11 grid: {cases} cases + {planes} K11p cases vs plain, worst "
+            f"scaled error f32={worst[torch.float32]:.3e} (windows >= "
+            f"{WELL:.0%} valid) f64={worst[torch.float64]:.3e} (tol "
+            f"{NONUNI_F32_TOL}, {NONUNI_F64_TOL}), fill pattern, s and ok "
+            f"identical; f32 outputs on thinner windows {thin}, largest abs "
+            f"difference to plain there {thin_err:.3e}; f32 on every window "
+            f"vs the FP64-pair witness {worst_wit:.3e} scaled (tol "
+            f"{NONUNI_F32_TOL}, fill pattern identical); launches "
+            f"{dict(c11.LAUNCHES)}")
+
+
+def k12_grid(dev) -> str:
+    """K12 against its plain version on K11p's planes over sorted,
+    shuffled, sparse, extrapolating and dense queries (Nq < N and > N),
+    every derivative d = 0..m (K = 1 at d = m), one and three rows, and the
+    x and t dtypes."""
+    from savgol_tpu_torch.ops import cuda_nonuniform as c11
+    from savgol_tpu_torch.ops import cuda_resample as c12
+    rng = np.random.default_rng(12)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    cases = 0
+    n, m, N = 6, 4, 5000
+    c12.reset_launches()
+    for xd, td in ((torch.float32, torch.float32),
+                   (torch.float32, torch.float64),
+                   (torch.float64, torch.float64)):
+        for B, frac in ((1, 0.2), (3, 0.5)):
+            t_np = np.cumsum(rng.uniform(0.5, 1.5, N))
+            t = torch.from_numpy(t_np).to(dev, td)
+            valid = torch.from_numpy(rng.random((B, N)) >= frac).to(dev)
+            x = torch.from_numpy(rng.standard_normal((B, N))).to(dev, xd)
+            planes = c11.savgol_nonuniform_planes_cuda(
+                torch.where(valid, x, 0.0), valid.to(xd), t, half_window=n,
+                poly_order=m, kmin=m + 1,
+                rcond=1e-6 if xd == torch.float32 else 1e-12)
+            lo, hi = t_np[0], t_np[-1]
+            queries = {
+                "sorted": np.sort(rng.uniform(lo, hi, 3000)),
+                "shuffled": rng.uniform(lo, hi, 3000),
+                "sparse": np.sort(rng.uniform(lo, hi, 40)),
+                "extrapolated": np.sort(rng.uniform(lo - 50, hi + 50, 2000)),
+                "dense": np.sort(rng.uniform(lo, hi, 9000))}
+            for qname, tq_np in queries.items():
+                tq = torch.from_numpy(tq_np).to(dev, td)
+                ctr = torch.clamp(torch.searchsorted(t, tq) - n, 0,
+                                  N - 2 * n - 1) + n
+                for d in range(m + 1):
+                    kw = dict(poly_order=m, derivative=d, fill=-3.0)
+                    got = c12.resample_eval_cuda(planes, t, ctr, tq, **kw)
+                    want = c12.resample_eval_plain(planes, t, ctr, tq, **kw)
+                    tol = NONUNI_F32_TOL if xd == torch.float32 else \
+                        NONUNI_F64_TOL
+                    what = f"K12 {qname} B={B} d={d} x {xd} t {td}"
+                    require(torch.equal(got == -3.0, want == -3.0),
+                            f"{what}: fill pattern")
+                    e, _ = masked_err(got, want, tol,
+                                      torch.ones_like(got, dtype=torch.bool),
+                                      what)
+                    worst[xd] = max(worst[xd], e)
+                    cases += 1
+    torch.cuda.synchronize()
+    require(c12.LAUNCHES["resample"] == cases,
+            f"K12 grid launched {c12.LAUNCHES}, expected {cases}")
+    return (f"K12 grid: {cases} cases vs plain, worst scaled error "
+            f"f32={worst[torch.float32]:.3e} f64={worst[torch.float64]:.3e} "
+            f"(tol {NONUNI_F32_TOL}, {NONUNI_F64_TOL}), fill pattern "
+            f"identical; launches {dict(c12.LAUNCHES)}")
+
+
+def nonuniform_slice(sgt, dev, card) -> list:
+    """The irregular-sampling path at the bench sizes through the user's
+    entry points: launch counts per entry point, accuracy against f64,
+    each kernel against its plain version, gradients, and CUDA-event
+    timings. Returns K11's, K11p's and K12's records for the {"kernels":
+    ...} line, and the K8b launches of the direct route."""
+    from savgol_tpu_torch.ops import cuda_nonuniform as c11
+    from savgol_tpu_torch.ops import cuda_resample as c12
+    from savgol_tpu_torch.ops import cuda_solve as cs
+    from savgol_tpu_torch.ops import lsq
+    from savgol_tpu_torch.ops import nonuniform as nu
+    from savgol_tpu_torch.utils.timing import cuda_time_ms
+
+    B, N = NONUNI
+    gen = torch.Generator(device=dev).manual_seed(1004)
+    tn = torch.cumsum(torch.rand(NONUNI, generator=gen, device=dev) + 0.5, -1)
+    xn = torch.randn(NONUNI, generator=gen, device=dev)
+    xh = torch.where(torch.rand(NONUNI, generator=gen, device=dev)
+                     < MASK_FRAC, float("nan"), xn)
+    t1 = torch.cumsum(torch.rand(N, generator=gen, device=dev) + 0.5, 0)
+    tq1 = torch.linspace(t1[0].item(), t1[-1].item(), N, device=dev)
+    xr = torch.randn(NONUNI, generator=gen, device=dev)
+    kw = dict(half_window=12, poly_order=4, fill=0.0)
+
+    # -- launch counts, one zeroed window an entry point --
+    y, l_nu = counted_all(lambda: sgt.savgol_apply_nonuniform(xn, tn, **kw),
+                          {"nonuniform": 1}, "savgol_apply_nonuniform")
+    yh, l_nuh = counted_all(
+        lambda: sgt.savgol_apply_nonuniform(xh, tn, **kw), {"nonuniform": 1},
+        "savgol_apply_nonuniform (20% holes)")
+    yx, l_xla = counted_all(
+        lambda: sgt.savgol_apply_nonuniform(xn, tn, method="xla", **kw), {},
+        "savgol_apply_nonuniform(method='xla')")
+    yr, l_rs = counted_all(lambda: sgt.savgol_resample(xr, t1, tq1, **kw),
+                           {"nonuniform": 1, "resample": 1},
+                           "savgol_resample")
+    yd, l_dir = counted_all(
+        lambda: sgt.savgol_resample(xr, t1, tq1, method="direct", **kw),
+        {"plane_solve_dd": 1}, "savgol_resample(method='direct')")
+
+    # -- accuracy: f32 results against the same data in f64, plain --
+    errs = {}
+    for name, got, want in (
+            ("nonuniform", y, sgt.savgol_apply_nonuniform(
+                xn.double(), tn.double(), method="xla", **kw)),
+            ("nonuniform 20% holes", yh, sgt.savgol_apply_nonuniform(
+                xh.double(), tn.double(), method="xla", **kw)),
+            ("resample auto", yr, sgt.savgol_resample(
+                xr.double(), t1.double(), tq1.double(), method="direct",
+                **kw)),
+            ("resample auto vs direct f32", yr, yd)):
+        require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                f"{name}: shape or finiteness")
+        require(torch.equal(got == 0, want == 0), f"{name}: fill pattern")
+        errs[name], _ = masked_err(got, want, NONUNI_SLICE_TOL,
+                                   torch.ones_like(got, dtype=torch.bool),
+                                   name)
+    e_xla, _ = masked_err(y, yx, NONUNI_F32_TOL,
+                          torch.ones_like(y, dtype=torch.bool),
+                          "nonuniform K11 route vs xla route")
+    def nz(launches):
+        return {k: v for k, v in launches.items() if v}
+    print(f"nonuniform slice: savgol_apply_nonuniform {NONUNI} f32 n=12 m=4 "
+          f"launches {nz(l_nu)}, 20% holes {nz(l_nuh)}, method='xla' "
+          f"{nz(l_xla)}; savgol_resample {NONUNI} -> {N} queries launches "
+          f"{nz(l_rs)}, method='direct' {nz(l_dir)}; scaled errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (gate {NONUNI_SLICE_TOL}), fill patterns identical; K11 route"
+          f" vs xla route {e_xla:.3e}")
+
+    # -- each kernel's wrapper against its plain version at the path's
+    # shapes --
+    valid = torch.isfinite(xh)
+    xz, w = torch.where(valid, xh, 0.0), valid.float()
+    kf = dict(half_window=12, poly_order=4, kmin=5, rcond=1e-6)
+    k11 = c11.savgol_nonuniform_fused_cuda(xz, w, tn, derivative=0, fill=0.0,
+                                           **kf)
+    k11p_ = c11.nonuniform_plain(xz, w, tn, derivative=0, fill=0.0, **kf)
+    k11_abs = (k11 - k11p_).abs().max().item()
+    ones = torch.ones_like(xr)
+    pk = c11.savgol_nonuniform_planes_cuda(xr, ones, t1, **kf)
+    pp = c11.nonuniform_planes_plain(xr, ones, t1, **kf)
+    require(torch.equal(pk[5:], pp[5:]), "K11p s or ok at the resample row")
+    kp_abs = (pk - pp).abs().max().item()
+    ctr = torch.clamp(torch.searchsorted(t1, tq1) - 12, 0, N - 25) + 12
+    ke = dict(poly_order=4, derivative=0, fill=0.0)
+    k12 = c12.resample_eval_cuda(pk, t1, ctr, tq1, **ke)
+    k12_abs = (k12 - c12.resample_eval_plain(pk, t1, ctr, tq1, **ke)
+               ).abs().max().item()
+    # K8b on the direct route's own Hankel planes (2m+1 moment planes a
+    # query), held as the route hands them to the solve
+    held = []
+
+    def hold(*args, **kws):
+        held.append((args, kws))
+        return cs.plane_cholesky_solve_dd(*args, **kws)
+    nu.plane_cholesky_solve_dd = hold
+    sgt.savgol_resample(xr, t1, tq1, method="direct", **kw)
+    nu.plane_cholesky_solve_dd = cs.plane_cholesky_solve_dd
+    (ghi, glo, hank, rhi, rlo, quo), kws = held[0]
+    c8, ok8 = cs.plane_solve_dd_cuda(ghi, glo, hank, rhi, rlo, quo, **kws)
+    p8, okp8 = lsq.cholesky_solve_planes_dd(ghi, glo, hank, rhi, rlo, quo,
+                                            **kws)
+    require(torch.equal(ok8, okp8), "K8b ok on the direct route's planes")
+    k8_abs = (c8 - p8)[:, ok8].abs().max().item()
+    for name, e in (("K11", k11_abs), ("K11p", kp_abs), ("K12", k12_abs),
+                    ("K8b (direct)", k8_abs)):
+        require(e <= NONUNI_F32_TOL * 10, f"{name} vs plain: {e:.3e}")
+    print(f"nonuniform kernels vs plain at the slice's shapes (max abs): K11 "
+          f"{k11_abs:.3e} (20% holes), K11p {kp_abs:.3e}, K12 {k12_abs:.3e}, "
+          f"K8b on the direct route's {tuple(ghi.shape)} Hankel planes "
+          f"{k8_abs:.3e} (ok identical)")
+    del ghi, glo, rhi, rlo, c8, p8, held
+
+    # -- gradients at a small size: K11 route against the plain route, the
+    # card's resample route against the CPU's --
+    gr = np.random.default_rng(18)
+    gt = np.cumsum(gr.uniform(0.5, 1.5, (3, 700)), -1)
+    gx = gr.standard_normal((3, 700))
+    gw = np.where(gr.random((3, 700)) > 0.15, gr.uniform(0.2, 2, (3, 700)), 0)
+    grads = {}
+    for meth in ("auto", "xla"):
+        v, tt, ww = (torch.from_numpy(a).to(dev).requires_grad_()
+                     for a in (gx, gt, gw))
+        loss = sgt.savgol_apply_nonuniform(
+            v, tt, half_window=6, poly_order=3, derivative=1, mask=ww,
+            fill=0.0, method=meth).square().sum()
+        grads[meth] = torch.autograd.grad(loss, [v, tt, ww])
+    gq = np.sort(gr.uniform(gt[0, 3], gt[0, -4], 500))
+    for where_ in (dev, torch.device("cpu")):
+        v, tt, qq, ww = (torch.from_numpy(a).to(where_).requires_grad_()
+                         for a in (gx, gt[0], gq, gw))
+        loss = sgt.savgol_resample(v, tt, qq, half_window=6, poly_order=3,
+                                   derivative=1, mask=ww,
+                                   fill=0.0).square().sum()
+        grads[where_.type] = torch.autograd.grad(loss, [v, tt, qq, ww])
+    grad_err = {}
+    for what, a, b in (("nonuniform", "auto", "xla"),
+                       ("resample", dev.type, "cpu")):
+        grad_err[what] = 0.0
+        for got, want in zip(grads[a], grads[b]):
+            require(bool(torch.isfinite(got).all()), f"{what} gradient")
+            e, s_ = max_err(got.cpu(), want.cpu())
+            require(e <= 1e-8 * s_, f"{what} gradient {e:.3e} ({s_:.3e})")
+            grad_err[what] = max(grad_err[what], e / s_)
+    print("nonuniform gradients (f64: x, t, t_query, float weights), finite; "
+          + ", ".join(f"{k} {v:.3e}" for k, v in grad_err.items())
+          + " scaled (tol 1e-8) against the plain route / the CPU")
+
+    # -- timings: each kernel and its plain version, then the entry points --
+    ku = dict(derivative=0, fill=0.0, **kf)
+    won = torch.ones_like(xn)
+    t = {
+        "K11": (cuda_time_ms(lambda: c11.savgol_nonuniform_fused_cuda(
+            xn, won, tn, **ku)),
+                cuda_time_ms(lambda: c11.nonuniform_plain(xn, won, tn, **ku),
+                             warmup=1, reps=3)),
+        "K11 20% holes": (
+            cuda_time_ms(lambda: c11.savgol_nonuniform_fused_cuda(
+                xz, w, tn, **ku)),
+            cuda_time_ms(lambda: c11.nonuniform_plain(xz, w, tn, **ku),
+                         warmup=1, reps=3)),
+        "K11p": (cuda_time_ms(lambda: c11.savgol_nonuniform_planes_cuda(
+            xr, ones, t1, **kf)),
+                 cuda_time_ms(lambda: c11.nonuniform_planes_plain(
+                     xr, ones, t1, **kf), warmup=1, reps=3)),
+        "K12": (cuda_time_ms(lambda: c12.resample_eval_cuda(
+            pk, t1, ctr, tq1, **ke)),
+                cuda_time_ms(lambda: c12.resample_eval_plain(
+                    pk, t1, ctr, tq1, **ke), warmup=1, reps=5)),
+        "savgol_apply_nonuniform": (
+            cuda_time_ms(lambda: sgt.savgol_apply_nonuniform(xn, tn, **kw)),
+            cuda_time_ms(lambda: sgt.savgol_apply_nonuniform(
+                xn, tn, method="xla", **kw), warmup=1, reps=3)),
+        "savgol_resample": (
+            cuda_time_ms(lambda: sgt.savgol_resample(xr, t1, tq1, **kw)),
+            cuda_time_ms(lambda: sgt.savgol_resample(
+                xr, t1, tq1, method="direct", **kw), warmup=1, reps=3)),
+    }
+    for name, (k, p) in t.items():
+        other = ("method='direct' (K8b solve)" if name == "savgol_resample"
+                 else "plain")
+        print(f"time {name} {NONUNI} f32 n=12 m=4: kernel {k:.4f} ms = "
+              f"{B * N / k / 1e6:.3f} Gs/s; {other} {p:.4f} ms [{card}]")
+    # K11 alone at the 1D headline batch (its plain version there would
+    # hold ~40 GB of double-word planes)
+    xh1 = torch.randn(B_FULL, N_FULL, generator=gen, device=dev)
+    th1 = torch.cumsum(torch.rand(B_FULL, N_FULL, generator=gen, device=dev)
+                       + 0.5, -1)
+    wh1 = torch.ones_like(xh1)
+    k11_head = cuda_time_ms(lambda: c11.savgol_nonuniform_fused_cuda(
+        xh1, wh1, th1, **ku), warmup=1, reps=3)
+    del xh1, th1, wh1
+    head = B_FULL * N_FULL
+    fl = nonuniform_flops(12, 4)
+
+    def per(samples):
+        return {k: v * samples for k, v in fl.items()}
+    b11 = bound(16 * B * N, per(B * N))
+    b11p = bound((4 + 4 + 4 * 7) * B * N + 4 * N, per(B * N))
+    uniq = int(torch.unique(ctr).numel())
+    b12 = bound(4 * 7 * B * uniq + 4 * uniq + (8 + 4) * N + 4 * B * N,
+                B * N * 2 * 10)
+    b11h = bound(16 * head, per(head))
+    fdd = nonuniform_dd_flops(12, 4)
+    print(f"time K11 alone ({B_FULL}, {N_FULL}) f32 n=12 m=4: {k11_head:.4f} "
+          f"ms = {head / k11_head / 1e6:.3f} Gs/s, {fdd} FP64 flops a sample "
+          f"spent (double-word) = {fdd * head / k11_head / 1e9:.2f} TFLOP/s; "
+          f"bounds (the float32 contract: {fl['f64']} FP64 and {fl['f32']} "
+          f"f32 operations a sample) K11 {b11['bound_ms']:.4f} ms "
+          f"({b11['bound_by']}), K11p {b11p['bound_ms']:.4f}, K12 "
+          f"{b12['bound_ms']:.4f} ({b12['bound_by']}), K11 alone "
+          f"{b11h['bound_ms']:.3f} ms [{card}]")
+    src = "savgol_tpu_torch/csrc/nonuniform.cu"
+    return l_dir["plane_solve_dd"], [
+        {"name": "nonuniform", "route": "cuda", "source": src,
+         "replaces": "savgol_tpu/ops/pallas_nonuniform.py:75",
+         "launches": l_nu["nonuniform"], "max_abs_err": k11_abs,
+         "ms": t["K11"][0], "plain_ms": t["K11"][1], **b11,
+         "library_ms": None, "headline_ms": k11_head},
+        {"name": "nonuniform_planes", "route": "cuda", "source": src,
+         "replaces": "savgol_tpu/ops/pallas_nonuniform.py:75",
+         "launches": l_rs["nonuniform"], "max_abs_err": kp_abs,
+         "ms": t["K11p"][0], "plain_ms": t["K11p"][1], **b11p,
+         "library_ms": None},
+        {"name": "resample", "route": "cuda",
+         "source": "savgol_tpu_torch/csrc/resample.cu",
+         "replaces": "savgol_tpu/ops/pallas_resample.py:62",
+         "launches": l_rs["resample"], "max_abs_err": k12_abs,
+         "ms": t["K12"][0], "plain_ms": t["K12"][1], **b12,
+         "library_ms": None},
+    ]
 
 
 def main() -> int:
@@ -865,6 +1421,20 @@ def main() -> int:
     p = cuda_time_ms(lambda: cc.correlate_valid_plain(x, w), warmup=1,
                      reps=5)
     timings[("K3", B_FULL)] = (k, p)
+    # yardstick: one cuDNN correlation of the same rows, TF32 off (timed
+    # here only; the port never calls it)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    x3, w3d = x.view(B_FULL, 1, N_FULL), w.view(1, 1, -1)
+    lib_k3 = cuda_time_ms(lambda: torch.nn.functional.conv1d(x3, w3d))
+    torch.backends.cudnn.allow_tf32 = tf32
+    samples = B_FULL * N_FULL
+    b1 = bound(8 * samples, 2 * 25 * samples)
+    b3 = bound(4 * samples + 4 * B_FULL * (N_FULL - 24),
+               2 * 25 * B_FULL * (N_FULL - 24))
+    print(f"library: F.conv1d (TF32 off) {lib_k3:.4f} ms; bounds K1 "
+          f"{b1['bound_ms']:.4f} ms ({b1['bound_by']}), K3 "
+          f"{b3['bound_ms']:.4f} ms ({b3['bound_by']}) [{card}]")
     # the slice end to end: the entry point a user calls, kernel vs plain
     k = cuda_time_ms(lambda: f.apply(x))
     p = cuda_time_ms(lambda: f.apply(x, method="xla"), warmup=1, reps=5)
@@ -1010,6 +1580,25 @@ def main() -> int:
                          reps=5)),
     }
     pix = img.numel()
+    # yardstick: one cuDNN 2D correlation of the batch, TF32 off, zero
+    # padding where the kernels map the edge (timed here only)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    img4, w4 = img.unsqueeze(1), w2.reshape(1, 1, 11, 11)
+    lib_2d = cuda_time_ms(lambda: torch.nn.functional.conv2d(img4, w4,
+                                                             padding=5))
+    w34 = w3.reshape(3, 1, 11, 11)
+    lib_2d3 = cuda_time_ms(lambda: torch.nn.functional.conv2d(img4, w34,
+                                                              padding=5))
+    torch.backends.cudnn.allow_tf32 = tf32
+    b2d = bound(8 * pix, 2 * 121 * pix)
+    b2d3 = bound(4 * pix + 3 * 4 * pix, 3 * 2 * 121 * pix)
+    b2s = bound(8 * pix, 2 * u2.shape[0] * 22 * pix)
+    print(f"library: F.conv2d (TF32 off, zero padding) {lib_2d:.4f} ms, "
+          f"3 output channels (Hessian stack) {lib_2d3:.4f} ms; bounds "
+          f"K2D-dense {b2d['bound_ms']:.4f} ms ({b2d['bound_by']}), K=3 "
+          f"{b2d3['bound_ms']:.4f} ms ({b2d3['bound_by']}), K2D-sep "
+          f"{b2s['bound_ms']:.4f} ms ({b2s['bound_by']}) [{card}]")
     for name, (k, p) in t2.items():
         print(f"time {name} {IMG_FULL} f32 11x11: kernel {k:.4f} ms = "
               f"{pix / k / 1e6:.2f} Gpix/s; plain {p:.4f} ms = "
@@ -1017,10 +1606,28 @@ def main() -> int:
     del img, img0
 
     # -- 12-17. the masked path ---------------------------------------------
+    t_masked = time.perf_counter()
     print(k8_grid(dev))
     print(k9_grid(sgt, dev))
     print(k10_grid(sgt, dev))
     masked_kernels = masked_slice(sgt, dev, card)
+
+    # -- 18-20. the irregular-sampling path ---------------------------------
+    t_nonuni = time.perf_counter()
+    print(k11_grid(sgt, dev))
+    t_k12 = time.perf_counter()
+    print(k12_grid(dev))
+    t_slice = time.perf_counter()
+    direct_solves, nonuniform_kernels = nonuniform_slice(sgt, dev, card)
+    t_end = time.perf_counter()
+    # the direct resample route's per-query solve is K8b's launch too
+    next(k for k in masked_kernels
+         if k["name"] == "plane_solve")["launches"] += direct_solves
+    print(f"wall time: build and phases 3-11 {t_masked - t0:.1f} s, masked "
+          f"phases 12-17 {t_nonuni - t_masked:.1f} s, irregular-sampling "
+          f"phases 18-20 {t_end - t_nonuni:.1f} s (K11 grid "
+          f"{t_k12 - t_nonuni:.1f}, K12 grid {t_slice - t_k12:.1f}, slice "
+          f"{t_end - t_slice:.1f})")
 
     kernels = [
         {"name": "sg1d_poly", "route": "cuda",
@@ -1028,24 +1635,27 @@ def main() -> int:
          "replaces": "savgol_tpu/ops/pallas_conv.py:564",
          "launches": launches["sg1d_poly"], "max_abs_err": k1_err,
          "ms": timings[("K1", B_FULL)][0],
-         "plain_ms": timings[("K1", B_FULL)][1]},
+         "plain_ms": timings[("K1", B_FULL)][1], **b1, "library_ms": None},
         {"name": "corr1d_valid", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr1d_valid.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1049",
          "launches": launches["corr1d_valid"], "max_abs_err": k3_err,
          "ms": timings[("K3", B_FULL)][0],
-         "plain_ms": timings[("K3", B_FULL)][1]},
+         "plain_ms": timings[("K3", B_FULL)][1], **b3,
+         "library_ms": lib_k3},
         {"name": "corr2d_valid", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr2d_valid.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1501",
          "launches": launches2["corr2d_valid"], "max_abs_err": kd_err,
-         "ms": t2["K2D-dense"][0], "plain_ms": t2["K2D-dense"][1]},
+         "ms": t2["K2D-dense"][0], "plain_ms": t2["K2D-dense"][1], **b2d,
+         "library_ms": lib_2d},
         {"name": "corr2d_sep", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr2d_sep.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1814",
          "launches": launches_sep["corr2d_sep"], "max_abs_err": ks_err,
-         "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1]},
-    ] + masked_kernels
+         "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1], **b2s,
+         "library_ms": lib_2d},
+    ] + masked_kernels + nonuniform_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,13 @@ the stacked gradient / Hessian and the Laplacian, on a dense (K2D-dense) and
 a separable (K2D-sep) 2D correlation kernel. So is the masked
 (missing-data) path: ``savgol_apply_masked`` (1D, normal and double-word
 "qr" solvers) and ``savgol2d_apply_masked``, on the plane-Cholesky solve
-kernels (K8a, K8b) and the fused masked kernels (K9 in 1D, K10 in 2D). The
-kernels are built with
-``nvcc`` at their first call on a CUDA tensor; CPU tensors take their plain
-PyTorch versions.
+kernels (K8a, K8b) and the fused masked kernels (K9 in 1D, K10 in 2D). So
+is the irregular-sampling path: ``savgol_apply_nonuniform`` (filtering at
+arbitrary sample positions) and ``savgol_resample`` (evaluation at arbitrary
+query positions), on the fused double-word nonuniform fit kernel (K11, with
+its plane-stack mode) and the resample gather-evaluate kernel (K12). The
+kernels are built with ``nvcc`` at their first call on a CUDA tensor; CPU
+tensors take their plain PyTorch versions.
 
 Quick start::
 
@@ -23,6 +26,7 @@ Quick start::
     y = f.apply(x)                          # x: (..., N) tensor on the card
     f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(5, 5, 3), device="cuda")
     img = f2.apply(images)                  # images: (..., R, C)
+    y = sgt.savgol_apply_nonuniform(x, t, half_window=12, poly_order=4)
 """
 
 from savgol_tpu_torch.config import (
@@ -42,6 +46,8 @@ from savgol_tpu_torch.models import Savgol1D, Savgol2D
 from savgol_tpu_torch.ops.apply import savgol_apply, savgol_apply_valid
 from savgol_tpu_torch.ops.masked import (savgol2d_apply_masked,
                                          savgol_apply_masked)
+from savgol_tpu_torch.ops.nonuniform import (savgol_apply_nonuniform,
+                                             savgol_resample)
 from savgol_tpu_torch.ops.apply2d import (
     savgol2d_apply,
     savgol2d_apply_stack,
@@ -54,7 +60,7 @@ from savgol_tpu_torch.ops.weights import (monomial_index,
                                           savgol_all_weights_np,
                                           savgol_weights_np)
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "BoundaryMode", "Boundary2D", "SavgolConfig", "Savgol2DConfig",
@@ -67,4 +73,5 @@ __all__ = [
     "savgol2d_apply", "savgol2d_apply_stack", "savgol2d_gradient",
     "savgol2d_hessian", "savgol2d_laplacian",
     "savgol_apply_masked", "savgol2d_apply_masked",
+    "savgol_apply_nonuniform", "savgol_resample",
 ]

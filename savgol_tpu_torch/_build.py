@@ -29,7 +29,8 @@ _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "savgol_tpu_torch"
 _SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr2d_valid.cu",
-            "corr2d_sep.cu", "plane_solve.cu", "masked1d.cu", "masked2d.cu")
+            "corr2d_sep.cu", "plane_solve.cu", "masked1d.cu", "masked2d.cu",
+            "nonuniform.cu", "resample.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
@@ -73,6 +74,17 @@ _SIGNATURES = {
                      _P, _P, _I, _F, _I, _D, _P],
     "masked2d_f64": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
                      _P, _P, _I, _D, _I, _D, _P],
+    # x, w, t, out, B, N, t_stride, n, m, d, kmin, fill, sqrt_rcond,
+    # emit_planes, scratch, scratch_threads, stream
+    **{f"nonuniform_{x}_t{t}": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I,
+                                _D, _D, _I, _P, _LL, _P]
+       for x in ("f32", "f64") for t in ("32", "64")},
+    # n, m, x element size, t element size, out (3 long long)
+    "nonuniform_layout": [_I, _I, _I, _I, ctypes.POINTER(_LL)],
+    # planes, t, ctr, tq, out, B, N, Nq, m, d, fill, stream
+    **{f"resample_{x}_t{t}": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _D,
+                              _P]
+       for x in ("f32", "f64") for t in ("32", "64")},
 }
 
 

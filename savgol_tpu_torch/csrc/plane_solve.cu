@@ -1,8 +1,9 @@
 // K8: the per-position k x k SPD solve from Gram entry planes.
 //
 //   K8a  plane_solve_{f32,f64}: gram (Kp, pos), rhs (k, pos), quorum (pos)
-//        -> coef (k, pos), ok (pos); Kp = k(k+1)/2 planes in the order that
-//        pair_index (k x k, int32) maps (i, j) to. The dual factorization,
+//        -> coef (k, pos), ok (pos); pair_index (k x k, int32) maps (i, j)
+//        to one of the Kp planes (k(k+1)/2 for a full Gram, 2k-1 for the
+//        Hankel of the nonuniform path's moments). The dual factorization,
 //        rcond rule and compensated refinement of lsq.py (plane_chol.cuh).
 //   K8b  plane_solve_dd_{f32,f64}: the same from (hi, lo) gram and rhs plane
 //        pairs in double-word arithmetic on FP64 pairs; coef = hi + lo in

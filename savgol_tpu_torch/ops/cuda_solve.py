@@ -46,12 +46,13 @@ def reset_launches() -> None:
 
 
 def scratch_for(k: int, n_items: int, words_per_item: int, dtype,
-                device) -> tuple[torch.Tensor | None, int]:
-    """(scratch, threads) for a kernel whose k passes ``LOCAL_KMAX``: each
+                device, local_kmax: int = LOCAL_KMAX
+                ) -> tuple[torch.Tensor | None, int]:
+    """(scratch, threads) for a kernel whose k passes ``local_kmax``: each
     thread takes ``words_per_item`` elements of ``dtype``; the thread count
     is a multiple of 128, no more than ``n_items`` rounded up and no more
     than the budget allows. (None, 0) when k fits the local arrays."""
-    if k <= LOCAL_KMAX:
+    if k <= local_kmax:
         return None, 0
     esize = torch.empty((), dtype=dtype).element_size()
     cap = max(1, _SCRATCH_BUDGET // (words_per_item * esize) // _SCRATCH_BLOCK)
@@ -69,10 +70,16 @@ def _dd_work_size(k: int) -> int:
     return 2 * k * (k + 1) + 8 * k      # plane_chol.cuh dd_work_size
 
 
-def _pair_table(pair_index, k: int, device) -> torch.Tensor:
+def _pair_table(pair_index, k: int, planes: int, device) -> torch.Tensor:
+    """pair_index as an int32 table on the device; each entry names one of
+    the ``planes`` Gram planes (k(k+1)/2 for a full Gram, 2k-1 for a
+    Hankel)."""
     pi = np.asarray(pair_index, dtype=np.int32)
     if pi.shape != (k, k):
         raise ValueError(f"pair_index must be ({k}, {k}), got {pi.shape}")
+    if pi.min() < 0 or pi.max() >= planes:
+        raise ValueError(f"pair_index names planes {pi.min()}..{pi.max()} "
+                         f"of a gram stack of {planes}")
     return torch.from_numpy(np.ascontiguousarray(pi)).to(device)
 
 
@@ -83,10 +90,9 @@ def _geometry(gram: torch.Tensor, rhs: torch.Tensor, quorum: torch.Tensor,
     _check_cuda_input(gram, name)
     _check_cuda_input(rhs, name)
     k = rhs.shape[0]
-    if gram.shape[0] != k * (k + 1) // 2 or gram.shape[1:] != rhs.shape[1:]:
+    if gram.shape[1:] != rhs.shape[1:]:
         raise ValueError(f"{name}: gram {tuple(gram.shape)} and rhs "
-                         f"{tuple(rhs.shape)} do not hold k(k+1)/2 and k "
-                         "planes of one shape")
+                         f"{tuple(rhs.shape)} are not planes of one shape")
     if quorum.shape != rhs.shape[1:]:
         raise ValueError(f"{name}: quorum {tuple(quorum.shape)} is not the "
                          f"plane shape {tuple(rhs.shape[1:])}")
@@ -109,7 +115,7 @@ def plane_solve_cuda(gram: torch.Tensor, pair_index, rhs: torch.Tensor,
     if not _plain_or_cuda(gram, name):
         return cholesky_solve_planes(gram, pair_index, rhs, quorum, rcond)
     k, pos = _geometry(gram, rhs, quorum, name)
-    pi = _pair_table(pair_index, k, gram.device)
+    pi = _pair_table(pair_index, k, gram.shape[0], gram.device)
     coef = torch.empty_like(rhs)
     ok = torch.empty(quorum.shape, dtype=torch.bool, device=gram.device)
     if pos == 0:
@@ -151,7 +157,7 @@ def plane_solve_dd_cuda(gram_hi, gram_lo, pair_index, rhs_hi, rhs_lo,
                 or lo.device != hi.device:
             raise ValueError(f"{name}: a lo word differs from its hi word "
                              "in shape, dtype or device")
-    pi = _pair_table(pair_index, k, gram_hi.device)
+    pi = _pair_table(pair_index, k, gram_hi.shape[0], gram_hi.device)
     coef = torch.empty_like(rhs_hi)
     ok = torch.empty(quorum.shape, dtype=torch.bool, device=gram_hi.device)
     if pos == 0:
