@@ -25,7 +25,14 @@ orders, shapes, x and t dtypes (epoch-scale time stamps included), masks
 and query sets; ``savgol_apply_nonuniform`` and ``savgol_resample`` at
 ``bench.py``'s (8, 131,072) rows against float64, with each entry point's
 launches counted; gradients; and timings, K11 also at the 1D headline
-batch. Beside each kernel's time it prints its bound (bytes or operations
+batch. Then the padded-boundary and filter-bank paths: the fused-pad apply
+K2 and the K-stencil bank K4 against their plain versions over grids of
+windows, pad modes, bank sizes, shapes and dtypes; the padded
+``Savgol1D.apply``, ``SavgolBank.smooth_and_derivatives(12, 4, 2)`` and the
+(n, m) sweep at full size against float64, ``scipy_compat.savgol_filter`` in
+all five modes against scipy, each entry point's launches counted;
+gradients; and timings beside the route the padded modes took before K2.
+Beside each kernel's time it prints its bound (bytes or operations
 at the data sheet's rates) and, where one PyTorch call computes the same
 function, that call's time. Every phase prints one line; any failure raises
 and the script exits nonzero. The last line is the JSON device record; the
@@ -253,11 +260,12 @@ def grid_2d(sgt, c2, dev) -> str:
 
 
 def kernel_modules():
-    from savgol_tpu_torch.ops import (cuda_conv, cuda_conv2d, cuda_masked,
-                                      cuda_masked2d, cuda_nonuniform,
-                                      cuda_resample, cuda_solve)
-    return (cuda_conv, cuda_conv2d, cuda_solve, cuda_masked, cuda_masked2d,
-            cuda_nonuniform, cuda_resample)
+    from savgol_tpu_torch.ops import (cuda_bank, cuda_conv, cuda_conv2d,
+                                      cuda_masked, cuda_masked2d,
+                                      cuda_nonuniform, cuda_resample,
+                                      cuda_solve)
+    return (cuda_conv, cuda_bank, cuda_conv2d, cuda_solve, cuda_masked,
+            cuda_masked2d, cuda_nonuniform, cuda_resample)
 
 
 def counted_all(run, want: dict, what: str):
@@ -277,6 +285,11 @@ def counted_all(run, want: dict, what: str):
     return out, got
 
 
+def nz(launches: dict) -> dict:
+    """The kernels of a launch count that ran."""
+    return {k: v for k, v in launches.items() if v}
+
+
 def holed(rng, shape, frac):
     """float32 values with NaN holes (as float64) and their validity."""
     x = rng.standard_normal(shape).astype(np.float32).astype(np.float64)
@@ -292,15 +305,14 @@ def coverage(valid: torch.Tensor, boundary: str, nx: int, ny=None):
     import torch.nn.functional as F
     from savgol_tpu_torch.config import PAD_MODE, Boundary2D, BoundaryMode
     from savgol_tpu_torch.ops.apply2d import _PAD_MODE_2D
-    from savgol_tpu_torch.ops.cuda_conv import correlate_valid_plain
+    from savgol_tpu_torch.ops.cuda_conv import correlate_valid_plain, pad_last
     from savgol_tpu_torch.ops.cuda_conv2d import (correlate2d_valid_plain,
                                                   pad2d_plain)
-    from savgol_tpu_torch.ops.masked import _pad_last
     ind = valid.to(torch.float64)
     trunc = boundary == "truncate"
     if ny is None:
-        p = _pad_last(ind, nx, None if trunc
-                      else PAD_MODE[BoundaryMode(boundary)])
+        p = pad_last(ind, nx, None if trunc
+                     else PAD_MODE[BoundaryMode(boundary)])
         ones = torch.ones(2 * nx + 1, dtype=ind.dtype, device=ind.device)
         return correlate_valid_plain(p, ones) / (2 * nx + 1)
     p = (F.pad(ind, (nx, nx, ny, ny)) if trunc else
@@ -1077,8 +1089,6 @@ def nonuniform_slice(sgt, dev, card) -> list:
     e_xla, _ = masked_err(y, yx, NONUNI_F32_TOL,
                           torch.ones_like(y, dtype=torch.bool),
                           "nonuniform K11 route vs xla route")
-    def nz(launches):
-        return {k: v for k, v in launches.items() if v}
     print(f"nonuniform slice: savgol_apply_nonuniform {NONUNI} f32 n=12 m=4 "
           f"launches {nz(l_nu)}, 20% holes {nz(l_nuh)}, method='xla' "
           f"{nz(l_xla)}; savgol_resample {NONUNI} -> {N} queries launches "
@@ -1250,6 +1260,431 @@ def nonuniform_slice(sgt, dev, card) -> list:
          "library_ms": None},
     ]
 
+# -- the padded-boundary and filter-bank paths -------------------------------
+
+PAD_MODES = {"reflect": "symmetric", "periodic": "wrap", "constant": "edge"}
+K2_BATCHES = (1, 16, 128)
+K4_KS = (1, 3, 6, 17, 40)
+K4_WS = (3, 25, 65)
+# (B, N): a row shorter than the sweep's pad of 32, an odd length, a wide one
+K4_SHAPES = ((1, 20), (3, 4099), (16, 65_537))
+# bench.py:671-673's sweep row
+SWEEP_X = (4_194_304,)
+SWEEP_NS, SWEEP_MS = [4, 8, 12, 16, 24, 32], [2, 3, 4, 4, 5, 6]
+# bench.py:496 and :504-515 (sweep_vs_xla, bank_vs_xla), the sweep's scaled
+SWEEP_F64_TOL, BANK_GATE = 2e-5, 2e-5
+SCIPY_LAUNCHES = {"interp": {"sg1d_poly": 1}, "wrap": {"sg1d_pad": 1},
+                  "nearest": {"sg1d_pad": 1}, "mirror": {"corr1d_valid": 1},
+                  "constant": {"corr1d_valid": 1}}
+
+
+def k2_grid(sgt, dev) -> str:
+    """K2 (``Savgol1D.apply`` with a pad boundary, d = 1, dt folded) against
+    the plain version (method="xla") over n x mode x B x N x dtype, plus
+    axis=0; every launch must be K2's."""
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    cases = 0
+    cc.reset_launches()
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        for n in (1, 12, 32):
+            ws = 2 * n + 1
+            f = sgt.Savgol1D.create(
+                sgt.SavgolConfig(n, min(4, 2 * n), 1, time_step=0.01),
+                dtype=dtype, device=dev)
+            for B in K2_BATCHES:
+                for N in (ws, ws + 1, 4099, 262_147):
+                    x = torch.randn(B, N, generator=gen, device=dev,
+                                    dtype=dtype)
+                    for bnd in PAD_MODES:
+                        e, sc = max_err(f.apply(x, boundary=bnd),
+                                        f.apply(x, boundary=bnd,
+                                                method="xla"))
+                        require(e <= tol * sc, f"K2 {bnd} n={n} B={B} N={N} "
+                                f"{dtype}: {e:.3e} (scale {sc:.3e})")
+                        worst[dtype] = max(worst[dtype], e / sc)
+                        cases += 1
+            xt = torch.randn(4099, 16, generator=gen, device=dev, dtype=dtype)
+            for bnd in PAD_MODES:
+                e, sc = max_err(f.apply(xt, axis=0, boundary=bnd),
+                                f.apply(xt, axis=0, boundary=bnd,
+                                        method="xla"))
+                require(e <= tol * sc, f"K2 axis=0 {bnd} n={n} {dtype}")
+                cases += 1
+    torch.cuda.synchronize()
+    want = {"sg1d_poly": 0, "sg1d_pad": cases, "corr1d_valid": 0}
+    require(cc.LAUNCHES == want, f"K2 grid launched {cc.LAUNCHES}, "
+            f"expected {want}")
+    return (f"K2 grid: {cases} cases (n 1/12/32 x 3 pad modes x B "
+            f"{K2_BATCHES} x N ws/ws+1/4099/262147 x f32/f64, axis=0), worst "
+            f"scaled error f32={worst[torch.float32]:.3e} "
+            f"f64={worst[torch.float64]:.3e} (tol {F32_TOL}, {F64_TOL}), "
+            f"launches {dict(cc.LAUNCHES)}")
+
+
+def k4_grid(dev) -> str:
+    """K4 against its plain version over K x ws x staging (VALID, zeros,
+    edge, symmetric and wrap by the half window, symmetric by the sweep's
+    32) x (B, N) x dtype."""
+    from savgol_tpu_torch.ops import cuda_bank as cb
+    gen = torch.Generator(device=dev).manual_seed(22)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    cases = 0
+    cb.reset_launches()
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        xs = [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+              for shape in K4_SHAPES]
+        for K in K4_KS:
+            for ws in K4_WS:
+                h = (ws - 1) // 2
+                w = torch.randn(K, ws, generator=gen, device=dev,
+                                dtype=dtype)
+                for x in xs:
+                    N = x.shape[-1]
+                    for pad, mode in ((0, None), (h, None), (h, "edge"),
+                                      (h, "symmetric"), (h, "wrap"),
+                                      (32, "symmetric")):
+                        if N + 2 * pad < ws:
+                            continue
+                        e, sc = max_err(
+                            cb.correlate_valid_bank_cuda(x, w, pad, mode),
+                            cb.bank_correlate_plain(x, w, pad, mode))
+                        require(e <= tol * sc, f"K4 K={K} ws={ws} "
+                                f"{tuple(x.shape)} pad={pad} {mode} "
+                                f"{dtype}: {e:.3e}")
+                        worst[dtype] = max(worst[dtype], e / sc)
+                        cases += 1
+    torch.cuda.synchronize()
+    require(cb.LAUNCHES["corr1d_bank"] == cases,
+            f"K4 grid launched {cb.LAUNCHES}, expected {cases}")
+    return (f"K4 grid: {cases} cases (K {K4_KS} x ws {K4_WS} x 6 stagings x "
+            f"{K4_SHAPES} x f32/f64), worst scaled error "
+            f"f32={worst[torch.float32]:.3e} f64={worst[torch.float64]:.3e} "
+            f"(tol {F32_TOL}, {F64_TOL}), launches {dict(cb.LAUNCHES)}")
+
+
+def cat_pad(x: torch.Tensor, n: int, mode: str) -> torch.Tensor:
+    """The host-side pad the padded modes took before K2 (``torch.cat`` of
+    two strips and the row), kept here only to time that route."""
+    if mode == "symmetric":
+        left, right = x[..., :n].flip(-1), x[..., -n:].flip(-1)
+    elif mode == "wrap":
+        left, right = x[..., -n:], x[..., :n]
+    else:
+        shape = x.shape[:-1] + (n,)
+        left, right = x[..., :1].expand(shape), x[..., -1:].expand(shape)
+    return torch.cat([left, x, right], dim=-1)
+
+
+def bank_slice(sgt, dev, card) -> list:
+    """The padded-boundary and filter-bank paths at full size through the
+    user's entry points: padded ``Savgol1D.apply``, ``SavgolBank``, the
+    sweep and ``scipy_compat.savgol_filter``, each counted in its own zeroed
+    window, against float64 and scipy; gradients; CUDA-event timings beside
+    the bounds and the library yardsticks. Returns K2's and K4's records."""
+    from scipy.signal import savgol_filter as sp_filter
+
+    from savgol_tpu_torch import scipy_compat as tsc
+    from savgol_tpu_torch.ops import cuda_bank as cb
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.ops.sweep import (savgol_apply_sweep,
+                                            savgol_weights_masked)
+    from savgol_tpu_torch.ops.weights import savgol_weights_np
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, host_ms
+
+    cfg = sgt.SavgolConfig(12, 4)
+    f = sgt.Savgol1D.create(cfg, device=dev)
+    x_np = np.random.default_rng(0).standard_normal((B_FULL, N_FULL),
+                                                   dtype=np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    rows = [0, 1, 64, 127]
+    x64 = x[rows].double()
+    w = f.center_weights
+    c64, _ = (torch.from_numpy(a).to(dev)
+              for a in savgol_weights_np(cfg, np.float64))
+
+    # -- padded Savgol1D.apply: launches, f64 gate, K2 vs plain --
+    l_pad, e_pad, k2_abs = {}, {}, 0.0
+    for bnd, mode in PAD_MODES.items():
+        y, l_pad[bnd] = counted_all(lambda: f.apply(x, boundary=bnd),
+                                    {"sg1d_pad": 1},
+                                    f"Savgol1D.apply(boundary={bnd!r})")
+        require(y.shape == x.shape and bool(torch.isfinite(y).all()),
+                f"padded apply {bnd}: shape or finiteness")
+        ref = cc.savgol_padded_plain(x64, c64, mode, 12)
+        e_pad[bnd] = (y[rows].double() - ref).abs().max().item()
+        require(e_pad[bnd] <= GATE_ABS, f"padded {bnd} vs f64: "
+                f"{e_pad[bnd]:.3e}")
+        e, sc = max_err(cc.savgol_padded_cuda(x, w, mode, 12),
+                        cc.savgol_padded_plain(x, w, mode, 12))
+        require(e <= F32_TOL * sc, f"K2 {mode} vs plain at full size: "
+                f"{e:.3e}")
+        k2_abs = max(k2_abs, e)
+    del y, ref
+    print(f"padded slice ({B_FULL}, {N_FULL}) f32 n=12: launches "
+          + ", ".join(f"{b} {l_pad[b]['sg1d_pad']} sg1d_pad" for b in l_pad)
+          + " (nothing else); max abs err vs f64 "
+          + ", ".join(f"{b} {e:.3e}" for b, e in e_pad.items())
+          + f" (gate {GATE_ABS}); K2 vs plain {k2_abs:.3e}")
+
+    # -- SavgolBank: smooth + d1 + d2 in one launch --
+    bank = sgt.SavgolBank.smooth_and_derivatives(12, 4, 2, device=dev)
+    yb, l_bank = counted_all(lambda: bank.apply(x), {"corr1d_bank": 1},
+                             "SavgolBank.apply")
+    require(yb.shape == (3,) + x.shape and bool(torch.isfinite(yb).all()),
+            "bank shape or finiteness")
+    e_bank = 0.0
+    for d in range(3):
+        f64 = sgt.Savgol1D.create(sgt.SavgolConfig(12, 4, d),
+                                  dtype=torch.float64, device=dev)
+        ref = f64.apply(x64, method="xla")
+        e_bank = max(e_bank, (yb[d, rows].double() - ref).abs().max().item())
+    require(e_bank <= GATE_ABS, f"bank vs three f64 applies: {e_bank:.3e}")
+    xbk = x[:8, :8192]
+    ybk = bank.apply(xbk)
+    e_gate = max((ybk[d] - sgt.Savgol1D.create(
+        sgt.SavgolConfig(12, 4, d), device=dev).apply(
+        xbk, method="xla")).abs().max().item() for d in range(3))
+    require(e_gate <= BANK_GATE, f"bank_vs_xla gate: {e_gate:.3e}")
+    wdt = bank.center_weights * bank.dt_inv[:, None]
+    e, sc = max_err(cb.correlate_valid_bank_cuda(x, wdt, 12),
+                    cb.bank_correlate_plain(x, wdt, 12))
+    require(e <= F32_TOL * sc, f"K4 vs plain at the bank's shape: {e:.3e}")
+    k4_abs = e
+    del yb
+    print(f"bank slice: SavgolBank.smooth_and_derivatives(12, 4, 2).apply "
+          f"({B_FULL}, {N_FULL}) f32 launches {nz(l_bank)}; max abs err vs "
+          f"three f64 Savgol1D applies {e_bank:.3e} (gate {GATE_ABS}); "
+          f"bench.py bank_vs_xla (8, 8192) {e_gate:.3e} (gate {BANK_GATE}); "
+          f"K4 vs plain {k4_abs:.3e}")
+
+    # -- the sweep at bench.py's row and at the headline batch --
+    gen = torch.Generator(device=dev).manual_seed(23)
+    xs = torch.randn(SWEEP_X, generator=gen, device=dev)
+    ys, l_sw = counted_all(lambda: savgol_apply_sweep(xs, SWEEP_NS,
+                                                      SWEEP_MS),
+                           {"corr1d_bank": 1}, "savgol_apply_sweep")
+    e_sw, sc_sw = max_err(ys, savgol_apply_sweep(xs, SWEEP_NS, SWEEP_MS,
+                                                 method="xla"))
+    require(e_sw <= F32_TOL * sc_sw, f"sweep vs plain: {e_sw:.3e}")
+    e64 = 0.0
+    for c, (n, m) in enumerate(zip(SWEEP_NS, SWEEP_MS)):
+        f64 = sgt.Savgol1D.create(sgt.SavgolConfig(n, m),
+                                  dtype=torch.float64, device=dev)
+        e, sc = max_err(ys[c], f64.apply(xs.double(), method="xla"))
+        e64 = max(e64, e / sc)
+    require(e64 <= SWEEP_F64_TOL, f"sweep vs per-config f64: {e64:.3e}")
+    ysh, l_swh = counted_all(lambda: savgol_apply_sweep(x, SWEEP_NS,
+                                                        SWEEP_MS),
+                             {"corr1d_bank": 1},
+                             f"savgol_apply_sweep ({B_FULL}, {N_FULL})")
+    e_swh, sc_swh = max_err(ysh[:, [0, 127]], savgol_apply_sweep(
+        x[[0, 127]], SWEEP_NS, SWEEP_MS, method="xla"))
+    require(e_swh <= F32_TOL * sc_swh, f"sweep at the headline batch vs "
+            f"plain: {e_swh:.3e}")
+    del ysh
+    print(f"sweep slice: savgol_apply_sweep {SWEEP_X} x 6 configs "
+          f"(ns {SWEEP_NS}) f32 launches {nz(l_sw)}, vs plain {e_sw:.3e} "
+          f"abs ({e_sw / sc_sw:.3e} scaled, tol {F32_TOL}), vs per-config "
+          f"f64 Savgol1D {e64:.3e} scaled (gate {SWEEP_F64_TOL}); at "
+          f"({B_FULL}, {N_FULL}) launches {nz(l_swh)}, rows 0 and 127 vs "
+          f"plain {e_swh:.3e}")
+
+    # -- scipy_compat: the five modes on two full-length rows --
+    x2 = x[[0, 127]]
+    e_sc, l_sc = {}, {}
+    for mode, want in SCIPY_LAUNCHES.items():
+        y, l_sc[mode] = counted_all(
+            lambda: tsc.savgol_filter(x2, 25, 4, mode=mode), want,
+            f"scipy_compat.savgol_filter(mode={mode!r})")
+        yh = y.cpu().numpy().astype(np.float64)
+        e_sc[mode] = max(float(np.abs(yh[i] - sp_filter(
+            x_np[r].astype(np.float64), 25, 4, mode=mode)).max())
+            for i, r in enumerate((0, 127)))
+        require(e_sc[mode] <= GATE_ABS, f"scipy_compat {mode} vs scipy: "
+                f"{e_sc[mode]:.3e}")
+        # the import swap: a numpy array goes to the card and the same kernel
+        yn, _ = counted_all(
+            lambda: tsc.savgol_filter(x_np[[0, 127]], 25, 4, mode=mode),
+            want, f"scipy_compat.savgol_filter(numpy, mode={mode!r})")
+        require(yn.device.type == "cuda" and torch.equal(yn, y),
+                f"scipy_compat {mode} on numpy input: device {yn.device} or "
+                f"values differ from the tensor call")
+    print(f"scipy_compat.savgol_filter(x, 25, 4) on 2 x {N_FULL} f32: "
+          + ", ".join(f"{m} {nz(l_sc[m])} {e_sc[m]:.3e}" for m in l_sc)
+          + f" max abs err vs scipy f64 (gate {GATE_ABS}); numpy input: the "
+          f"same launches and values on the card")
+
+    # -- gradients through K2 and K4 against method="xla" --
+    xg_np = np.random.default_rng(24).standard_normal((24, 4099)).astype(
+        np.float32)
+    grad_err = {}
+    for what in ("K2", "K4"):
+        grads = {}
+        for method in ("auto", "xla"):
+            xg = torch.from_numpy(xg_np).to(dev).requires_grad_()
+            if what == "K2":
+                mod = sgt.Savgol1D.create(sgt.deriv1(12, 4, dt=0.01),
+                                          device=dev)
+                bufs = [mod.center_weights, mod.dt_inv]   # edge rows unused
+                kw = dict(boundary="reflect")
+            else:
+                mod = sgt.SavgolBank.smooth_and_derivatives(
+                    12, 4, 2, time_step=0.01, device=dev)
+                bufs, kw = list(mod.buffers()), {}
+            for b in bufs:
+                b.requires_grad_()
+            loss = mod.apply(xg, method=method, **kw).square().sum()
+            grads[method] = torch.autograd.grad(loss, [xg, *bufs])
+        grad_err[what] = 0.0
+        for got, want in zip(grads["auto"], grads["xla"]):
+            e, sc = max_err(got, want)
+            require(e <= 2e-5 * sc, f"{what} gradient {e:.3e} ({sc:.3e})")
+            grad_err[what] = max(grad_err[what], e / sc)
+    xs_g = torch.from_numpy(xg_np[0]).to(dev).requires_grad_()
+    gs = [torch.autograd.grad(savgol_apply_sweep(
+        xs_g, SWEEP_NS, SWEEP_MS, method=m).square().sum(), xs_g)[0]
+        for m in ("auto", "xla")]
+    e, sc = max_err(*gs)
+    require(e <= 2e-5 * sc, f"sweep gradient {e:.3e}")
+    grad_err["sweep (K4)"] = e / sc
+    print("padded/bank gradients (24, 4099) f32 d1 vs method='xla': "
+          + ", ".join(f"{k} {v:.3e}" for k, v in grad_err.items())
+          + " scaled (tol 2e-5) for x and every float buffer")
+
+    # -- timings: kernels, plain versions, entry points, the old route --
+    one = torch.ones((), device=dev)
+    t = {}
+    for bnd, mode in PAD_MODES.items():
+        t[f"K2 {mode}"] = (
+            cuda_time_ms(lambda: cc.savgol_padded_cuda(x, w, mode, 12)),
+            cuda_time_ms(lambda: cc.savgol_padded_plain(x, w, mode, 12),
+                         warmup=1, reps=5))
+        t[f"Savgol1D.apply {bnd}"] = (
+            cuda_time_ms(lambda: f.apply(x, boundary=bnd)),
+            # before K2: host torch.cat pad, K3, then the dt pass
+            cuda_time_ms(lambda: cc.correlate_valid_cuda(
+                cat_pad(x, 12, mode), w) * one))
+    t["K1 (same run)"] = (
+        cuda_time_ms(lambda: cc.savgol_polynomial_cuda(x, w,
+                                                       f.edge_weights, 12)),
+        float("nan"))
+    t["K4 bank K=3"] = (
+        cuda_time_ms(lambda: cb.correlate_valid_bank_cuda(x, wdt, 12)),
+        cuda_time_ms(lambda: cb.bank_correlate_plain(x, wdt, 12), warmup=1,
+                     reps=3))
+    # f64: the instance with its own launch bounds (bytes double, so the
+    # bound does too); no plain time at this size
+    xd, wdt64 = x.double(), wdt.double()
+    t["K4 bank K=3 f64"] = (
+        cuda_time_ms(lambda: cb.correlate_valid_bank_cuda(xd, wdt64, 12)),
+        float("nan"))
+    del xd
+    fs = [sgt.Savgol1D.create(sgt.SavgolConfig(12, 4, d), device=dev)
+          for d in range(3)]
+    t["SavgolBank.apply"] = (
+        cuda_time_ms(lambda: bank.apply(x)),
+        cuda_time_ms(lambda: [fd.apply(x) for fd in fs]))
+    center = savgol_weights_masked(SWEEP_NS, SWEEP_MS, 0, torch.float32,
+                                   device=dev)[0]
+    for name, xv in (("4M", xs), ("128x1M", x)):
+        t[f"K4 sweep {name}"] = (
+            cuda_time_ms(lambda: cb.correlate_valid_bank_cuda(xv, center,
+                                                              32)),
+            cuda_time_ms(lambda: cb.bank_correlate_plain(xv, center, 32),
+                         warmup=1, reps=3) if name == "4M" else float("nan"))
+        t[f"savgol_apply_sweep {name}"] = (
+            cuda_time_ms(lambda: savgol_apply_sweep(xv, SWEEP_NS, SWEEP_MS)),
+            cuda_time_ms(lambda: savgol_apply_sweep(
+                xv, SWEEP_NS, SWEEP_MS, method="xla"), warmup=1, reps=3)
+            if name == "4M" else float("nan"))
+    for name, (k, p) in t.items():
+        other = ("host pad + K3 (before)" if name.startswith("Savgol1D")
+                 else "three K1 applies" if name == "SavgolBank.apply"
+                 else "plain")
+        where = (f"{SWEEP_X}, 6 configs" if name.endswith("4M") else
+                 f"({B_FULL}, {N_FULL})" + (", 6 configs" if "sweep" in name
+                                             else ", n=12"))
+        label = name if "f64" in name else f"{name} f32"
+        print(f"time {label} {where}: kernel route {k:.4f} ms; {other} "
+              f"{p:.4f} ms [{card}]")
+
+    # host enqueue a call: what bounds an entry point whose device work is
+    # shorter (the 4M sweep)
+    xsm = x[:8, :4096].contiguous()
+    hosts = {"savgol_apply_sweep 4M": lambda: savgol_apply_sweep(
+                 xs, SWEEP_NS, SWEEP_MS),
+             "SavgolBank.apply": lambda: bank.apply(x),
+             "K4 wrapper (8, 4096)": lambda: cb.correlate_valid_bank_cuda(
+                 xsm, center, 32),
+             "K3 wrapper (8, 4096)": lambda: cc.correlate_valid_cuda(xsm, w),
+             "torch.add (8, 4096)": lambda: xsm.add(1.0)}
+    print("host enqueue a call (no synchronisation between calls): "
+          + ", ".join(f"{k} {host_ms(fn):.4f} ms" for k, fn in hosts.items())
+          + f" [{card}]")
+
+    # -- yardsticks (one PyTorch call each, TF32 off, never called by the
+    # port) and bounds --
+    import torch.nn.functional as F
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    x3 = x.view(B_FULL, 1, N_FULL)
+    lib = {}
+    for mode, pm in (("wrap", "circular"), ("edge", "replicate")):
+        conv = torch.nn.Conv1d(1, 1, 25, padding=12, padding_mode=pm,
+                               bias=False).to(dev)
+        with torch.no_grad():
+            conv.weight.copy_(w.view(1, 1, 25))
+            lib[mode] = cuda_time_ms(lambda: conv(x3))
+    with torch.no_grad():
+        lib["bank"] = cuda_time_ms(lambda: F.conv1d(
+            x3, wdt.view(3, 1, 25), padding=12))
+        lib["sweep"] = cuda_time_ms(lambda: F.conv1d(
+            xs.view(1, 1, -1), center.view(6, 1, 65), padding=32))
+    torch.backends.cudnn.allow_tf32 = tf32
+    samples = B_FULL * N_FULL
+    taps = sum(2 * n + 1 for n in SWEEP_NS)
+    b2 = bound(8 * samples, 2 * 25 * samples)
+    b4 = bound(16 * samples, 3 * 2 * 25 * samples)
+    b4_64 = bound(32 * samples, 3 * 2 * 25 * samples, "f64")
+    b_sw = bound(28 * SWEEP_X[0], 2 * taps * SWEEP_X[0])
+    b_swh = bound(28 * samples, 2 * taps * samples)
+    print(f"library: nn.Conv1d circular {lib['wrap']:.4f} ms, replicate "
+          f"{lib['edge']:.4f} ms (symmetric: none); F.conv1d 3 channels "
+          f"{lib['bank']:.4f} ms, 6 x 65 taps on {SWEEP_X} {lib['sweep']:.4f} "
+          f"ms; bounds K2 {b2['bound_ms']:.4f} ms ({b2['bound_by']}), K4 bank "
+          f"{b4['bound_ms']:.4f} ({b4['bound_by']}; f64 "
+          f"{b4_64['bound_ms']:.4f} {b4_64['bound_by']}), sweep {SWEEP_X} "
+          f"{b_sw['bound_ms']:.4f} ({b_sw['bound_by']}; {taps} taps a "
+          f"sample), sweep ({B_FULL}, {N_FULL}) {b_swh['bound_ms']:.4f} "
+          f"[{card}]")
+    return [
+        {"name": "sg1d_pad", "route": "cuda",
+         "source": "savgol_tpu_torch/csrc/sg1d_poly.cu",
+         "replaces": "savgol_tpu/ops/pallas_conv.py:775",
+         "launches": sum(v["sg1d_pad"] for v in l_pad.values()),
+         "max_abs_err": k2_abs,
+         "ms": t["K2 wrap"][0], "plain_ms": t["K2 wrap"][1], **b2,
+         "library_ms": lib["wrap"],
+         "ms_by_mode": {m: t[f"K2 {m}"][0] for m in PAD_MODES.values()},
+         "before_ms": {b: t[f"Savgol1D.apply {b}"][1] for b in PAD_MODES},
+         "library_replicate_ms": lib["edge"]},
+        {"name": "corr1d_bank", "route": "cuda",
+         "source": "savgol_tpu_torch/csrc/corr1d_bank.cu",
+         "replaces": "savgol_tpu/ops/pallas_conv.py:2109",
+         "launches": (l_bank["corr1d_bank"] + l_sw["corr1d_bank"]
+                      + l_swh["corr1d_bank"]),
+         "max_abs_err": k4_abs,
+         "ms": t["K4 bank K=3"][0], "plain_ms": t["K4 bank K=3"][1], **b4,
+         "library_ms": lib["bank"],
+         "f64_ms": t["K4 bank K=3 f64"][0], "f64_bound_ms": b4_64["bound_ms"],
+         "sweep_ms": t["K4 sweep 4M"][0],
+         "sweep_plain_ms": t["K4 sweep 4M"][1],
+         "sweep_bound_ms": b_sw["bound_ms"], "sweep_library_ms": lib["sweep"],
+         "sweep_headline_ms": t["K4 sweep 128x1M"][0]},
+    ]
+
 
 def main() -> int:
     # -- 1. device ---------------------------------------------------------
@@ -1314,12 +1749,13 @@ def main() -> int:
                         worst["corr1d_valid"] = max(worst["corr1d_valid"],
                                                     e / s)
                         if N == 4099:
+                            # the pad boundaries run K2 (sg1d_pad)
                             for bnd in ("reflect", "periodic", "constant"):
                                 e, s = max_err(
                                     f.apply(x, boundary=bnd),
                                     f.apply(x, boundary=bnd, method="xla"))
                                 require(e <= tol * s,
-                                        f"K3 {bnd} n={n} B={B}: {e:.3e}")
+                                        f"K2 {bnd} n={n} B={B}: {e:.3e}")
                     # non-last axis: (N, B) filtered along axis 0
                     xt = x.t().contiguous()
                     e, s = max_err(f.apply(xt, axis=0),
@@ -1331,7 +1767,8 @@ def main() -> int:
             f"grid did not reach every kernel: {grid_launches}")
     print(f"grid: {cases} K1 cases, worst scaled error "
           f"K1={worst['sg1d_poly']:.3e} K3={worst['corr1d_valid']:.3e} "
-          f"(tol f32 {F32_TOL}, f64 {F64_TOL}), launches {grid_launches}")
+          f"(tol f32 {F32_TOL}, f64 {F64_TOL}), K2 on the pad boundaries at "
+          f"N = 4099, launches {grid_launches}")
 
     # -- 5. the slice at full size ------------------------------------------
     cfg = sgt.SavgolConfig(12, 4)
@@ -1619,15 +2056,25 @@ def main() -> int:
     print(k12_grid(dev))
     t_slice = time.perf_counter()
     direct_solves, nonuniform_kernels = nonuniform_slice(sgt, dev, card)
-    t_end = time.perf_counter()
     # the direct resample route's per-query solve is K8b's launch too
     next(k for k in masked_kernels
          if k["name"] == "plane_solve")["launches"] += direct_solves
+
+    # -- 21-24. the padded-boundary and filter-bank paths --------------------
+    t_bank = time.perf_counter()
+    print(k2_grid(sgt, dev))
+    t_k4 = time.perf_counter()
+    print(k4_grid(dev))
+    t_bank_slice = time.perf_counter()
+    bank_kernels = bank_slice(sgt, dev, card)
+    t_end = time.perf_counter()
     print(f"wall time: build and phases 3-11 {t_masked - t0:.1f} s, masked "
           f"phases 12-17 {t_nonuni - t_masked:.1f} s, irregular-sampling "
-          f"phases 18-20 {t_end - t_nonuni:.1f} s (K11 grid "
+          f"phases 18-20 {t_bank - t_nonuni:.1f} s (K11 grid "
           f"{t_k12 - t_nonuni:.1f}, K12 grid {t_slice - t_k12:.1f}, slice "
-          f"{t_end - t_slice:.1f})")
+          f"{t_bank - t_slice:.1f}), padded/bank phases 21-24 "
+          f"{t_end - t_bank:.1f} s (K2 grid {t_k4 - t_bank:.1f}, K4 grid "
+          f"{t_bank_slice - t_k4:.1f}, slice {t_end - t_bank_slice:.1f})")
 
     kernels = [
         {"name": "sg1d_poly", "route": "cuda",
@@ -1655,7 +2102,7 @@ def main() -> int:
          "launches": launches_sep["corr2d_sep"], "max_abs_err": ks_err,
          "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1], **b2s,
          "library_ms": lib_2d},
-    ] + masked_kernels + nonuniform_kernels
+    ] + masked_kernels + nonuniform_kernels + bank_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

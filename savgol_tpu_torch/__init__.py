@@ -13,7 +13,11 @@ kernels (K8a, K8b) and the fused masked kernels (K9 in 1D, K10 in 2D). So
 is the irregular-sampling path: ``savgol_apply_nonuniform`` (filtering at
 arbitrary sample positions) and ``savgol_resample`` (evaluation at arbitrary
 query positions), on the fused double-word nonuniform fit kernel (K11, with
-its plane-stack mode) and the resample gather-evaluate kernel (K12). The
+its plane-stack mode) and the resample gather-evaluate kernel (K12). So are
+the padded-boundary and filter-bank 1D paths: the REFLECT / PERIODIC /
+CONSTANT apply on the fused-pad kernel K2, :class:`SavgolBank` and the
+(n, m) sweep (``savgol_tpu_torch.ops.sweep``) on the K-stencil bank kernel
+K4, and the scipy drop-in ``savgol_tpu_torch.scipy_compat``. The
 kernels are built with ``nvcc`` at their first call on a CUDA tensor; CPU
 tensors take their plain PyTorch versions.
 
@@ -27,6 +31,8 @@ Quick start::
     f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(5, 5, 3), device="cuda")
     img = f2.apply(images)                  # images: (..., R, C)
     y = sgt.savgol_apply_nonuniform(x, t, half_window=12, poly_order=4)
+    sm, vel, acc = sgt.SavgolBank.smooth_and_derivatives(
+        12, 4, 2, device="cuda").apply(x)
 """
 
 from savgol_tpu_torch.config import (
@@ -42,7 +48,7 @@ from savgol_tpu_torch.config import (
     num_terms_2d,
     smooth,
 )
-from savgol_tpu_torch.models import Savgol1D, Savgol2D
+from savgol_tpu_torch.models import Savgol1D, Savgol2D, SavgolBank
 from savgol_tpu_torch.ops.apply import savgol_apply, savgol_apply_valid
 from savgol_tpu_torch.ops.masked import (savgol2d_apply_masked,
                                          savgol_apply_masked)
@@ -60,13 +66,13 @@ from savgol_tpu_torch.ops.weights import (monomial_index,
                                           savgol_all_weights_np,
                                           savgol_weights_np)
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = [
     "BoundaryMode", "Boundary2D", "SavgolConfig", "Savgol2DConfig",
     "MAX_HALF_WINDOW", "MAX_POLY_ORDER", "MAX_DERIVATIVE",
     "smooth", "deriv1", "deriv2", "num_terms_2d",
-    "Savgol1D", "Savgol2D",
+    "Savgol1D", "Savgol2D", "SavgolBank",
     "savgol_weights_np", "savgol_all_weights_np",
     "savgol2d_weights_np", "monomial_index",
     "savgol_apply", "savgol_apply_valid",

@@ -28,9 +28,9 @@ __all__ = ["build", "library", "BUILD_DIR"]
 _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "savgol_tpu_torch"
-_SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr2d_valid.cu",
-            "corr2d_sep.cu", "plane_solve.cu", "masked1d.cu", "masked2d.cu",
-            "nonuniform.cu", "resample.cu")
+_SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr1d_bank.cu",
+            "corr2d_valid.cu", "corr2d_sep.cu", "plane_solve.cu",
+            "masked1d.cu", "masked2d.cu", "nonuniform.cu", "resample.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
@@ -44,8 +44,14 @@ _SIGNATURES = {
                       ctypes.c_float, _P],
     "sg1d_poly_f64": [_P, _P, _P, _P, _LL, _LL, ctypes.c_int,
                       ctypes.c_double, _P],
+    # x, w, out, B, N, n, mode, stream
+    "sg1d_pad_f32": [_P, _P, _P, _LL, _LL, _I, _I, _P],
+    "sg1d_pad_f64": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "corr1d_valid_f32": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
     "corr1d_valid_f64": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
+    # x, w, out, B, N, K, ws, pad, mode, stream
+    "corr1d_bank_f32": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+    "corr1d_bank_f64": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
     # x, w, out, B, R, C, K, H, W, mode, stream
     "corr2d_valid_f32": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
     "corr2d_valid_f64": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],

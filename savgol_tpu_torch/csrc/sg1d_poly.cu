@@ -1,15 +1,22 @@
-// K1: same-length 1D Savitzky-Golay apply with POLYNOMIAL edges, one pass.
+// K1: same-length 1D Savitzky-Golay apply with POLYNOMIAL edges, one pass;
+// K2: the same-length apply with a REFLECT / PERIODIC / CONSTANT boundary,
+// one pass, from the same kernel.
 //
-// Replaces the TPU kernels savgol_tpu/ops/pallas_conv.py::
+// K1 replaces the TPU kernels savgol_tpu/ops/pallas_conv.py::
 // _sg1d_poly_mxu_kernel (banded-MXU, wide batches), ::_sg1d_poly_kernel_v2
 // and ::_sg1d_poly_kernel (VPU tap loops, narrow batches). They compute one
 // function; the TPU split them by batch width because of its matrix unit.
+// K2 replaces ::_sg1d_pad_mxu_kernel (savgol_padded_pallas_mxu), which
+// splices two host-built (B, n) strips of virtual samples into its slab.
 //
 // For each row b and output j of a (B, N) input, with ws = 2n + 1:
-//   j <  n        : lead_sign * sum_k ew[j, k]     * x[ws - 1 - k]
-//   j >= N - n    : sum_k ew[N - 1 - j, k]         * x[N - ws + k]
-//   otherwise     : sum_k w[k]                     * x[j - n + k]
-// The caller folds dt_inv into w and ew. f32 accumulates in f32, f64 in f64.
+//   K1, j <  n     : lead_sign * sum_k ew[j, k]     * x[ws - 1 - k]
+//   K1, j >= N - n : sum_k ew[N - 1 - j, k]         * x[N - ws + k]
+//   otherwise      : sum_k w[k]                     * xv[j - n + k]
+// where xv is x extended past [0, N) by the pad mode (stencil_tile.cuh
+// map_index: symmetric, wrap or edge for K2; zero for K1, whose edge outputs
+// are then fitted from ew). The caller folds dt_inv into w and ew. f32
+// accumulates in f32, f64 in f64.
 //
 // Bound: device-memory bytes. An f32 sample is read once (4 B) and written
 // once (4 B) for 2n + 1 = 25 FMAs at n = 12, far below the card's FMA rate
@@ -18,9 +25,11 @@
 // The design keeps to it by reading x once per tile of 1024 outputs plus a
 // halo of about 2n samples (28 at n = 12, 2.7% extra) and writing each output
 // once; the taps run out of shared memory and registers (stencil_tile.cuh).
-// Tiles clear of both edges skip the edge logic altogether.
+// K2's virtual samples are mapped while the edge tiles stage their halo, so
+// the TPU kernel's strips and the host pad copy before K3 both go: K2 moves
+// the same bytes as K1. Tiles clear of both edges skip the edge logic.
 //
-// The edge outputs (2n per row) read their windows straight from device
+// K1's edge outputs (2n per row) read their windows straight from device
 // memory: the trailing window can start up to 2n samples before its output's
 // tile and the leading window sits at x[0, ws) whatever the tile, so neither
 // is reliably inside the staged span.
@@ -28,11 +37,13 @@
 
 namespace {
 
+// mode: sgt::kZero for K1 (edge outputs fitted from ew), a pad mode for K2
+// (ew unused).
 template <typename T>
 __global__ void __launch_bounds__(sgt::kThreads, sgt::kMinBlocks)
 sg1d_poly_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const T* __restrict__ ew, T* __restrict__ out, long long N,
-                 long long tiles, int n, T lead_sign) {
+                 long long tiles, int n, T lead_sign, int mode) {
   __shared__ sgt::TileSmem<T> s;
   const long long b = blockIdx.x / tiles;
   const long long t0 = (blockIdx.x % tiles) * sgt::kTile;
@@ -40,10 +51,16 @@ sg1d_poly_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const T* __restrict__ xrow = x + b * N;   // 64-bit: B * N passes 2^31
   T* __restrict__ orow = out + b * N;
 
-  sgt::tile_correlate<T>(xrow, N, t0 - n, w, ws, s);
+  sgt::tile_correlate<T>(xrow, N, t0 - n, w, ws, s, mode);
 
   if (t0 >= n && t0 + sgt::kTile <= N - n) {   // interior tile: no edges
     for (int i = threadIdx.x; i < sgt::kTile; i += sgt::kThreads)
+      orow[t0 + i] = s.xs[i];
+    return;
+  }
+  if (mode != sgt::kZero) {   // K2's edge tiles: their pad is staged
+    for (int i = threadIdx.x; i < sgt::kTile && t0 + i < N;
+         i += sgt::kThreads)
       orow[t0 + i] = s.xs[i];
     return;
   }
@@ -69,16 +86,18 @@ sg1d_poly_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T>
 int launch(const T* x, const T* w, const T* ew, T* out, long long B,
-           long long N, int n, T lead_sign, void* stream) {
+           long long N, int n, T lead_sign, int mode, void* stream) {
   const int ws = 2 * n + 1;
-  if (n < 1 || ws > sgt::kMaxWs || N < ws) return cudaErrorInvalidValue;
+  if (n < 1 || ws > sgt::kMaxWs || N < ws || mode < sgt::kZero ||
+      mode > sgt::kWrap)
+    return cudaErrorInvalidValue;
   dim3 grid;
   long long tiles;
   const cudaError_t err = sgt::grid_for(B, N, &grid, &tiles);
   if (err != cudaSuccess) return err;
   sg1d_poly_kernel<T><<<grid, sgt::kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      x, w, ew, out, N, tiles, n, lead_sign);
+      x, w, ew, out, N, tiles, n, lead_sign, mode);
   return cudaGetLastError();
 }
 
@@ -87,12 +106,28 @@ int launch(const T* x, const T* w, const T* ew, T* out, long long B,
 extern "C" int sg1d_poly_f32(const float* x, const float* w, const float* ew,
                              float* out, long long B, long long N, int n,
                              float lead_sign, void* stream) {
-  return launch<float>(x, w, ew, out, B, N, n, lead_sign, stream);
+  return launch<float>(x, w, ew, out, B, N, n, lead_sign, sgt::kZero, stream);
 }
 
 extern "C" int sg1d_poly_f64(const double* x, const double* w,
                              const double* ew, double* out, long long B,
                              long long N, int n, double lead_sign,
                              void* stream) {
-  return launch<double>(x, w, ew, out, B, N, n, lead_sign, stream);
+  return launch<double>(x, w, ew, out, B, N, n, lead_sign, sgt::kZero,
+                        stream);
+}
+
+// K2: mode is sgt::kEdge, kSymmetric or kWrap.
+extern "C" int sg1d_pad_f32(const float* x, const float* w, float* out,
+                            long long B, long long N, int n, int mode,
+                            void* stream) {
+  if (mode == sgt::kZero) return cudaErrorInvalidValue;
+  return launch<float>(x, w, nullptr, out, B, N, n, 1.0f, mode, stream);
+}
+
+extern "C" int sg1d_pad_f64(const double* x, const double* w, double* out,
+                            long long B, long long N, int n, int mode,
+                            void* stream) {
+  if (mode == sgt::kZero) return cudaErrorInvalidValue;
+  return launch<double>(x, w, nullptr, out, B, N, n, 1.0, mode, stream);
 }

@@ -29,8 +29,14 @@ constexpr int kTC = 4 * kColThreads;          // tile columns
 constexpr int kTR = kQR * (kThreads / kColThreads);   // tile rows
 constexpr int kMaxTaps = 33;                  // 2 * MAX_HALF_WINDOW_2D + 1
 
-// The pad mode codes of savgol_tpu_torch/ops/cuda_conv2d.py (_MODE_CODE).
-enum PadMode : int { kValid = 0, kEdge = 1, kSymmetric = 2, kWrap = 3 };
+// The pad modes and their index map live in stencil_tile.cuh; kValid (no
+// padding: samples outside the image feed only outputs past the ragged
+// edge) is its kZero.
+using sgt::kEdge;
+using sgt::kSymmetric;
+using sgt::kWrap;
+using sgt::map_index;
+constexpr int kValid = sgt::kZero;
 
 // Staged rows and row stride for an H x W stencil. The stride holds the
 // kTC + W - 1 samples a tile row reads plus the lanes that the last 16-byte
@@ -38,28 +44,6 @@ enum PadMode : int { kValid = 0, kEdge = 1, kSymmetric = 2, kWrap = 3 };
 __host__ __device__ inline int stage_rows(int H) { return kTR + H - 1; }
 __host__ __device__ inline int stage_cols(int W) { return kTC + (W & ~3) + 4; }
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
-
-// Source index of padded index i on an axis of n samples; -1 for a VALID
-// sample outside the image (it feeds only outputs past the ragged edge).
-__device__ __forceinline__ int map_index(int i, int n, int mode) {
-  if (i >= 0 && i < n) return i;
-  switch (mode) {
-    case kEdge:
-      return i < 0 ? 0 : n - 1;
-    case kWrap: {
-      const int j = i % n;
-      return j < 0 ? j + n : j;
-    }
-    case kSymmetric: {
-      const int p = 2 * n;
-      int j = i % p;
-      if (j < 0) j += p;
-      return j < n ? j : p - 1 - j;
-    }
-    default:
-      return -1;
-  }
-}
 
 // The tile of block blockIdx.x: blocks cover (image, tile row, tile column)
 // flattened into gridDim.x, so any batch size launches.

@@ -1,17 +1,19 @@
 // The tap loop of a staged row (row_taps4: the 1D kernels and the row pass
-// of corr2d_sep.cu) and the shared tile stencil of the 1D kernels
-// (sg1d_poly.cu, corr1d_valid.cu).
+// of corr2d_sep.cu), the pad-mode index map of every staging loop (1D and
+// 2D), and the shared tile stencil of the 1D kernels (sg1d_poly.cu,
+// corr1d_valid.cu, corr1d_bank.cu).
 //
 // One block computes TILE consecutive outputs of one row:
 //
-//     acc[i] = sum_{k < ws} w[k] * x[in0 + i + k],   0 <= i < TILE
+//     acc[i] = sum_{k < ws} w[k] * xv[in0 + i + k],   0 <= i < TILE
 //
 // where in0 is the input index of the tile's first tap (t0 - n for the
-// same-length apply, t0 for the VALID correlation). Samples outside [0, N)
-// read as zero. The TILE + ws - 1 samples the tile needs (rounded up to
-// whole 16-byte register loads) are staged once in shared memory, so each
-// sample of a row is read from device memory once plus a halo of about ws
-// samples per tile.
+// same-length apply, t0 for the VALID correlation) and xv is the row
+// extended past [0, N) by the pad mode: zeros, or the samples map_index
+// names, so no padded copy of a row is ever made. The TILE + ws - 1 samples
+// the tile needs (rounded up to whole 16-byte register loads) are staged
+// once in shared memory, so each sample of a row is read from device memory
+// once plus a halo of about ws samples per tile.
 //
 // Each thread owns Q = 4 consecutive outputs and runs row_taps4 over the
 // staged span.
@@ -20,6 +22,35 @@
 #include <cuda_runtime.h>
 
 namespace sgt {
+
+// The pad mode codes of savgol_tpu_torch/ops/cuda_conv.py (MODE_CODE).
+enum PadMode : int { kZero = 0, kEdge = 1, kSymmetric = 2, kWrap = 3 };
+
+// Source index of index i on an axis of n samples padded in `mode`, by
+// numpy's rules for any pad width (a row may be shorter than the pad):
+// edge clamps, wrap is i mod n, symmetric reflects with the edge sample
+// duplicated (period 2n). -1 for a kZero sample outside [0, n), which reads
+// as zero. I is int for the 2D kernels' axes and long long for 1D rows.
+template <typename I>
+__host__ __device__ __forceinline__ I map_index(I i, I n, int mode) {
+  if (i >= 0 && i < n) return i;
+  switch (mode) {
+    case kEdge:
+      return i < 0 ? I(0) : n - 1;
+    case kWrap: {
+      const I j = i % n;
+      return j < 0 ? j + n : j;
+    }
+    case kSymmetric: {
+      const I p = 2 * n;
+      I j = i % p;
+      if (j < 0) j += p;
+      return j < n ? j : p - 1 - j;
+    }
+    default:
+      return I(-1);
+  }
+}
 
 constexpr int kThreads = 256;
 constexpr int kQ = 4;
@@ -108,18 +139,32 @@ template <typename T> struct TileSmem {
   __align__(16) T w[kMaxWsPad];
 };
 
-// Stages x[in0, in0 + stage) (zero outside [0, N)) and w, computes the
-// tile, and leaves acc[i] in s.xs[i] for 0 <= i < kTile. Ends synchronised.
+// Stages xv[in0, in0 + stage) of a row of N >= 1 samples into xs, the
+// samples past [0, N) mapped by `mode` (no barrier).
+template <typename T>
+__device__ __forceinline__ void stage_row(const T* __restrict__ xrow,
+                                          long long N, long long in0, int ws,
+                                          int mode, T* __restrict__ xs) {
+  const int stage = kTile + (ws & ~(kQ - 1)) + kQ;
+  for (int i = threadIdx.x; i < stage; i += kThreads) {
+    const long long g = in0 + i;
+    T v = T(0);
+    if (g >= 0 && g < N)
+      v = xrow[g];
+    else if (mode != kZero)   // a pad mode maps every index into [0, N)
+      v = xrow[map_index(g, N, mode)];
+    xs[i] = v;
+  }
+}
+
+// Stages xv[in0, in0 + stage) (see stage_row) and w, computes the tile, and
+// leaves acc[i] in s.xs[i] for 0 <= i < kTile. Ends synchronised.
 template <typename T>
 __device__ void tile_correlate(const T* __restrict__ xrow, long long N,
                                long long in0, const T* __restrict__ w,
-                               int ws, TileSmem<T>& s) {
+                               int ws, TileSmem<T>& s, int mode = kZero) {
   const int tid = threadIdx.x;
-  const int stage = kTile + (ws & ~(kQ - 1)) + kQ;
-  for (int i = tid; i < stage; i += kThreads) {
-    const long long g = in0 + i;
-    s.xs[i] = (g >= 0 && g < N) ? xrow[g] : T(0);
-  }
+  stage_row(xrow, N, in0, ws, mode, s.xs);
   for (int k = tid; k < kMaxWsPad; k += kThreads)
     s.w[k] = k < ws ? w[k] : T(0);
   __syncthreads();

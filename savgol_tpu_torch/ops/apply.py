@@ -9,9 +9,9 @@ src/savgolFilter.c:743-804):
   * POLYNOMIAL boundary: the n leading outputs come from the edge-weight
     matrix applied to the *reversed* first window, the n trailing outputs
     from the same rows applied forward to the last window;
-  * REFLECT / PERIODIC / CONSTANT boundaries: the virtual samples are built
-    on the host side of the kernel (symmetric / wrap / edge pad), then one
-    VALID correlation runs over the padded row;
+  * REFLECT / PERIODIC / CONSTANT boundaries: the centered stencil over
+    the row extended by virtual samples (symmetric / wrap / edge), which
+    the kernel maps while it stages its edge tiles (no padded copy);
   * derivative outputs scaled by ``dt_inv`` = 1 / time_step**derivative;
   * odd derivatives take the mathematically correct leading-edge sign
     unless ``reference_edge_sign=True`` reproduces the C's flipped one.
@@ -34,13 +34,18 @@ from typing import Optional
 import torch
 
 from savgol_tpu_torch.config import PAD_MODE, BoundaryMode
+from savgol_tpu_torch.ops.cuda_bank import (bank_correlate_plain,
+                                            correlate_valid_bank_cuda)
 from savgol_tpu_torch.ops.cuda_conv import (correlate_valid_cuda,
                                             correlate_valid_plain,
+                                            savgol_padded_cuda,
+                                            savgol_padded_plain,
                                             savgol_polynomial_cuda,
                                             savgol_polynomial_plain,
                                             scalar_like)
 
 __all__ = [
+    "correlate_bank",
     "savgol_apply_core",
     "savgol_apply",
     "savgol_apply_valid",
@@ -60,7 +65,7 @@ def _use_kernel(method: str, x: torch.Tensor) -> bool:
     if method == "bf16":
         raise NotImplementedError(
             "method='bf16' is not ported yet: see ROADMAP.md, Queue 1, "
-            "'The rest of the 1D apply' (fused pad kernel K2 and bf16)")
+            "'bf16 in 1D and 2D'")
     if method in ("pallas", "mxu") and x.device.type != "cuda":
         raise ValueError(
             f"method={method!r} runs the CUDA kernel and needs a CUDA "
@@ -110,23 +115,6 @@ def _restore_axis(y: torch.Tensor, axis):
     if axis is None:
         return y
     return y.movedim(-1, axis)
-
-
-def _pad_boundary(x: torch.Tensor, n: int, pad_mode: str) -> torch.Tensor:
-    """Pad the last axis by n virtual samples on each side, as ``jnp.pad``
-    does for ``pad_mode`` (the strips of ``_boundary_strips``,
-    pallas_conv.py:858-869). ``F.pad`` has no 'symmetric' mode, which the
-    reference's edge-duplicating REFLECT needs."""
-    if pad_mode == "symmetric":
-        left, right = x[..., :n].flip(-1), x[..., -n:].flip(-1)
-    elif pad_mode == "wrap":
-        left, right = x[..., -n:], x[..., :n]
-    elif pad_mode == "edge":
-        shape = x.shape[:-1] + (n,)
-        left, right = x[..., :1].expand(shape), x[..., -1:].expand(shape)
-    else:
-        raise ValueError(f"unsupported pad mode {pad_mode!r}")
-    return torch.cat([left, x, right], dim=-1)
 
 
 def _grads_through(plain, saved, needs, g):
@@ -179,10 +167,59 @@ class _CorrValidFn(torch.autograd.Function):
                                     ctx.needs_input_grad[:2], g))
 
 
+class _SavgolPadFn(torch.autograd.Function):
+    """Fused REFLECT / PERIODIC / CONSTANT apply (kernel K2 on CUDA) whose
+    backward is autograd through ``savgol_padded_plain`` — the counterpart
+    of ``savgol_tpu.ops.apply._pallas_pad_diff``."""
+
+    @staticmethod
+    def forward(ctx, x, cw, dt_inv, n: int, pad_mode: str):
+        ctx.save_for_backward(x, cw, dt_inv)
+        ctx.n, ctx.pad_mode = n, pad_mode
+        return savgol_padded_cuda(x, cw, pad_mode, n, dt_inv)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(x, cw, dt):
+            return savgol_padded_plain(x, cw, ctx.pad_mode, ctx.n, dt)
+        grads = _grads_through(plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:3], g)
+        return (*grads, None, None)
+
+
+class _BankFn(torch.autograd.Function):
+    """K-stencil bank correlation (kernel K4 on CUDA) whose backward is
+    autograd through ``bank_correlate_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, w, pad: int, pad_mode):
+        ctx.save_for_backward(x, w)
+        ctx.pad, ctx.pad_mode = pad, pad_mode
+        return correlate_valid_bank_cuda(x, w, pad, pad_mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        def plain(x, w):
+            return bank_correlate_plain(x, w, ctx.pad, ctx.pad_mode)
+        grads = _grads_through(plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:2], g)
+        return (*grads, None, None)
+
+
 def _correlate(x: torch.Tensor, w: torch.Tensor, kernel: bool):
     if kernel:
         return _CorrValidFn.apply(x.contiguous(), w)
     return correlate_valid_plain(x, w)
+
+
+def correlate_bank(x: torch.Tensor, w: torch.Tensor, pad: int = 0,
+                   pad_mode=None, *, kernel: bool) -> torch.Tensor:
+    """(K, ..., N + 2 pad - ws + 1) bank correlation of ``x`` padded by
+    ``pad`` (zeros or ``pad_mode``): kernel K4 through :class:`_BankFn`
+    (the plain version for a CPU tensor), or the plain version."""
+    if kernel:
+        return _BankFn.apply(x.contiguous(), w, int(pad), pad_mode)
+    return bank_correlate_plain(x, w, pad, pad_mode)
 
 
 def savgol_apply_core(
@@ -233,9 +270,11 @@ def savgol_apply_core(
         else:
             y = savgol_polynomial_plain(x, center_w, edge_w, n, dt,
                                         lead_sign)
+    elif kernel:
+        y = _SavgolPadFn.apply(x.contiguous(), center_w, dt, n,
+                               PAD_MODE[boundary])
     else:
-        xp = _pad_boundary(x, n, PAD_MODE[boundary])
-        y = _correlate(xp, center_w, kernel) * dt
+        y = savgol_padded_plain(x, center_w, PAD_MODE[boundary], n, dt)
     return y.to(restore) if restore is not None else y
 
 

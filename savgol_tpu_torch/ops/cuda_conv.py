@@ -1,12 +1,15 @@
-"""The 1D kernels of the port, their plain PyTorch versions and their
-launch counts.
+"""The same-length and VALID 1D kernels of the port, their plain PyTorch
+versions and their launch counts, and the pad-index rule every padded
+plain version uses.
 
-``savgol_polynomial_cuda`` (kernel K1, ``csrc/sg1d_poly.cu``) and
+``savgol_polynomial_cuda`` (kernel K1, ``csrc/sg1d_poly.cu``),
+``savgol_padded_cuda`` (kernel K2, the same source) and
 ``correlate_valid_cuda`` (kernel K3, ``csrc/corr1d_valid.cu``) are the
-counterparts of the 1D half of ``savgol_tpu.ops.pallas_conv``. Each wrapper
-dispatches on the device of the tensor it is given: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises. Nothing falls
-back from the kernel to the plain version.
+counterparts of the single-stencil 1D half of
+``savgol_tpu.ops.pallas_conv``. Each wrapper dispatches on the device of the
+tensor it is given: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises. Nothing falls back from the kernel to the
+plain version.
 
 The plain versions are a tap loop over shifted slices plus elementwise edge
 sums: no matmul and no convolution, so TF32 cannot enter them on the card.
@@ -16,24 +19,36 @@ functions whose autograd gives the gradients (``ops.apply``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from savgol_tpu_torch._build import library
 
 __all__ = [
     "LAUNCHES",
+    "MODE_CODE",
     "reset_launches",
+    "pad_index",
+    "pad_last",
     "savgol_polynomial_cuda",
     "savgol_polynomial_plain",
+    "savgol_padded_cuda",
+    "savgol_padded_plain",
     "correlate_valid_cuda",
     "correlate_valid_plain",
 ]
 
 # Kernel launches since the last reset_launches(), one count per wrapper.
 # Only the line that launches a kernel adds to its count.
-LAUNCHES = {"sg1d_poly": 0, "corr1d_valid": 0}
+LAUNCHES = {"sg1d_poly": 0, "sg1d_pad": 0, "corr1d_valid": 0}
 
 _MAX_WS = 65    # the kernels' shared tap buffer: 2 * MAX_HALF_WINDOW + 1
+
+# pad mode -> the kernels' mode code (csrc/stencil_tile.cuh, PadMode); None
+# pads with zeros
+MODE_CODE = {None: 0, "edge": 1, "symmetric": 2, "wrap": 3}
 
 
 def reset_launches() -> None:
@@ -48,6 +63,39 @@ def scalar_like(v, x: torch.Tensor) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(dtype=x.dtype, device=x.device)
     return torch.full((), float(v), dtype=x.dtype, device=x.device)
+
+
+def pad_index(n: int, lo: int, hi: int, pad_mode: str,
+              device) -> torch.Tensor:
+    """Source indices of an axis of length n padded by (lo, hi), by numpy's
+    rules for any pad width: edge clamps, wrap is i mod n, symmetric
+    reflects with the edge sample duplicated (period 2n), reflect without
+    it (period 2n - 2). The host twin of ``csrc/stencil_tile.cuh``
+    ``map_index``, which has no reflect: that mode is only ever padded on
+    the host (``scipy_compat``'s ``mode="mirror"``)."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if pad_mode == "edge":
+        return i.clamp(0, n - 1)
+    if pad_mode == "wrap":
+        return i.remainder(n)
+    if pad_mode == "symmetric":
+        j = i.remainder(2 * n)
+        return torch.where(j < n, j, 2 * n - 1 - j)
+    if pad_mode == "reflect":
+        if n == 1:
+            return torch.zeros_like(i)
+        j = i.remainder(2 * n - 2)
+        return torch.where(j < n, j, 2 * n - 2 - j)
+    raise ValueError(f"unsupported pad mode {pad_mode!r}")
+
+
+def pad_last(x: torch.Tensor, n: int, pad_mode: Optional[str]) -> torch.Tensor:
+    """The last axis padded by n on each side: zeros (``pad_mode`` None) or
+    ``jnp.pad``'s ``pad_mode`` for any pad width."""
+    if pad_mode is None:
+        return F.pad(x, (n, n))
+    return x.index_select(-1, pad_index(x.shape[-1], n, n, pad_mode,
+                                        x.device))
 
 
 def correlate_valid_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -83,6 +131,18 @@ def savgol_polynomial_plain(x: torch.Tensor, center_w: torch.Tensor,
     lead = _edge_sums(ew, x[..., :ws].flip(-1)) * lead_sign
     trail = _edge_sums(ew, x[..., N - ws:]).flip(-1)
     y = torch.cat([lead, center, trail], dim=-1)
+    return y * scalar_like(dt_inv, x)
+
+
+def savgol_padded_plain(x: torch.Tensor, center_w: torch.Tensor,
+                        pad_mode: str, n: int, dt_inv=1.0) -> torch.Tensor:
+    """Same-length REFLECT / PERIODIC / CONSTANT apply along the last axis
+    (counterpart of ``xla_twin`` in ``savgol_tpu.ops.apply._pallas_pad_diff``):
+    pad by n in ``pad_mode`` ("symmetric" / "wrap" / "edge"), the VALID
+    correlation, then ``* dt_inv``."""
+    if pad_mode not in ("symmetric", "wrap", "edge"):
+        raise ValueError(f"unsupported pad mode {pad_mode!r}")
+    y = correlate_valid_plain(pad_last(x, int(n), pad_mode), center_w)
     return y * scalar_like(dt_inv, x)
 
 
@@ -160,6 +220,48 @@ def savgol_polynomial_cuda(x: torch.Tensor, center_w: torch.Tensor,
                  torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, name)
     LAUNCHES["sg1d_poly"] += 1
+    return out
+
+
+def savgol_padded_cuda(x: torch.Tensor, center_w: torch.Tensor,
+                       pad_mode: str, n: int, dt_inv=1.0) -> torch.Tensor:
+    """Same-length REFLECT / PERIODIC / CONSTANT apply along the last axis
+    of ``x`` (..., N), ``pad_mode`` "symmetric" / "wrap" / "edge".
+
+    CUDA tensor: kernel K2 (``csrc/sg1d_poly.cu``, the counterpart of
+    ``savgol_padded_pallas_mxu``), which maps the virtual samples while it
+    stages its edge tiles, so no padded copy is made; ``dt_inv`` folded
+    into the taps as K1 does. There is no fallback: any B >= 1, N >= ws and
+    1 <= n <= 32 launches. CPU tensor: :func:`savgol_padded_plain`.
+    """
+    name = "savgol_padded_cuda"
+    if not _plain_or_cuda(x, name):
+        return savgol_padded_plain(x, center_w, pad_mode, n, dt_inv)
+    _check_cuda_input(x, name)
+    n = int(n)
+    ws = 2 * n + 1
+    N = x.shape[-1]
+    if pad_mode not in ("symmetric", "wrap", "edge"):
+        raise ValueError(f"{name}: unsupported pad mode {pad_mode!r}")
+    if n < 1 or ws > _MAX_WS:
+        raise ValueError(f"{name}: half window must be in [1, 32], got {n}")
+    if tuple(center_w.shape) != (ws,):
+        raise ValueError(f"{name}: weights of shape {tuple(center_w.shape)} "
+                         f"do not match n={n}")
+    if N < ws:
+        raise ValueError(f"data length ({N}) must be >= window size ({ws})")
+    w = (_weights_on(center_w, x, name) * scalar_like(dt_inv, x)).contiguous()
+    out = torch.empty_like(x)
+    B = x.numel() // N
+    if B == 0:
+        return out
+    lib = library()
+    fn = lib.sg1d_pad_f32 if x.dtype == torch.float32 else lib.sg1d_pad_f64
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, N, n,
+                 MODE_CODE[pad_mode], torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, name)
+    LAUNCHES["sg1d_pad"] += 1
     return out
 
 

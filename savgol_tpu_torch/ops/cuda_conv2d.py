@@ -23,9 +23,9 @@ import numpy as np
 import torch
 
 from savgol_tpu_torch._build import library
-from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input,
+from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _check_cuda_input,
                                             _plain_or_cuda, _raise_on_error,
-                                            _weights_on)
+                                            _weights_on, pad_index)
 
 __all__ = [
     "LAUNCHES",
@@ -41,8 +41,6 @@ __all__ = [
 # Only the line that launches a kernel adds to its count.
 LAUNCHES = {"corr2d_valid": 0, "corr2d_sep": 0}
 
-# pad_mode -> the kernels' mode code (csrc/stencil2d.cuh, PadMode)
-_MODE_CODE = {None: 0, "edge": 1, "symmetric": 2, "wrap": 3}
 _MAX_TAPS = 33      # 2 * MAX_HALF_WINDOW_2D + 1: the kernels' staged halo
 
 
@@ -64,7 +62,7 @@ def _svd_stencil_np(w, rtol: float = 1e-9):
 def _out_size(x: torch.Tensor, H: int, W: int, pad_mode) -> tuple[int, int]:
     """Output (rows, cols) of the correlation; raises for what neither
     version takes."""
-    if pad_mode not in _MODE_CODE:
+    if pad_mode not in MODE_CODE:
         raise ValueError(f"unsupported pad mode {pad_mode!r}")
     if x.dim() < 2:
         raise ValueError(f"2D correlation needs an input of at least two "
@@ -80,27 +78,13 @@ def _out_size(x: torch.Tensor, H: int, W: int, pad_mode) -> tuple[int, int]:
     return R - H + 1, C - W + 1
 
 
-def _pad_index(n: int, lo: int, hi: int, pad_mode: str,
-               device) -> torch.Tensor:
-    """Source indices of an axis of length n padded by (lo, hi), by numpy's
-    rules for any pad width: edge clamps, wrap is i mod n, symmetric
-    reflects with the edge sample duplicated (period 2n)."""
-    i = torch.arange(-lo, n + hi, device=device)
-    if pad_mode == "edge":
-        return i.clamp(0, n - 1)
-    if pad_mode == "wrap":
-        return i.remainder(n)
-    j = i.remainder(2 * n)
-    return torch.where(j < n, j, 2 * n - 1 - j)
-
-
 def pad2d_plain(x: torch.Tensor, ny: int, nx: int,
                 pad_mode: str) -> torch.Tensor:
     """``x`` (..., R, C) extended by ny rows and nx columns on each side,
     equal to ``jnp.pad(x, ..., mode=pad_mode)`` for any pad width."""
     R, C = x.shape[-2:]
-    x = x.index_select(-2, _pad_index(R, ny, ny, pad_mode, x.device))
-    return x.index_select(-1, _pad_index(C, nx, nx, pad_mode, x.device))
+    x = x.index_select(-2, pad_index(R, ny, ny, pad_mode, x.device))
+    return x.index_select(-1, pad_index(C, nx, nx, pad_mode, x.device))
 
 
 def _padded(x: torch.Tensor, H: int, W: int, pad_mode) -> torch.Tensor:
@@ -197,7 +181,7 @@ def correlate2d_valid_cuda(x: torch.Tensor, w: torch.Tensor,
           else lib.corr2d_valid_f64)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), ws.data_ptr(), out.data_ptr(), B, R, C, K, H,
-                 W, _MODE_CODE[pad_mode],
+                 W, MODE_CODE[pad_mode],
                  torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, name)
     LAUNCHES["corr2d_valid"] += 1
@@ -234,7 +218,7 @@ def correlate2d_sep_cuda(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
           else lib.corr2d_sep_f64)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), uc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-                 B, R, C, rank, H, W, _MODE_CODE[pad_mode],
+                 B, R, C, rank, H, W, MODE_CODE[pad_mode],
                  torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, name)
     LAUNCHES["corr2d_sep"] += 1

@@ -18,14 +18,13 @@ import numpy as np
 import torch
 
 from savgol_tpu_torch._build import library
+from savgol_tpu_torch.ops.cuda_bank import bank_correlate_plain
 from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input,
-                                            _plain_or_cuda, _raise_on_error,
-                                            correlate_valid_plain)
+                                            _plain_or_cuda, _raise_on_error)
 from savgol_tpu_torch.ops.cuda_solve import _work_size, scratch_for
 from savgol_tpu_torch.ops.lsq import cholesky_solve_planes
 
-__all__ = ["LAUNCHES", "reset_launches", "bank_correlate_plain",
-           "extract_fill", "masked1d_plain", "savgol_masked1d_fused_cuda",
+__all__ = ["LAUNCHES", "reset_launches", "extract_fill", "masked1d_plain", "savgol_masked1d_fused_cuda",
            "SMEM_LIMIT"]
 
 # Kernel launches since the last reset_launches(). Only the line that
@@ -39,14 +38,6 @@ _TILE = 128                 # masked1d.cu kTile
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def bank_correlate_plain(x: torch.Tensor, w) -> torch.Tensor:
-    """K-stencil VALID correlation, (..., Npad) x (K, ws) -> (K, ..., Nout)
-    (counterpart of ``savgol_tpu.ops.masked._bank_correlate``); ``w`` is a
-    host array or a tensor, taken in ``x``'s dtype."""
-    w = torch.as_tensor(np.asarray(w), dtype=x.dtype, device=x.device)
-    return torch.stack([correlate_valid_plain(x, wk) for wk in w])
 
 
 def extract_fill(coef: torch.Tensor, row, ok: torch.Tensor,

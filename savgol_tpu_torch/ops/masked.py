@@ -47,11 +47,11 @@ from savgol_tpu_torch.config import (PAD_MODE, Boundary2D, BoundaryMode,
 from savgol_tpu_torch.ops.apply import (_compute_dtype, _grads_through,
                                         _move_axis_last, _restore_axis)
 from savgol_tpu_torch.ops.apply2d import _PAD_MODE_2D, _Corr2dFn
-from savgol_tpu_torch.ops.cuda_conv2d import (_pad_index,
-                                              correlate2d_valid_plain,
+from savgol_tpu_torch.ops.cuda_bank import bank_correlate_plain
+from savgol_tpu_torch.ops.cuda_conv import pad_last
+from savgol_tpu_torch.ops.cuda_conv2d import (correlate2d_valid_plain,
                                               pad2d_plain)
-from savgol_tpu_torch.ops.cuda_masked import (bank_correlate_plain,
-                                              extract_fill, masked1d_plain,
+from savgol_tpu_torch.ops.cuda_masked import (extract_fill, masked1d_plain,
                                               savgol_masked1d_fused_cuda)
 from savgol_tpu_torch.ops.cuda_masked2d import (fused2d_supported,
                                                 savgol_masked2d_fused_cuda)
@@ -153,14 +153,6 @@ class _Masked1dFn(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
-def _pad_last(x: torch.Tensor, n: int, mode: Optional[str]) -> torch.Tensor:
-    """The last axis padded by n on each side: zeros (``mode`` None) or
-    numpy's ``mode`` for any pad width."""
-    if mode is None:
-        return F.pad(x, (n, n))
-    return x.index_select(-1, _pad_index(x.shape[-1], n, n, mode, x.device))
-
-
 def savgol_apply_masked(
     x: torch.Tensor,
     *,
@@ -229,7 +221,7 @@ def savgol_apply_masked(
     extract = Rinv[d, :] * math.factorial(d) / float(n * dt) ** d
     _, xz, wts = _weights(xl, ml)
     mode = None if truncate else PAD_MODE[boundary]
-    xzp, wp = _pad_last(xz, n, mode), _pad_last(wts, n, mode)
+    xzp, wp = pad_last(xz, n, mode), pad_last(wts, n, mode)
 
     if solver == "qr":
         # double-word Gram and rhs, double-word solve (ops/lsq.py)

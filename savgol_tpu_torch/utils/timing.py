@@ -6,16 +6,20 @@ enqueue. :func:`cuda_time_ms` records an event pair around each call and
 reports the median of the device-side intervals. Before each timed call it
 overwrites a buffer larger than the H100's 50 MB L2 cache, so every call
 finds its input in device memory, as a caller streaming fresh data would.
+:func:`host_ms` times the host instead: how long a call takes to enqueue
+its work, which bounds a call whose device work is shorter.
 """
+
 
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
 import torch
 
-__all__ = ["cuda_time_ms"]
+__all__ = ["cuda_time_ms", "host_ms"]
 
 _FLUSH_BYTES = 256 << 20
 
@@ -40,3 +44,21 @@ def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn: Callable[[], object], *, warmup: int = 10,
+            reps: int = 200) -> float:
+    """Mean host milliseconds a call of ``fn()`` takes to return, over
+    ``reps`` calls enqueued back to back with no synchronisation between
+    them. Needs a card; raises without one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("host_ms needs a CUDA device")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
