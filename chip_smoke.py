@@ -32,6 +32,17 @@ windows, pad modes, bank sizes, shapes and dtypes; the padded
 (n, m) sweep at full size against float64, ``scipy_compat.savgol_filter`` in
 all five modes against scipy, each entry point's launches counted;
 gradients; and timings beside the route the padded modes took before K2.
+Then K1, K2 and K3 at window 101 against their plain versions and
+``scipy_compat.savgol_filter`` on a numpy array at window 101 against scipy.
+Then the sharded paths, on one pool of four ranks that share the card
+(``savgol_tpu_torch.parallel.launch``, a ``gloo`` group): the ring
+halo-exchange kernel K13 bit for bit against the neighbours' slices and its
+plain version over rows, halo widths, dtypes and ring sizes, 50 exchanges
+back to back; ``apply_sharded(..., halo="rdma")`` on the 1D headline split
+four ways against the single-device apply and float64, and
+``apply2d_sharded`` on the 2D headline by rows and by 2 x 2 tiles, each
+call's launches counted on every rank; float64 gradients through K13; and
+timings by rank.
 Beside each kernel's time it prints its bound (bytes or operations
 at the data sheet's rates) and, where one PyTorch call computes the same
 function, that call's time. Every phase prints one line; any failure raises
@@ -261,11 +272,11 @@ def grid_2d(sgt, c2, dev) -> str:
 
 def kernel_modules():
     from savgol_tpu_torch.ops import (cuda_bank, cuda_conv, cuda_conv2d,
-                                      cuda_masked, cuda_masked2d,
+                                      cuda_halo, cuda_masked, cuda_masked2d,
                                       cuda_nonuniform, cuda_resample,
                                       cuda_solve)
     return (cuda_conv, cuda_bank, cuda_conv2d, cuda_solve, cuda_masked,
-            cuda_masked2d, cuda_nonuniform, cuda_resample)
+            cuda_masked2d, cuda_nonuniform, cuda_resample, cuda_halo)
 
 
 def counted_all(run, want: dict, what: str):
@@ -1504,17 +1515,19 @@ def bank_slice(sgt, dev, card) -> list:
             for i, r in enumerate((0, 127)))
         require(e_sc[mode] <= GATE_ABS, f"scipy_compat {mode} vs scipy: "
                 f"{e_sc[mode]:.3e}")
-        # the import swap: a numpy array goes to the card and the same kernel
+        # the import swap: a numpy array is computed on the card by the
+        # same kernel and comes back as a numpy array, as scipy returns it
         yn, _ = counted_all(
             lambda: tsc.savgol_filter(x_np[[0, 127]], 25, 4, mode=mode),
             want, f"scipy_compat.savgol_filter(numpy, mode={mode!r})")
-        require(yn.device.type == "cuda" and torch.equal(yn, y),
-                f"scipy_compat {mode} on numpy input: device {yn.device} or "
-                f"values differ from the tensor call")
+        require(isinstance(yn, np.ndarray)
+                and np.array_equal(yn, y.cpu().numpy()),
+                f"scipy_compat {mode} on numpy input: {type(yn)} or values "
+                f"differ from the tensor call")
     print(f"scipy_compat.savgol_filter(x, 25, 4) on 2 x {N_FULL} f32: "
           + ", ".join(f"{m} {nz(l_sc[m])} {e_sc[m]:.3e}" for m in l_sc)
           + f" max abs err vs scipy f64 (gate {GATE_ABS}); numpy input: the "
-          f"same launches and values on the card")
+          f"same launches on the card and the same values, as numpy")
 
     # -- gradients through K2 and K4 against method="xla" --
     xg_np = np.random.default_rng(24).standard_normal((24, 4099)).astype(
@@ -1684,6 +1697,439 @@ def bank_slice(sgt, dev, card) -> list:
          "sweep_bound_ms": b_sw["bound_ms"], "sweep_library_ms": lib["sweep"],
          "sweep_headline_ms": t["K4 sweep 128x1M"][0]},
     ]
+
+
+# -- 25. the 1D tile kernels at window 101 -----------------------------------
+
+WIDE_N = 50    # window 101: past SavgolConfig's 65, inside K1-K3's 129 taps
+SCIPY_MODES = ("interp", "mirror", "nearest", "wrap", "constant")
+
+
+def wide_window(dev, card) -> dict:
+    """K1, K2 and K3 at window 101 against their plain versions at the 1D
+    headline batch, ``scipy_compat.savgol_filter`` on a numpy array at
+    window 101 in all five modes against scipy (each call counted in its
+    own zeroed window), and the times, K1 at window 25 in the same run."""
+    from scipy.signal import savgol_filter as sp_filter
+
+    from savgol_tpu_torch import scipy_compat as tsc
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.utils.timing import cuda_time_ms
+
+    n, ws = WIDE_N, 2 * WIDE_N + 1
+    cw, ew = (torch.from_numpy(a).to(dev, torch.float32)
+              for a in tsc._compat_weights_np(n, 4, 0))
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(B_FULL, N_FULL, generator=g, device=dev)
+    routes = {
+        "K1": (lambda: cc.savgol_polynomial_cuda(x, cw, ew, n),
+               lambda: cc.savgol_polynomial_plain(x, cw, ew, n)),
+        "K2 symmetric": (lambda: cc.savgol_padded_cuda(x, cw, "symmetric", n),
+                         lambda: cc.savgol_padded_plain(x, cw, "symmetric",
+                                                        n)),
+        "K3": (lambda: cc.correlate_valid_cuda(x, cw),
+               lambda: cc.correlate_valid_plain(x, cw)),
+    }
+    errs = {}
+    for name, (kernel, plain) in routes.items():
+        e, s = max_err(kernel(), plain())
+        require(e <= F32_TOL * s, f"{name} ws={ws} vs plain: {e:.3e}")
+        errs[name] = e
+    row = np.random.default_rng(6).standard_normal(N_FULL).astype(np.float32)
+    sp_err = 0.0
+    for mode in SCIPY_MODES:
+        got, _ = counted_all(
+            lambda: tsc.savgol_filter(row, ws, 4, mode=mode, cval=0.5),
+            SCIPY_LAUNCHES[mode], f"savgol_filter(numpy, {ws}, 4, {mode})")
+        require(isinstance(got, np.ndarray), "numpy in, numpy out")
+        err = float(np.abs(got - sp_filter(row.astype(np.float64), ws, 4,
+                                           mode=mode, cval=0.5)).max())
+        require(err <= GATE_ABS, f"savgol_filter {ws} {mode} vs scipy "
+                f"{err:.3e}")
+        sp_err = max(sp_err, err)
+    c25, e25 = (torch.from_numpy(a).to(dev, torch.float32)
+                for a in tsc._compat_weights_np(12, 4, 0))
+    t = {name: (cuda_time_ms(kernel),
+                cuda_time_ms(plain, warmup=1, reps=3))
+         for name, (kernel, plain) in routes.items()}
+    t["K1 ws=25"] = (cuda_time_ms(
+        lambda: cc.savgol_polynomial_cuda(x, c25, e25, 12)), float("nan"))
+    samples = B_FULL * N_FULL
+    b101 = bound(8 * samples, 2 * ws * samples)
+    print(f"window {ws}: K1 / K2 / K3 vs plain at ({B_FULL}, {N_FULL}) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {F32_TOL} scaled); scipy_compat numpy in all five modes "
+          f"vs scipy {sp_err:.3e} (gate {GATE_ABS}), one launch each; bound "
+          f"at ws={ws} {b101['bound_ms']:.4f} ms ({b101['bound_by']})")
+    for name, (k, p) in t.items():
+        where = "" if "25" in name else f" ws={ws}"
+        print(f"time {name}{where} ({B_FULL}, {N_FULL}) f32: kernel {k:.4f} "
+              f"ms, plain {p:.4f} ms [{card}]")
+    return {"errs": errs, "t": t, "bound": b101}
+
+
+# -- 26-29. the sharded paths: a ring of ranks sharing the card --------------
+#
+# The functions named rank_* run on every rank of a launch.Pool (spawned
+# processes that import this script as a module), each on its own block.
+
+RING = 4
+
+
+def _rank_mesh(names, shape, dev):
+    from savgol_tpu_torch.parallel.launch import mesh
+    return mesh(names, shape, dev.type)
+
+
+def _time(dev, fn, **kw):
+    """cuda_time_ms on the card; NaN on the CPU (a rehearsal of a phase
+    there has no device time)."""
+    from savgol_tpu_torch.utils.timing import cuda_time_ms
+    return cuda_time_ms(fn, **kw) if dev.type == "cuda" else float("nan")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rank_counted(dev, run, want: dict, what: str):
+    """run() on this rank with every launch count zeroed just before and
+    read just after; on the card they must equal ``want`` exactly (CPU
+    tensors take the plain versions, which count nothing)."""
+    _sync(dev)
+    for mod in kernel_modules():
+        mod.reset_launches()
+    out = run()
+    _sync(dev)
+    got = {}
+    for mod in kernel_modules():
+        got.update(mod.LAUNCHES)
+    require(dev.type != "cuda" or nz(got) == want,
+            f"{what} launched {nz(got)}, expected {want}")
+    return out, nz(got)
+
+
+def _same_everywhere(t: torch.Tensor) -> None:
+    """Every rank generated the same global input (a checksum)."""
+    import torch.distributed as dist
+    sums = [None] * dist.get_world_size()
+    dist.all_gather_object(sums, float(t.double().sum()))
+    require(len(set(sums)) == 1, f"ranks made different inputs: {sums}")
+
+
+def _alone(rank0: bool, fn):
+    """fn() timed on rank 0 while the other ranks wait at a barrier on the
+    host, so it has the card to itself; None elsewhere."""
+    import torch.distributed as dist
+    dist.barrier()
+    out = fn() if rank0 else None
+    dist.barrier()
+    return out
+
+
+def rank_k13_grid(dev_type: str = "cuda"):
+    """K13 against the neighbours' slices of a global input and against its
+    plain version (through the host), bit for bit, over rows x n x dtype x
+    ring size, the row form over ny x C, the ring of one (no launch), and
+    50 exchanges back to back (the epoch's two slots)."""
+    from savgol_tpu_torch.ops import cuda_halo as ch
+    from savgol_tpu_torch.parallel import halo_exchange_rdma_rows
+    from savgol_tpu_torch.parallel.sharded import mesh_axis
+
+    dev = torch.device(dev_type)
+    cases = 0
+    ch.reset_launches()
+    for P, shape in ((2, (2, 2)), (4, (1, RING))):
+        group, idx, _ = mesh_axis(_rank_mesh(("batch", "seq"), shape, dev),
+                                 "seq")
+        for dtype in (torch.float32, torch.float64):
+            g = torch.Generator(device=dev).manual_seed(P)
+            for rows in (1, 3, 128):
+                for n in (1, 12, 32):
+                    L = 2 * n + 7
+                    x = torch.randn(rows, P * L, generator=g, device=dev,
+                                    dtype=dtype)
+                    lo, ro = ((idx - 1) % P) * L + L - n, ((idx + 1) % P) * L
+                    blk = x[:, idx * L:(idx + 1) * L]
+                    tail, head = blk[:, -n:].contiguous(), blk[:, :n].contiguous()
+                    left, right = ch.halo_exchange_cuda(tail, head, group)
+                    pl, pr = ch.halo_exchange_plain(tail.cpu(), head.cpu(),
+                                                    group)
+                    require(torch.equal(left, x[:, lo:lo + n])
+                            and torch.equal(right, x[:, ro:ro + n])
+                            and torch.equal(pl, left.cpu())
+                            and torch.equal(pr, right.cpu()),
+                            f"K13 P={P} rows={rows} n={n} {dtype} rank {idx}")
+                    cases += 1
+            for ny in (1, 5):
+                for C in (5, 2048):
+                    R = 2 * ny + 3
+                    x = torch.randn(2, P * R, C, generator=g, device=dev,
+                                    dtype=dtype)
+                    lo, ro = ((idx - 1) % P) * R + R - ny, ((idx + 1) % P) * R
+                    top, bot = halo_exchange_rdma_rows(
+                        x[:, idx * R:(idx + 1) * R].contiguous(), ny, group)
+                    require(torch.equal(top, x[:, lo:lo + ny])
+                            and torch.equal(bot, x[:, ro:ro + ny]),
+                            f"K13 rows P={P} ny={ny} C={C} {dtype} rank {idx}")
+                    cases += 1
+    _sync(dev)
+    launched = ch.LAUNCHES["halo_ring"]
+    require(dev.type != "cuda" or launched == cases,
+            f"K13 grid launched {launched} of {cases}")
+    group1, _, size1 = mesh_axis(
+        _rank_mesh(("batch", "seq"), (RING, 1), dev), "seq")
+    t = torch.randn(3, 12, device=dev)
+    left, right = ch.halo_exchange_cuda(t, t + 1, group1)
+    require(size1 == 1 and ch.LAUNCHES["halo_ring"] == launched
+            and torch.equal(left, t) and torch.equal(right, t + 1),
+            "a ring of one must return its own blocks without a launch")
+    group, idx, _ = mesh_axis(
+        _rank_mesh(("batch", "seq"), (1, RING), dev), "seq")
+    x = torch.randn(B_FULL, RING * 64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9))
+    lo, ro = ((idx - 1) % RING) * 64 + 52, ((idx + 1) % RING) * 64
+    blk = x[:, idx * 64:(idx + 1) * 64]
+    outs = [ch.halo_exchange_cuda(blk[:, -12:] + i, blk[:, :12] + i, group)
+            for i in range(50)]
+    _sync(dev)
+    for i, (left, right) in enumerate(outs):
+        require(torch.equal(left, x[:, lo:lo + 12] + i)
+                and torch.equal(right, x[:, ro:ro + 12] + i),
+                f"exchange {i} of 50 back to back, rank {idx}")
+    return cases, len(outs)
+
+
+def rank_sharded_1d(dev_type: str = "cuda", shape=(B_FULL, N_FULL)):
+    """The 1D headline split 4 ways along the samples, ``halo="rdma"``:
+    launches of the main-path call, every boundary against the
+    single-device ``Savgol1D.apply`` on the same card, POLYNOMIAL against
+    the f64 oracle, K13 at the headline's halos against its plain version,
+    and the times."""
+    import savgol_tpu_torch as sgt
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.ops import cuda_halo as ch
+    from savgol_tpu_torch.ops.weights import savgol_weights_np
+    from savgol_tpu_torch.parallel import apply_sharded, shard
+    from savgol_tpu_torch.parallel.sharded import mesh_axis
+
+    dev = torch.device(dev_type)
+    m = _rank_mesh(("batch", "seq"), (1, RING), dev)
+    group, idx, _ = mesh_axis(m, "seq")
+    x = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    _same_everywhere(x)
+    xl = shard(x, m, (None, "seq"))
+    cols = slice(idx * xl.shape[-1], (idx + 1) * xl.shape[-1])
+    cfg = sgt.SavgolConfig(12, 4)
+    f = sgt.Savgol1D.create(cfg, device=dev)
+    args = (xl, f.center_weights, f.edge_weights)
+    kw = dict(half_window=12, mesh=m, dt_inv=f.dt_inv, halo="rdma")
+    y, launches = _rank_counted(dev, lambda: apply_sharded(*args, **kw),
+                                {"halo_ring": 1, "corr1d_valid": 1},
+                                "apply_sharded(halo='rdma')")
+    require(y.shape == xl.shape and bool(torch.isfinite(y).all()),
+            "sharded output shape / finiteness")
+    errs = {}
+    e, s = max_err(y, f.apply(x)[:, cols])
+    require(e <= F32_TOL * s, f"sharded polynomial vs single: {e:.3e}")
+    errs["polynomial"] = e / s
+    c64, e64 = (torch.from_numpy(a).to(dev)
+                for a in savgol_weights_np(cfg, np.float64))
+    rows = sorted({0, 1, shape[0] // 2, shape[0] - 1})
+    ref = cc.savgol_polynomial_plain(x[rows].double(), c64, e64, 12)[:, cols]
+    err_f64 = (y[rows].double() - ref).abs().max().item()
+    require(err_f64 <= GATE_ABS, f"sharded vs f64: {err_f64:.3e}")
+    for bnd in ("periodic", "reflect", "constant"):
+        e, s = max_err(apply_sharded(*args, boundary=bnd, **kw),
+                       f.apply(x, boundary=bnd)[:, cols])
+        require(e <= F32_TOL * s, f"sharded {bnd} vs single: {e:.3e}")
+        errs[bnd] = e / s
+    tail, head = xl[:, -12:].contiguous(), xl[:, :12].contiguous()
+    kl, kr = ch.halo_exchange_cuda(tail, head, group)
+    pl, pr = ch.halo_exchange_plain(tail.cpu(), head.cpu(), group)
+    k13_err = max((kl.cpu() - pl).abs().max().item(),
+                  (kr.cpu() - pr).abs().max().item())
+    require(k13_err == 0.0, f"K13 vs plain at the headline: {k13_err}")
+
+    def plain_staged():
+        left, right = ch.halo_exchange_plain(tail.cpu(), head.cpu(), group)
+        return left.to(dev), right.to(dev)
+
+    t = {"K13": _time(dev, lambda: ch.halo_exchange_cuda(tail, head,
+                                                           group), reps=50),
+         "K13 plain": _time(dev, plain_staged, reps=20),
+         "apply_sharded": _time(dev, lambda: apply_sharded(*args, **kw))}
+    t["Savgol1D.apply alone"] = _alone(idx == 0, lambda: _time(
+        dev, lambda: f.apply(x)))
+    return {"rank": idx, "launches": launches, "errs": errs,
+            "err_f64": err_f64, "k13_err": k13_err, "t": t}
+
+
+def rank_sharded_2d(dev_type: str = "cuda", shape=IMG_FULL):
+    """The 2D headline, rows split 4 ways and a 2 x 2 tiling, ``halo=
+    "rdma"``, against the single-device ``Savgol2D.apply``: launches of each
+    call, errors, times."""
+    import savgol_tpu_torch as sgt
+    from savgol_tpu_torch.ops import cuda_halo as ch
+    from savgol_tpu_torch.parallel import apply2d_sharded, shard
+    from savgol_tpu_torch.parallel.sharded import mesh_axis
+
+    dev = torch.device(dev_type)
+    x = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    _same_everywhere(x)
+    f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(5, 5, 3), device=dev)
+    ref = f2.apply(x)
+    out = {}
+    for name, names, shape, spec, extra, want in (
+            ("rows", ("batch", "seq"), (1, RING), (None, "seq", None), {},
+             {"halo_ring": 1, "corr2d_valid": 1}),
+            ("tiled", ("seq", "cols"), (2, 2), (None, "seq", "cols"),
+             {"col_axis": "cols"}, {"halo_ring": 2, "corr2d_valid": 1})):
+        m = _rank_mesh(names, shape, dev)
+        xl = shard(x, m, spec)
+        # (a CPU rehearsal tiles by point-to-point sends: K13 needs CUDA
+        # tensors there)
+        kw = dict(mesh=m, boundary="constant", scale=f2.scale,
+                  halo="rdma" if dev.type == "cuda" else "ppermute", **extra)
+        y, launches = _rank_counted(
+            dev, lambda: apply2d_sharded(xl, f2.weights, **kw), want,
+            f"apply2d_sharded {name}")
+        _, ri, _ = mesh_axis(m, "seq")
+        R, C = xl.shape[-2:]
+        ci = mesh_axis(m, "cols")[1] if extra else 0
+        e, s = max_err(y, ref[:, ri * R:(ri + 1) * R, ci * C:(ci + 1) * C])
+        require(e <= F32_TOL_2D * s, f"2D {name} vs single: {e:.3e}")
+        out[name] = {"launches": launches, "err": e / s,
+                     "ms": _time(dev, lambda: apply2d_sharded(
+                         xl, f2.weights, **kw))}
+    m = _rank_mesh(("batch", "seq"), (1, RING), dev)
+    group, idx, _ = mesh_axis(m, "seq")
+    xl = shard(x, m, (None, "seq", None))
+    tail = xl[:, -5:, :].reshape(-1, shape[-1])
+    head = xl[:, :5, :].reshape(-1, shape[-1])
+    out["K13 rows"] = _time(dev, lambda: ch.halo_exchange_cuda(
+        tail, head, group), reps=50)
+    out["Savgol2D.apply alone"] = _alone(idx == 0, lambda: _time(
+        dev, lambda: f2.apply(x)))
+    return out
+
+
+def rank_sharded_grads(dev_type: str = "cuda"):
+    """f64 gradients of sum(y ** 2) through K13 (forward and backward, one
+    launch each) against the single-device ones: 1D POLYNOMIAL and
+    PERIODIC, 2D rows REFLECT."""
+    import savgol_tpu_torch as sgt
+    from savgol_tpu_torch.ops import cuda_halo as ch
+    from savgol_tpu_torch.parallel import apply2d_sharded, apply_sharded, shard
+    from savgol_tpu_torch.parallel.sharded import mesh_axis
+
+    dev = torch.device(dev_type)
+    m = _rank_mesh(("batch", "seq"), (1, RING), dev)
+    idx = mesh_axis(m, "seq")[1]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    x = torch.randn(4, 4096, generator=gen, device=dev, dtype=torch.float64)
+    f = sgt.Savgol1D.create(sgt.deriv1(6, 3, dt=0.5), dtype=torch.float64,
+                            device=dev)
+    img = torch.randn(2, 256, 64, generator=gen, device=dev,
+                      dtype=torch.float64)
+    f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(3, 3, 2, deriv_x=1),
+                             dtype=torch.float64, device=dev)
+    cases = [("1D " + b, x, (None, "seq"),
+              lambda v, b=b: apply_sharded(
+                  v, f.center_weights, f.edge_weights, half_window=6,
+                  mesh=m, boundary=b, dt_inv=f.dt_inv, derivative=1,
+                  halo="rdma"),
+              lambda v, b=b: f.apply(v, boundary=b))
+             for b in ("polynomial", "periodic")]
+    cases.append(("2D rows reflect", img, (None, "seq", None),
+                  lambda v: apply2d_sharded(v, f2.weights, mesh=m,
+                                            boundary="reflect",
+                                            scale=f2.scale, halo="rdma"),
+                  lambda v: f2.apply(v, boundary="reflect")))
+    for name, xg, spec, sharded, single in cases:
+        xl = shard(xg, m, spec).requires_grad_()
+        before = ch.LAUNCHES["halo_ring"]
+        g, = torch.autograd.grad(sharded(xl).square().sum(), xl)
+        _sync(dev)
+        require(dev.type != "cuda" or ch.LAUNCHES["halo_ring"] == before + 2,
+                f"{name}: K13 must run once forward and once backward")
+        xs = xg.clone().requires_grad_()
+        gs, = torch.autograd.grad(single(xs).square().sum(), xs)
+        e = (g - shard(gs, m, spec)).abs().max().item()
+        require(e <= F64_TOL, f"{name} gradient vs single: {e:.3e}")
+        worst = max(worst, e)
+    return {"rank": idx, "worst": worst}
+
+
+def sharded_phases(card, dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
+                   shape2d=IMG_FULL) -> dict:
+    """Phases 26-29 on one pool of RING ranks sharing the card: the K13
+    grid, the 1D and 2D headlines sharded with ``halo="rdma"``, and the
+    gradients. Returns K13's record for the kernels line."""
+    from savgol_tpu_torch.parallel.launch import Pool
+
+    t0 = time.perf_counter()
+    with Pool(RING, device=dev_type) as pool:
+        cases, back = pool.run(rank_k13_grid, dev_type)[0]
+        print(f"K13 grid: {cases} cases a rank (rows 1/3/128 x n 1/12/32 x "
+              f"f32/f64 on rings of 2 and {RING}; row blocks ny 1/5 x C "
+              f"5/2048), bit for bit against the neighbours' slices and "
+              f"the plain version; a ring of one launches nothing; {back} "
+              f"exchanges back to back, each exact ({RING} ranks on one "
+              f"card)")
+        r1 = pool.run(rank_sharded_1d, dev_type, shape1d)
+        t_1d = time.perf_counter()
+        errs = {b: max(r["errs"][b] for r in r1) for b in r1[0]["errs"]}
+        print(f"sharded 1D {shape1d} f32 n=12 m=4 over {RING} ranks "
+              f"(halo='rdma'): launches a rank {r1[0]['launches']}; vs the "
+              f"single-device Savgol1D.apply, scaled "
+              + ", ".join(f"{b} {e:.3e}" for b, e in errs.items())
+              + f" (tol {F32_TOL}); POLYNOMIAL vs f64 "
+              f"{max(r['err_f64'] for r in r1):.3e} (gate {GATE_ABS}); K13 "
+              f"vs plain at the headline halos "
+              f"{max(r['k13_err'] for r in r1):.1f}")
+        t1 = {k: [r["t"][k] for r in r1] for k in r1[0]["t"]}
+        for k, v in t1.items():
+            shown = [x for x in v if x is not None]
+            print(f"time {k} (1D headline, {RING} ranks sharing the card; "
+                  f"by rank): " + ", ".join(f"{x:.4f}" for x in shown)
+                  + f" ms [{card}]")
+        r2 = pool.run(rank_sharded_2d, dev_type, shape2d)
+        t_2d = time.perf_counter()
+        for name in ("rows", "tiled"):
+            print(f"sharded 2D {shape2d} f32 11x11 order 3 CONSTANT {name} "
+                  f"(halo='rdma'): launches a rank {r2[0][name]['launches']}"
+                  f"; vs Savgol2D.apply scaled "
+                  f"{max(r[name]['err'] for r in r2):.3e} (tol {F32_TOL_2D})"
+                  f"; time by rank " + ", ".join(
+                      f"{r[name]['ms']:.4f}" for r in r2) + f" ms [{card}]")
+        print("time K13 exchange at the 2D rows halos (by rank): "
+              + ", ".join(f"{r['K13 rows']:.4f}" for r in r2)
+              + f" ms; Savgol2D.apply alone on the card "
+              f"{r2[0]['Savgol2D.apply alone']:.4f} ms [{card}]")
+        rg = pool.run(rank_sharded_grads, dev_type)
+        print(f"sharded gradients (f64; 1D polynomial / periodic, 2D rows "
+              f"reflect; K13 forward and backward): worst abs error vs the "
+              f"single-device gradient {max(r['worst'] for r in rg):.3e} "
+              f"(tol {F64_TOL})")
+    t_end = time.perf_counter()
+    print(f"wall time sharded phases: pool start, K13 grid and 1D "
+          f"{t_1d - t0:.1f} s, 2D {t_2d - t_1d:.1f} s, gradients and "
+          f"shutdown {t_end - t_2d:.1f} s")
+    halo_bytes = RING * 4 * shape1d[0] * 12 * 4
+    return {"name": "halo_ring", "route": "cuda",
+            "source": "savgol_tpu_torch/csrc/halo_ring.cu",
+            "replaces": "savgol_tpu/parallel/ici_halo.py:39",
+            "launches": r1[0]["launches"].get("halo_ring", 0),
+            "max_abs_err": max(r["k13_err"] for r in r1),
+            "ms": t1["K13"][0], "plain_ms": t1["K13 plain"][0],
+            **bound(halo_bytes, 0), "library_ms": None,
+            "ms_by_rank": t1["K13"], "ranks_sharing_one_card": RING,
+            "rows_2d_ms": r2[0]["K13 rows"]}
 
 
 def main() -> int:
@@ -2067,14 +2513,23 @@ def main() -> int:
     print(k4_grid(dev))
     t_bank_slice = time.perf_counter()
     bank_kernels = bank_slice(sgt, dev, card)
+
+    # -- 25. the 1D tile kernels at window 101 ------------------------------
+    t_wide = time.perf_counter()
+    wide = wide_window(dev, card)
+    # -- 26-29. the sharded paths on a ring of ranks sharing the card -------
+    t_ring = time.perf_counter()
+    halo_kernel = sharded_phases(card)
     t_end = time.perf_counter()
     print(f"wall time: build and phases 3-11 {t_masked - t0:.1f} s, masked "
           f"phases 12-17 {t_nonuni - t_masked:.1f} s, irregular-sampling "
           f"phases 18-20 {t_bank - t_nonuni:.1f} s (K11 grid "
           f"{t_k12 - t_nonuni:.1f}, K12 grid {t_slice - t_k12:.1f}, slice "
           f"{t_bank - t_slice:.1f}), padded/bank phases 21-24 "
-          f"{t_end - t_bank:.1f} s (K2 grid {t_k4 - t_bank:.1f}, K4 grid "
-          f"{t_bank_slice - t_k4:.1f}, slice {t_end - t_bank_slice:.1f})")
+          f"{t_wide - t_bank:.1f} s (K2 grid {t_k4 - t_bank:.1f}, K4 grid "
+          f"{t_bank_slice - t_k4:.1f}, slice {t_wide - t_bank_slice:.1f}), "
+          f"window-101 phase 25 {t_ring - t_wide:.1f} s, sharded phases "
+          f"26-29 {t_end - t_ring:.1f} s")
 
     kernels = [
         {"name": "sg1d_poly", "route": "cuda",
@@ -2102,7 +2557,15 @@ def main() -> int:
          "launches": launches_sep["corr2d_sep"], "max_abs_err": ks_err,
          "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1], **b2s,
          "library_ms": lib_2d},
-    ] + masked_kernels + nonuniform_kernels + bank_kernels
+    ] + masked_kernels + nonuniform_kernels + bank_kernels + [halo_kernel]
+    for rec in kernels:
+        key = {"sg1d_poly": "K1", "sg1d_pad": "K2 symmetric",
+               "corr1d_valid": "K3"}.get(rec["name"])
+        if key is not None:
+            rec.update(ws101_ms=wide["t"][key][0],
+                       ws101_plain_ms=wide["t"][key][1],
+                       ws101_max_abs_err=wide["errs"][key],
+                       ws101_bound_ms=wide["bound"]["bound_ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

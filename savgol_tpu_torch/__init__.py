@@ -17,9 +17,14 @@ its plane-stack mode) and the resample gather-evaluate kernel (K12). So are
 the padded-boundary and filter-bank 1D paths: the REFLECT / PERIODIC /
 CONSTANT apply on the fused-pad kernel K2, :class:`SavgolBank` and the
 (n, m) sweep (``savgol_tpu_torch.ops.sweep``) on the K-stencil bank kernel
-K4, and the scipy drop-in ``savgol_tpu_torch.scipy_compat``. The
-kernels are built with ``nvcc`` at their first call on a CUDA tensor; CPU
-tensors take their plain PyTorch versions.
+K4, and the scipy drop-in ``savgol_tpu_torch.scipy_compat``. So is the
+multi-rank overlap-save path, ``savgol_tpu_torch.parallel`` on
+``torch.distributed``: ``apply_sharded``, ``apply2d_sharded`` and the
+masked / nonuniform ``*_apply_sharded``, SPMD over a mesh of ranks, their
+halos sent point to point or, with ``halo="rdma"``, stored into the
+neighbours' memory by the ring halo-exchange kernel K13. The kernels are
+built with ``nvcc`` at their first call on a CUDA tensor; CPU tensors take
+their plain PyTorch versions.
 
 Quick start::
 
@@ -33,6 +38,12 @@ Quick start::
     y = sgt.savgol_apply_nonuniform(x, t, half_window=12, poly_order=4)
     sm, vel, acc = sgt.SavgolBank.smooth_and_derivatives(
         12, 4, 2, device="cuda").apply(x)
+
+    # on each rank of an initialised process group, on its own block:
+    from savgol_tpu_torch import parallel
+    mesh = parallel.make_mesh(("batch", "seq"))
+    y = parallel.apply_sharded(x_block, f.center_weights, f.edge_weights,
+                               half_window=12, mesh=mesh, halo="rdma")
 """
 
 from savgol_tpu_torch.config import (
@@ -66,7 +77,7 @@ from savgol_tpu_torch.ops.weights import (monomial_index,
                                           savgol_all_weights_np,
                                           savgol_weights_np)
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 __all__ = [
     "BoundaryMode", "Boundary2D", "SavgolConfig", "Savgol2DConfig",

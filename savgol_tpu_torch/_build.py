@@ -30,7 +30,8 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "savgol_tpu_torch"
 _SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr1d_bank.cu",
             "corr2d_valid.cu", "corr2d_sep.cu", "plane_solve.cu",
-            "masked1d.cu", "masked2d.cu", "nonuniform.cu", "resample.cu")
+            "masked1d.cu", "masked2d.cu", "nonuniform.cu", "resample.cu",
+            "halo_ring.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
@@ -91,6 +92,12 @@ _SIGNATURES = {
     **{f"resample_{x}_t{t}": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _D,
                               _P]
        for x in ("f32", "f64") for t in ("32", "64")},
+    # bytes a side -> blocks of the exchange
+    "halo_ring_blocks": [_LL],
+    # tail, head, right buffer, left buffer, own buffer, out left, out right,
+    # bytes a side, slot stride, blocks, epoch, timeout ns, stream
+    "halo_ring": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, ctypes.c_ulonglong,
+                  _LL, _P],
 }
 
 

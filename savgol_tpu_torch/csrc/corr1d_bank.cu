@@ -35,10 +35,17 @@
 namespace {
 
 constexpr int kGroup = 16;   // stencils whose taps sit in shared memory
+// K4 keeps the 65-tap cap of the bank and the sweep (2 * MAX_HALF_WINDOW +
+// 1) below the 1D tile kernels' 129: a wider tap buffer would double the
+// taps each group reloads (16 x 132 values) and the f64 instance's shared
+// memory, for windows no bank entry point builds.
+constexpr int kBankMaxWs = sgt::kNarrowWs;
+constexpr int kBankMaxWsPad = sgt::ws_pad(kBankMaxWs);
+constexpr int kBankStage = sgt::kTile + kBankMaxWsPad + 4;
 
 template <typename T> struct BankSmem {
-  __align__(16) T xs[sgt::kStage];
-  __align__(16) T w[kGroup][sgt::kMaxWsPad];
+  __align__(16) T xs[kBankStage];
+  __align__(16) T w[kGroup][kBankMaxWsPad];
 };
 
 template <typename T>
@@ -79,8 +86,8 @@ corr1d_bank_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int g0 = 0; g0 < K; g0 += kGroup) {
     const int gk = K - g0 < kGroup ? K - g0 : kGroup;
     if (g0 > 0) __syncthreads();   // every thread is done with the last taps
-    for (int i = threadIdx.x; i < gk * sgt::kMaxWsPad; i += sgt::kThreads) {
-      const int k = i / sgt::kMaxWsPad, t = i % sgt::kMaxWsPad;
+    for (int i = threadIdx.x; i < gk * kBankMaxWsPad; i += sgt::kThreads) {
+      const int k = i / kBankMaxWsPad, t = i % kBankMaxWsPad;
       s.w[k][t] = t < ws ? w[static_cast<long long>(g0 + k) * ws + t] : T(0);
     }
     __syncthreads();               // also covers the staged row, first time
@@ -97,7 +104,7 @@ corr1d_bank_kernel(const T* __restrict__ x, const T* __restrict__ w,
 template <typename T>
 int launch(const T* x, const T* w, T* out, long long B, long long N, int K,
            int ws, int pad, int mode, void* stream) {
-  if (K < 1 || ws < 1 || ws > sgt::kMaxWs || pad < 0 || N < 1 ||
+  if (K < 1 || ws < 1 || ws > kBankMaxWs || pad < 0 || N < 1 ||
       mode < sgt::kZero || mode > sgt::kWrap)
     return cudaErrorInvalidValue;
   const long long n_out = N + 2LL * pad - ws + 1;

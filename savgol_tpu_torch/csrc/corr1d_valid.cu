@@ -16,18 +16,19 @@
 
 namespace {
 
-template <typename T>
+// MaxWs: the widest window of the instance (stencil_tile.cuh).
+template <typename T, int MaxWs>
 __global__ void __launch_bounds__(sgt::kThreads, sgt::kMinBlocks)
 corr1d_valid_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     T* __restrict__ out, long long N, long long n_out,
                     long long tiles, int ws) {
-  __shared__ sgt::TileSmem<T> s;
+  __shared__ sgt::TileSmem<T, MaxWs> s;
   const long long b = blockIdx.x / tiles;
   const long long t0 = (blockIdx.x % tiles) * sgt::kTile;
   const T* __restrict__ xrow = x + b * N;   // 64-bit: B * N passes 2^31
   T* __restrict__ orow = out + b * n_out;
 
-  sgt::tile_correlate<T>(xrow, N, t0, w, ws, s);
+  sgt::tile_correlate<T, MaxWs>(xrow, N, t0, w, ws, s);
 
   for (int i = threadIdx.x; i < sgt::kTile; i += sgt::kThreads) {
     const long long j = t0 + i;
@@ -45,8 +46,10 @@ int launch(const T* x, const T* w, T* out, long long B, long long N, int ws,
   long long tiles;
   const cudaError_t err = sgt::grid_for(B, n_out, &grid, &tiles);
   if (err != cudaSuccess) return err;
-  corr1d_valid_kernel<T><<<grid, sgt::kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = ws <= sgt::kNarrowWs
+                          ? corr1d_valid_kernel<T, sgt::kNarrowWs>
+                          : corr1d_valid_kernel<T, sgt::kMaxWs>;
+  kernel<<<grid, sgt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, w, out, N, n_out, tiles, ws);
   return cudaGetLastError();
 }

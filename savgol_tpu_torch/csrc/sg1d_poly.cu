@@ -38,20 +38,20 @@
 namespace {
 
 // mode: sgt::kZero for K1 (edge outputs fitted from ew), a pad mode for K2
-// (ew unused).
-template <typename T>
+// (ew unused). MaxWs: the widest window of the instance (stencil_tile.cuh).
+template <typename T, int MaxWs>
 __global__ void __launch_bounds__(sgt::kThreads, sgt::kMinBlocks)
 sg1d_poly_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const T* __restrict__ ew, T* __restrict__ out, long long N,
                  long long tiles, int n, T lead_sign, int mode) {
-  __shared__ sgt::TileSmem<T> s;
+  __shared__ sgt::TileSmem<T, MaxWs> s;
   const long long b = blockIdx.x / tiles;
   const long long t0 = (blockIdx.x % tiles) * sgt::kTile;
   const int ws = 2 * n + 1;
   const T* __restrict__ xrow = x + b * N;   // 64-bit: B * N passes 2^31
   T* __restrict__ orow = out + b * N;
 
-  sgt::tile_correlate<T>(xrow, N, t0 - n, w, ws, s, mode);
+  sgt::tile_correlate<T, MaxWs>(xrow, N, t0 - n, w, ws, s, mode);
 
   if (t0 >= n && t0 + sgt::kTile <= N - n) {   // interior tile: no edges
     for (int i = threadIdx.x; i < sgt::kTile; i += sgt::kThreads)
@@ -95,8 +95,10 @@ int launch(const T* x, const T* w, const T* ew, T* out, long long B,
   long long tiles;
   const cudaError_t err = sgt::grid_for(B, N, &grid, &tiles);
   if (err != cudaSuccess) return err;
-  sg1d_poly_kernel<T><<<grid, sgt::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = ws <= sgt::kNarrowWs
+                          ? sg1d_poly_kernel<T, sgt::kNarrowWs>
+                          : sg1d_poly_kernel<T, sgt::kMaxWs>;
+  kernel<<<grid, sgt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, w, ew, out, N, tiles, n, lead_sign, mode);
   return cudaGetLastError();
 }

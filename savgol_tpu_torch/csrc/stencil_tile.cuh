@@ -59,11 +59,20 @@ constexpr int kTile = kThreads * kQ;      // outputs per block
 // threads fill the SM's 2048 and cap registers at 32 a thread. The kernels
 // wait on device memory, and more resident blocks keep more loads in flight.
 constexpr int kMinBlocks = 8;
-constexpr int kMaxWs = 65;                // 2 * MAX_HALF_WINDOW + 1
-constexpr int kMaxWsPad = 68;             // kMaxWs rounded up to kQ
-// The deepest staged index a thread reads is kTile + (ws & ~3) + 3, so a
-// tile stages kTile + (ws & ~3) + 4 samples, at most kStage.
-constexpr int kStage = kTile + kMaxWsPad + 4;
+// The widest window: the JAX package's Pallas cap (_LANES + 1 taps,
+// pallas_conv.py:50), which scipy_compat reaches past SavgolConfig's 65. K1's
+// edge rows are read from device memory, so n <= 64 rows of them cost no
+// shared memory. Windows up to kNarrowWs (2 * MAX_HALF_WINDOW + 1, every
+// SavgolConfig) run an instance whose shared buffers are sized for them,
+// so the common windows keep the smaller footprint; wider ones an instance
+// sized for kMaxWs.
+constexpr int kMaxWs = 129;
+constexpr int kNarrowWs = 65;
+
+// ws rounded up to kQ: the tap buffer of an instance for windows up to ws.
+__host__ __device__ constexpr int ws_pad(int ws) {
+  return (ws + kQ - 1) / kQ * kQ;
+}
 
 __device__ __forceinline__ float madd(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -132,11 +141,13 @@ __device__ __forceinline__ void row_taps4(const T* __restrict__ row,
   }
 }
 
-// Shared buffers of one block. xs holds the staged input and, after the
-// compute, the block's TILE outputs.
-template <typename T> struct TileSmem {
-  __align__(16) T xs[kStage];
-  __align__(16) T w[kMaxWsPad];
+// Shared buffers of one block of an instance for windows up to MaxWs. xs
+// holds the staged input and, after the compute, the block's TILE outputs:
+// the deepest staged index a thread reads is kTile + (ws & ~3) + 3, so a
+// tile stages kTile + (ws & ~3) + 4 samples.
+template <typename T, int MaxWs> struct TileSmem {
+  __align__(16) T xs[kTile + ws_pad(MaxWs) + 4];
+  __align__(16) T w[ws_pad(MaxWs)];
 };
 
 // Stages xv[in0, in0 + stage) of a row of N >= 1 samples into xs, the
@@ -159,13 +170,14 @@ __device__ __forceinline__ void stage_row(const T* __restrict__ xrow,
 
 // Stages xv[in0, in0 + stage) (see stage_row) and w, computes the tile, and
 // leaves acc[i] in s.xs[i] for 0 <= i < kTile. Ends synchronised.
-template <typename T>
+template <typename T, int MaxWs>
 __device__ void tile_correlate(const T* __restrict__ xrow, long long N,
                                long long in0, const T* __restrict__ w,
-                               int ws, TileSmem<T>& s, int mode = kZero) {
+                               int ws, TileSmem<T, MaxWs>& s,
+                               int mode = kZero) {
   const int tid = threadIdx.x;
   stage_row(xrow, N, in0, ws, mode, s.xs);
-  for (int k = tid; k < kMaxWsPad; k += kThreads)
+  for (int k = tid; k < ws_pad(MaxWs); k += kThreads)
     s.w[k] = k < ws ? w[k] : T(0);
   __syncthreads();
 

@@ -65,7 +65,7 @@ def _use_kernel(method: str, x: torch.Tensor) -> bool:
     if method == "bf16":
         raise NotImplementedError(
             "method='bf16' is not ported yet: see ROADMAP.md, Queue 1, "
-            "'bf16 in 1D and 2D'")
+            "'`method=\"bf16\"` in 1D and 2D'")
     if method in ("pallas", "mxu") and x.device.type != "cuda":
         raise ValueError(
             f"method={method!r} runs the CUDA kernel and needs a CUDA "

@@ -97,7 +97,7 @@ def _resolve_method2d(method: str, x: torch.Tensor) -> str:
     if method == "bf16":
         raise NotImplementedError(
             "method='bf16' is not ported yet: see ROADMAP.md, Queue 1, "
-            "'The rest of the 1D apply' (K2 and 1D + 2D bf16)")
+            "'`method=\"bf16\"` in 1D and 2D'")
     if method == "pallas" and x.device.type != "cuda":
         raise ValueError(
             f"method='pallas' runs the CUDA kernel and needs a CUDA tensor, "

@@ -20,8 +20,7 @@ import numpy as np
 import torch
 
 from savgol_tpu_torch._build import library
-from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _MAX_WS,
-                                            _check_cuda_input,
+from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _check_cuda_input,
                                             _plain_or_cuda, _raise_on_error,
                                             _weights_on,
                                             correlate_valid_plain, pad_last)
@@ -32,6 +31,11 @@ __all__ = ["LAUNCHES", "reset_launches", "bank_correlate_plain",
 # Kernel launches since the last reset_launches(). Only the line that
 # launches the kernel adds to its count.
 LAUNCHES = {"corr1d_bank": 0}
+
+
+# The bank's tap buffer (csrc/corr1d_bank.cu kBankMaxWs): the sweep's and
+# SavgolBank's 2 * MAX_HALF_WINDOW + 1, below the 1D tile kernels' 129.
+_BANK_MAX_WS = 65
 
 
 def reset_launches() -> None:
@@ -70,8 +74,9 @@ def correlate_valid_bank_cuda(x: torch.Tensor, w: torch.Tensor, pad: int = 0,
     _check_cuda_input(x, name)
     if pad_mode not in MODE_CODE:
         raise ValueError(f"{name}: unsupported pad mode {pad_mode!r}")
-    if w.dim() != 2 or w.shape[0] < 1 or not 1 <= w.shape[1] <= _MAX_WS:
-        raise ValueError(f"{name}: stencils must be (K >= 1, 1..{_MAX_WS}), "
+    if w.dim() != 2 or w.shape[0] < 1 or not 1 <= w.shape[1] <= _BANK_MAX_WS:
+        raise ValueError(f"{name}: stencils must be (K >= 1, "
+                         f"1..{_BANK_MAX_WS}), "
                          f"got shape {tuple(w.shape)}")
     K, ws = w.shape
     pad = int(pad)

@@ -44,7 +44,10 @@ __all__ = [
 # Only the line that launches a kernel adds to its count.
 LAUNCHES = {"sg1d_poly": 0, "sg1d_pad": 0, "corr1d_valid": 0}
 
-_MAX_WS = 65    # the kernels' shared tap buffer: 2 * MAX_HALF_WINDOW + 1
+# The kernels' shared tap buffer (csrc/stencil_tile.cuh kMaxWs): the JAX
+# package's Pallas cap of _LANES + 1 taps, past SavgolConfig's 65, which
+# scipy_compat and the raw savgol_apply* calls reach.
+_MAX_WS = 129
 
 # pad mode -> the kernels' mode code (csrc/stencil_tile.cuh, PadMode); None
 # pads with zeros
@@ -199,7 +202,8 @@ def savgol_polynomial_cuda(x: torch.Tensor, center_w: torch.Tensor,
     ws = 2 * n + 1
     N = x.shape[-1]
     if n < 1 or ws > _MAX_WS:
-        raise ValueError(f"{name}: half window must be in [1, 32], got {n}")
+        raise ValueError(f"{name}: half window must be in [1, "
+                         f"{_MAX_WS // 2}], got {n}")
     if tuple(center_w.shape) != (ws,) or tuple(edge_w.shape) != (n, ws):
         raise ValueError(f"{name}: weights of shape {tuple(center_w.shape)} "
                          f"and {tuple(edge_w.shape)} do not match n={n}")
@@ -232,7 +236,7 @@ def savgol_padded_cuda(x: torch.Tensor, center_w: torch.Tensor,
     ``savgol_padded_pallas_mxu``), which maps the virtual samples while it
     stages its edge tiles, so no padded copy is made; ``dt_inv`` folded
     into the taps as K1 does. There is no fallback: any B >= 1, N >= ws and
-    1 <= n <= 32 launches. CPU tensor: :func:`savgol_padded_plain`.
+    1 <= n <= 64 launches. CPU tensor: :func:`savgol_padded_plain`.
     """
     name = "savgol_padded_cuda"
     if not _plain_or_cuda(x, name):
@@ -244,7 +248,8 @@ def savgol_padded_cuda(x: torch.Tensor, center_w: torch.Tensor,
     if pad_mode not in ("symmetric", "wrap", "edge"):
         raise ValueError(f"{name}: unsupported pad mode {pad_mode!r}")
     if n < 1 or ws > _MAX_WS:
-        raise ValueError(f"{name}: half window must be in [1, 32], got {n}")
+        raise ValueError(f"{name}: half window must be in [1, "
+                         f"{_MAX_WS // 2}], got {n}")
     if tuple(center_w.shape) != (ws,):
         raise ValueError(f"{name}: weights of shape {tuple(center_w.shape)} "
                          f"do not match n={n}")

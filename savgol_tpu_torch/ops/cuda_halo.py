@@ -1,0 +1,184 @@
+"""The ring halo-exchange kernel of the port (K13, ``csrc/halo_ring.cu``),
+its plain version and its launch count (counterpart of
+``savgol_tpu.parallel.ici_halo._halo_call``).
+
+Both take this rank's ``tail`` and ``head`` blocks (same shape and dtype)
+and a process group read as a ring, and return ``(left, right)``: the left
+neighbour's ``tail`` and the right neighbour's ``head``, with wrap-around.
+
+* The plain version is ``dist.batch_isend_irecv`` of the two blocks, on any
+  backend that can send the tensors: ``gloo`` for CPU tensors, NCCL for a
+  group with one card a rank. ``gloo`` cannot send a CUDA tensor, and this
+  module raises rather than hand it one.
+* The kernel takes CUDA tensors. Each rank shares one device buffer (two
+  receive slots of each side and two arrival words) with its neighbours
+  once, through CUDA IPC handles, and one launch stores its blocks into the
+  neighbours' slots, waits for theirs and copies its own out. The ranks may
+  share one card (NCCL refuses that) or hold one each.
+
+A ring of one is the identity and launches nothing. A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from savgol_tpu_torch._build import library
+from savgol_tpu_torch.ops.cuda_conv import _plain_or_cuda, _raise_on_error
+
+__all__ = ["LAUNCHES", "reset_launches", "release", "halo_exchange_cuda",
+           "halo_exchange_plain"]
+
+# Kernel launches since the last reset_launches(). Only the line that
+# launches the kernel adds to its count.
+LAUNCHES = {"halo_ring": 0}
+
+# A wait for the neighbours past this traps the kernel (csrc/halo_ring.cu):
+# ranks that share one card wait for each other's time slices, well under it.
+TIMEOUT_S = 10.0
+
+_FLAG_BYTES = 256    # csrc/halo_ring.cu kFlagBytes
+_ALIGN = 256
+
+# (group, device, bytes a side) -> _Ring
+_RINGS: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _neighbours(group) -> tuple[int, int, int]:
+    """(ring size, global rank of the left neighbour, of the right one)."""
+    size = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    return (size, dist.get_global_rank(group, (me - 1) % size),
+            dist.get_global_rank(group, (me + 1) % size))
+
+
+def _check_pair(tail: torch.Tensor, head: torch.Tensor, name: str) -> None:
+    if tail.shape != head.shape or tail.dtype != head.dtype \
+            or tail.device != head.device:
+        raise ValueError(f"{name}: tail {tuple(tail.shape)} {tail.dtype} on "
+                         f"{tail.device} and head {tuple(head.shape)} "
+                         f"{head.dtype} on {head.device} must match")
+
+
+def halo_exchange_plain(tail: torch.Tensor, head: torch.Tensor,
+                        group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(left, right)`` by point-to-point sends: ``tail`` to the right
+    neighbour, ``head`` to the left one (counterpart of the two
+    ``lax.ppermute`` sends of ``savgol_tpu.parallel.sharded._halo_exchange``).
+    """
+    name = "halo_exchange_plain"
+    _check_pair(tail, head, name)
+    size, left, right = _neighbours(group)
+    if size == 1:
+        return tail.clone(), head.clone()
+    if tail.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        raise ValueError(
+            f"{name}: a gloo group cannot send CUDA tensors; use a group with "
+            "one card a rank (NCCL), or the kernel (halo='rdma')")
+    tail, head = tail.contiguous(), head.contiguous()
+    left_in, right_in = torch.empty_like(tail), torch.empty_like(head)
+    # a ring of two has one neighbour on both sides: the tags keep the
+    # two directions apart
+    ops = [dist.P2POp(dist.isend, tail, right, group, tag=1),
+           dist.P2POp(dist.irecv, left_in, left, group, tag=1),
+           dist.P2POp(dist.isend, head, left, group, tag=2),
+           dist.P2POp(dist.irecv, right_in, right, group, tag=2)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return left_in, right_in
+
+
+def _open_peer(handle) -> torch.Tensor:
+    rebuild, args = handle
+    return rebuild(*args)
+
+
+class _Ring:
+    """One rank's receive buffer of a ring and its neighbours' buffers,
+    mapped into this process. Created collectively: every rank of the group
+    makes its own at the same call."""
+
+    def __init__(self, group, device: torch.device, nbytes: int):
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        size, _, _ = _neighbours(group)
+        me = dist.get_rank(group)
+        self.stride = -(-nbytes // _ALIGN) * _ALIGN
+        self.blocks = library().halo_ring_blocks(nbytes)
+        self.buf = torch.zeros(_FLAG_BYTES + 4 * self.stride,
+                               dtype=torch.uint8, device=device)
+        # the zeroed arrival words must land before a neighbour's first add
+        torch.cuda.synchronize(device)
+        handles = [None] * size
+        dist.all_gather_object(handles, reduce_tensor(self.buf), group=group)
+        peers = {}
+        for r in ((me - 1) % size, (me + 1) % size):
+            if r not in peers:
+                peers[r] = _open_peer(handles[r])
+        self.left = peers[(me - 1) % size]
+        self.right = peers[(me + 1) % size]
+        self.epoch = 0
+        self.stream = None
+
+
+def _ring(group, device: torch.device, nbytes: int) -> _Ring:
+    key = (group, device, nbytes)
+    ring = _RINGS.get(key)
+    if ring is None:
+        ring = _RINGS[key] = _Ring(group, device, nbytes)
+    return ring
+
+
+def release() -> None:
+    """Drop every ring's buffers and the neighbours' mapped ones. Call on
+    every rank, then synchronise the group, before a process group ends."""
+    _RINGS.clear()
+
+
+def halo_exchange_cuda(tail: torch.Tensor, head: torch.Tensor,
+                       group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(left, right)`` of a ring exchange of ``tail`` and ``head``.
+
+    CUDA tensors: kernel K13, one launch on the current stream, no
+    synchronisation. The first call of a ring with a given block size
+    shares the buffers (a collective on ``group``). All ranks must call with
+    blocks of the same size, in the same order. CPU tensors:
+    :func:`halo_exchange_plain`.
+    """
+    name = "halo_exchange_cuda"
+    _check_pair(tail, head, name)
+    if not _plain_or_cuda(tail, name):
+        return halo_exchange_plain(tail, head, group)
+    size, _, _ = _neighbours(group)
+    if size == 1:
+        return tail.clone(), head.clone()
+    tail, head = tail.contiguous(), head.contiguous()
+    nbytes = tail.numel() * tail.element_size()
+    left, right = torch.empty_like(tail), torch.empty_like(head)
+    if nbytes == 0:
+        return left, right
+    ring = _ring(group, tail.device, nbytes)
+    stream = torch.cuda.current_stream(tail.device)
+    if ring.stream is not None and ring.stream != stream:
+        # the two-slot argument needs this ring's exchanges in order
+        stream.wait_stream(ring.stream)
+    ring.stream = stream
+    ring.epoch += 1
+    lib = library()
+    with torch.cuda.device(tail.device):
+        err = lib.halo_ring(tail.data_ptr(), head.data_ptr(),
+                            ring.right.data_ptr(), ring.left.data_ptr(),
+                            ring.buf.data_ptr(), left.data_ptr(),
+                            right.data_ptr(), nbytes, ring.stride,
+                            ring.blocks, ring.epoch, int(TIMEOUT_S * 1e9),
+                            stream.cuda_stream)
+    _raise_on_error(err, name)
+    LAUNCHES["halo_ring"] += 1
+    return left, right

@@ -18,8 +18,10 @@ Mode mapping (scipy name -> implementation, kernel on a CUDA tensor):
                     duplicates the edge sample: padded on the host, then K3
   * ``constant`` -> pad with ``cval`` — also an extension: host pad, K3
 
-The kernels take windows up to 65 samples: past that, a CUDA tensor raises
-under ``method="auto"`` and ``method="xla"`` takes the plain version.
+The kernels take windows up to 129 samples, the JAX package's Pallas cap
+(past the reference's 65): past that, a CUDA tensor raises under
+``method="auto"`` and ``method="xla"`` takes the plain version. As in scipy,
+input that is not a tensor comes back as a numpy array.
 """
 
 from __future__ import annotations
@@ -119,22 +121,31 @@ def savgol_coeffs(window_length: int, polyorder: int, deriv: int = 0,
 
 def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
                   delta: float = 1.0, axis: int = -1, mode: str = "interp",
-                  cval: float = 0.0, *, method: str = "auto",
-                  device=None) -> torch.Tensor:
+                  cval: float = 0.0, *, method: str = "auto", device=None):
     """scipy.signal.savgol_filter equivalent on the port. A tensor is
-    filtered on its own device; anything else (a numpy array, a list) is
-    put on ``device``, by default the card when one is present, so the
-    import swap reaches the kernels. ``method`` as for
+    filtered on its own device and comes back as a tensor there; anything
+    else (a numpy array, a list) is computed on ``device``, by default the
+    card when one is present, so the import swap reaches the kernels, and
+    comes back as a numpy array, as scipy returns. ``method`` as for
     ``Savgol1D.apply``."""
+    if isinstance(x, torch.Tensor):
+        return _filter(x, window_length, polyorder, deriv, delta, axis, mode,
+                       cval, method)
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    y = _filter(torch.as_tensor(x, device=device), window_length, polyorder,
+                deriv, delta, axis, mode, cval, method)
+    return y.cpu().numpy()
+
+
+def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
+            delta: float, axis: int, mode: str, cval: float,
+            method: str) -> torch.Tensor:
     if window_length % 2 != 1:
         raise ValueError("window_length must be odd")
     if polyorder >= window_length:
         raise ValueError("polyorder must be less than window_length")
     n = window_length // 2
-    if not isinstance(x, torch.Tensor):
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        x = torch.as_tensor(x, device=device)
     if deriv > polyorder:
         # scipy semantics: output is identically zero
         return torch.zeros(x.shape, dtype=x.dtype if x.is_floating_point()

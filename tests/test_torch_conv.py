@@ -166,4 +166,4 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="window size"):
         cc.savgol_polynomial_cuda(x[:, :8].contiguous(), ct, et, n)
     with pytest.raises(ValueError, match="taps"):
-        cc.correlate_valid_cuda(x, torch.ones(66, device=cuda))
+        cc.correlate_valid_cuda(x, torch.ones(cc._MAX_WS + 1, device=cuda))

@@ -301,17 +301,107 @@ def test_savgol_coeffs_match_jax_module(jax_side, wl, po, d, pos):
 
 
 def test_savgol_filter_takes_numpy_input(row):
-    """The import swap: numpy input is placed on ``device`` (the card by
-    default where there is one) and filtered as a tensor would be."""
+    """The import swap: numpy input is computed on ``device`` (the card by
+    default where there is one) as a tensor would be, and comes back as a
+    numpy array, as scipy returns it; a tensor comes back as a tensor."""
     want = tsc.savgol_filter(torch.from_numpy(row), 25, 4, mode="wrap")
+    assert isinstance(want, torch.Tensor)
     got = tsc.savgol_filter(row, 25, 4, mode="wrap", device="cpu")
-    assert got.device.type == "cpu"
-    assert torch.equal(got, want)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    np.testing.assert_array_equal(got, want.numpy())
     default = tsc.savgol_filter(row, 25, 4, mode="wrap")
-    expected = "cuda" if torch.cuda.is_available() else "cpu"
-    assert default.device.type == expected
-    np.testing.assert_allclose(default.cpu().numpy(), want.numpy(),
+    assert isinstance(default, np.ndarray)
+    np.testing.assert_allclose(default, want.numpy(), atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", SCIPY_MODES)
+def test_savgol_filter_returns_what_it_was_given(row, mode):
+    """numpy in, numpy out (np.asarray works on the result, as on scipy's);
+    a list too; a tensor in, a tensor out on its own device; the zero
+    output of deriv > polyorder as well."""
+    for x in (row, list(row[:60])):
+        y = tsc.savgol_filter(x, 11, 3, mode=mode)
+        assert isinstance(y, np.ndarray)
+        np.testing.assert_allclose(np.asarray(y), sp_filter(
+            np.asarray(x), 11, 3, mode=mode), atol=1e-9)
+    assert isinstance(tsc.savgol_filter(row, 11, 3, deriv=4, mode=mode),
+                      np.ndarray)
+    t = torch.from_numpy(row)
+    yt = tsc.savgol_filter(t, 11, 3, mode=mode)
+    assert isinstance(yt, torch.Tensor) and yt.device == t.device
+
+
+def exact_weights(n, m, t):
+    """Exact least-squares smoothing weights of the window [-n, n] at
+    position t, by the rational Vandermonde normal equations: the oracle of
+    ``tests/test_weights.py::exact_weights`` (d = 0), kept here because that
+    module imports JAX and the ``cuda`` tests run without it."""
+    from fractions import Fraction
+    pts = range(-n, n + 1)
+    A = [[Fraction(i) ** k for k in range(m + 1)] for i in pts]
+    M = [[sum(a[i] * a[j] for a in A) for j in range(m + 1)]
+         + [Fraction(t) ** i] for i in range(m + 1)]
+    for col in range(m + 1):
+        piv = max(range(col, m + 1), key=lambda r: abs(M[r][col]))
+        M[col], M[piv] = M[piv], M[col]
+        for r in range(m + 1):
+            if r != col and M[r][col] != 0:
+                f = M[r][col] / M[col][col]
+                M[r] = [a - f * b for a, b in zip(M[r], M[col])]
+    y = [M[i][m + 1] / M[i][i] for i in range(m + 1)]
+    return np.array([float(sum(a[k] * y[k] for k in range(m + 1)))
+                     for a in A])
+
+
+def _exact_filter(x, wl, po, mode, cval=0.0):
+    """scipy.signal.savgol_filter by exact rational weights: the centred
+    weights over scipy's padded signal, and for ``interp`` the window's fit
+    evaluated at each of the first and last ``wl // 2`` positions."""
+    n, N = wl // 2, len(x)
+    wc = exact_weights(n, po, 0)
+    if mode == "interp":
+        y = np.array([wc @ x[j - n:j + n + 1] if n <= j < N - n else 0.0
+                      for j in range(N)])
+        for j in range(n):
+            y[j] = exact_weights(n, po, j - n) @ x[:wl]
+            y[N - 1 - j] = exact_weights(n, po, n - j) @ x[N - wl:]
+        return y
+    pad = {"mirror": dict(mode="reflect"), "nearest": dict(mode="edge"),
+           "wrap": dict(mode="wrap"),
+           "constant": dict(mode="constant", constant_values=cval)}[mode]
+    xp = np.pad(x, n, **pad)
+    return np.array([wc @ xp[j:j + wl] for j in range(N)])
+
+
+@pytest.mark.parametrize("mode", SCIPY_MODES)
+def test_savgol_filter_window_101(row, mode):
+    """Window 101 (past SavgolConfig's 65, within the 129 taps K1, K2 and
+    K3 take): scipy and the exact weights, numpy in and out."""
+    got = tsc.savgol_filter(row, 101, 4, mode=mode, cval=0.5)
+    assert isinstance(got, np.ndarray)
+    np.testing.assert_allclose(got, sp_filter(row, 101, 4, mode=mode,
+                                              cval=0.5), atol=1e-9)
+    np.testing.assert_allclose(got, _exact_filter(row, 101, 4, mode, 0.5),
                                atol=1e-12)
+
+
+def test_bf16_messages_name_a_roadmap_heading():
+    """The 1D and 2D ``method="bf16"`` errors point at a ROADMAP item that
+    exists, by its title."""
+    import pathlib
+    import re
+    roadmap = (pathlib.Path(__file__).resolve().parents[1]
+               / "ROADMAP.md").read_text()
+    ft = sgt.Savgol1D.create(sgt.SavgolConfig(4, 2), device="cpu")
+    x = torch.zeros(2, 64)
+    with pytest.raises(NotImplementedError) as e1:
+        ft.apply(x, method="bf16")
+    with pytest.raises(NotImplementedError) as e2:
+        sgt.savgol2d_apply(x, torch.ones(3, 3), method="bf16")
+    for err in (e1, e2):
+        title = re.search(r"Queue 1, '(.+)'", str(err.value)).group(1)
+        assert re.search(r"^\d+\. \*\*" + re.escape(title) + r"\.?\*\*",
+                         roadmap, re.M), title
 
 
 def test_savgol_coeffs_errors():
@@ -366,8 +456,26 @@ def test_cuda_savgol_filter_numpy_input_reaches_kernel(cuda, row, mode, key):
     x = row.astype(np.float32)
     before = dict(cc.LAUNCHES)
     got = tsc.savgol_filter(x, 25, 4, mode=mode)
-    assert got.device.type == "cuda"
+    assert isinstance(got, np.ndarray)
     assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
         k: int(k == key) for k in before}
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               sp_filter(row, 25, 4, mode=mode), atol=1e-5)
+    np.testing.assert_allclose(got, sp_filter(row, 25, 4, mode=mode),
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,key", [
+    ("interp", "sg1d_poly"), ("wrap", "sg1d_pad"), ("nearest", "sg1d_pad"),
+    ("mirror", "corr1d_valid"), ("constant", "corr1d_valid")])
+def test_cuda_savgol_filter_window_101(cuda, row, mode, key):
+    """Window 101 on the card: one launch of K1, K2 or K3 for a numpy
+    array, within 1e-6 of scipy and of the exact weights."""
+    before = dict(cc.LAUNCHES)
+    got = tsc.savgol_filter(row.astype(np.float32), 101, 4, mode=mode,
+                            cval=0.5)
+    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k == key) for k in before}
+    np.testing.assert_allclose(got, sp_filter(row, 101, 4, mode=mode,
+                                              cval=0.5), atol=1e-6)
+    np.testing.assert_allclose(got, _exact_filter(row, 101, 4, mode, 0.5),
+                               atol=1e-6)
