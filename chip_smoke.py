@@ -42,7 +42,18 @@ back to back; ``apply_sharded(..., halo="rdma")`` on the 1D headline split
 four ways against the single-device apply and float64, and
 ``apply2d_sharded`` on the 2D headline by rows and by 2 x 2 tiles, each
 call's launches counted on every rank; float64 gradients through K13; and
-timings by rank.
+timings by rank; the same four ranks with ``method="bf16"``.
+Then ``method="bf16"``: K1, K2, K3 and K2D-dense in their bf16 mode against
+their bf16 plain versions over grids of windows (to 129 taps in 1D, 33 x 33
+in 2D), batches, lengths, boundaries, stacks and f32 / bf16 storage (one
+bf16 ulp; 2D f32 sums 2e-6 scaled); the 1D and 2D headlines in bf16 through
+``Savgol1D.apply`` / ``apply_valid`` (all four boundaries), ``Savgol2D.apply``
+and ``savgol2d_hessian``, each one launch, within ``bench.py``'s 5e-3
+contract of float64; ``scipy_compat`` in bf16 against scipy; f64 gradients;
+times beside the bounds and ``F.conv1d`` / ``F.conv2d`` on bf16. Then the
+attribution probes P3 (``probes/bf16_1d.py``) and P2
+(``probes/rowband2d.py``) at the headlines against their plain versions,
+with their times.
 Beside each kernel's time it prints its bound (bytes or operations
 at the data sheet's rates) and, where one PyTorch call computes the same
 function, that call's time. Every phase prints one line; any failure raises
@@ -128,10 +139,11 @@ NONUNI_F32_TOL, NONUNI_F64_TOL, NONUNI_SLICE_TOL = 1e-5, 1e-12, 1e-4
 
 # the least time the card could take for a kernel's work: the larger of its
 # bytes (each input read once, each output written once) over the memory
-# rate and its operations (an fma counted as two) over the peak rate of
-# their type, outside the tensor cores (H100 SXM data sheet)
+# rate and its operations (an fma counted as two) over the dense peak rate
+# of their type (H100 SXM data sheet): f32 and f64 outside the tensor
+# cores, bf16 products summed in f32 on them
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
 
 
 def bound(nbytes: float, flops, kind: str = "f32") -> dict:
@@ -275,8 +287,10 @@ def kernel_modules():
                                       cuda_halo, cuda_masked, cuda_masked2d,
                                       cuda_nonuniform, cuda_resample,
                                       cuda_solve)
+    from savgol_tpu_torch.probes import bf16_1d, rowband2d
     return (cuda_conv, cuda_bank, cuda_conv2d, cuda_solve, cuda_masked,
-            cuda_masked2d, cuda_nonuniform, cuda_resample, cuda_halo)
+            cuda_masked2d, cuda_nonuniform, cuda_resample, cuda_halo,
+            bf16_1d, rowband2d)
 
 
 def counted_all(run, want: dict, what: str):
@@ -2116,10 +2130,23 @@ def sharded_phases(card, dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
               f"reflect; K13 forward and backward): worst abs error vs the "
               f"single-device gradient {max(r['worst'] for r in rg):.3e} "
               f"(tol {F64_TOL})")
+        t_grads = time.perf_counter()
+        rb = pool.run(rank_sharded_bf16, dev_type, shape1d, shape2d)
+        e1, u1, e2, s2 = (max(r["errs"][i] for r in rb) for i in range(4))
+        print(f"sharded bf16 (halo='rdma', {RING} ranks): launches a rank 1D "
+              f"{rb[0]['launches'][0]}, 2D rows {rb[0]['launches'][1]}; vs "
+              f"f64 scaled 1D {e1:.3e}, 2D {e2:.3e} (contract "
+              f"{BF16_CONTRACT}); vs the single-device bf16 apply 1D {u1:.3e}"
+              f" (one bf16 ulp, outer n samples left out), 2D {s2:.3e} (tol "
+              f"{F32_TOL_2D} scaled); time by rank 1D "
+              + ", ".join(f"{r['t']['1D']:.4f}" for r in rb) + " ms, 2D rows "
+              + ", ".join(f"{r['t']['2D rows']:.4f}" for r in rb)
+              + f" ms [{card}]")
     t_end = time.perf_counter()
     print(f"wall time sharded phases: pool start, K13 grid and 1D "
-          f"{t_1d - t0:.1f} s, 2D {t_2d - t_1d:.1f} s, gradients and "
-          f"shutdown {t_end - t_2d:.1f} s")
+          f"{t_1d - t0:.1f} s, 2D {t_2d - t_1d:.1f} s, gradients "
+          f"{t_grads - t_2d:.1f} s, bf16 and shutdown {t_end - t_grads:.1f} "
+          f"s")
     halo_bytes = RING * 4 * shape1d[0] * 12 * 4
     return {"name": "halo_ring", "route": "cuda",
             "source": "savgol_tpu_torch/csrc/halo_ring.cu",
@@ -2130,6 +2157,587 @@ def sharded_phases(card, dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
             **bound(halo_bytes, 0), "library_ms": None,
             "ms_by_rank": t1["K13"], "ranks_sharing_one_card": RING,
             "rows_2d_ms": r2[0]["K13 rows"]}
+
+
+# -- 30-35. method="bf16" and the attribution probes P2, P3 -------------------
+#
+# K1, K2, K3 and K2D-dense in their bf16 mode (bf16 samples and taps, f32
+# sums, outputs rounded to bf16; K2D-dense's f32 storage keeps the f32 sums)
+# against their bf16 plain versions, then through the entry points at full
+# size against float64, then P3 and P2.
+
+# bench.py:439 and :566: the bf16 mode's contract, max abs error against the
+# exact result <= 5e-3 * max(1, max|y|); here against float64
+BF16_CONTRACT = 5e-3
+BF16_HALVES = (1, 12, 50, 64)            # windows 3, 25, 101, 129
+BF16_BATCHES = (1, 16, 24, 128)
+BF16_STORAGE = (torch.float32, torch.bfloat16)
+
+
+def ulp_check(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """``got`` within one bf16 ulp of ``want`` elementwise (plus 1e-6 of
+    max|want|: ``cuda_conv.bf16_ulp_gate``); returns the max abs error."""
+    from savgol_tpu_torch.ops.cuda_conv import bf16_ulp_gate
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    require(bool((err <= bf16_ulp_gate(want)).all()),
+            f"{what}: {int((err > bf16_ulp_gate(want)).sum())} outputs past "
+            f"one bf16 ulp, max {err.max().item():.3e}")
+    return err.max().item()
+
+
+def f32_check(got: torch.Tensor, want: torch.Tensor, what: str,
+              tol: float = F32_TOL) -> float:
+    e, s = max_err(got, want)
+    require(e <= tol * s, f"{what}: {e:.3e} (scale {s:.3e})")
+    return e
+
+
+def bf16_grid_1d(dev) -> str:
+    """K1, K2 (three pad modes) and K3 in their bf16 mode against their
+    plain versions: windows 3 / 25 / 101 / 129, B 1 / 16 / 24 / 128, N ws /
+    ws + 1 / 4099 / 262,147, f32 and bf16 storage, derivatives 0-2 (dt_inv
+    100^d folded into the taps), both edge signs."""
+    from savgol_tpu_torch import scipy_compat as tsc
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    rng = np.random.default_rng(11)
+    worst = {"sg1d_poly": 0.0, "sg1d_pad": 0.0, "corr1d_valid": 0.0}
+    cases = 0
+    cc.reset_launches()
+    for storage in BF16_STORAGE:
+        for n in BF16_HALVES:
+            ws = 2 * n + 1
+            for B in BF16_BATCHES:
+                for N in (ws, ws + 1, 4099, 262_147):
+                    x = torch.from_numpy(rng.standard_normal(
+                        (B, N), dtype=np.float32)).to(dev, storage)
+                    for d in (0, 1, 2):
+                        cw, ew = (torch.from_numpy(a).to(dev, torch.float32)
+                                  for a in tsc._compat_weights_np(
+                                      n, min(4, 2 * n), d))
+                        dt = torch.tensor(100.0 ** d, device=dev)
+                        where = f"n={n} B={B} N={N} d={d} {storage}"
+                        for sign in (1.0, -1.0):
+                            e = ulp_check(
+                                cc.savgol_polynomial_bf16_cuda(x, cw, ew, n,
+                                                               dt, sign),
+                                cc.savgol_polynomial_bf16_plain(x, cw, ew, n,
+                                                                dt, sign),
+                                f"K1-bf16 {where} sign={sign}")
+                            worst["sg1d_poly"] = max(worst["sg1d_poly"], e)
+                        for mode in PAD_MODES.values():
+                            e = ulp_check(
+                                cc.savgol_padded_bf16_cuda(x, cw, mode, n, dt),
+                                cc.savgol_padded_bf16_plain(x, cw, mode, n,
+                                                            dt),
+                                f"K2-bf16 {mode} {where}")
+                            worst["sg1d_pad"] = max(worst["sg1d_pad"], e)
+                        e = ulp_check(cc.correlate_valid_bf16_cuda(x, cw),
+                                      cc.correlate_valid_bf16_plain(x, cw),
+                                      f"K3-bf16 {where}")
+                        worst["corr1d_valid"] = max(worst["corr1d_valid"], e)
+                        cases += 6
+    torch.cuda.synchronize()
+    launches = dict(cc.LAUNCHES)
+    require(all(v > 0 for v in launches.values()),
+            f"bf16 1D grid did not reach every kernel: {launches}")
+    return (f"bf16 1D grid: {cases} cases (windows 3/25/101/129, f32 and "
+            f"bf16 storage), each within one bf16 ulp of its plain version; "
+            f"max abs error " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in worst.items())
+            + f"; launches {launches}")
+
+
+def bf16_grid_2d(dev) -> str:
+    """K2D-dense in its bf16 mode against its plain version over every 2D
+    window up to 33 x 33, the four boundaries, stacks K = 1 and 3, three
+    images and both storages (f32 output within 2e-6 scaled, bf16 output
+    one bf16 ulp)."""
+    from savgol_tpu_torch.ops import cuda_conv2d as c2
+    from savgol_tpu_torch.ops.apply2d import _stencil_stack
+    rng = np.random.default_rng(12)
+    modes = {"valid": None, **{b: PAD_MODES[b] for b in
+                               ("constant", "reflect", "periodic")}}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    c2.reset_launches()
+    for storage in BF16_STORAGE:
+        for shape in IMAGES_2D:
+            x = torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).to(dev, storage)
+            for H, W in WINDOWS_2D:
+                order = 2 if min(H, W) == 3 else 3
+                for derivs in ([(1, 1)], [(2, 0), (1, 1), (0, 2)]):
+                    ws, _ = _stencil_stack((W - 1) // 2, (H - 1) // 2, order,
+                                           derivs, 0.5, 0.25)
+                    w = torch.from_numpy(ws).to(dev)
+                    w = w[0] if len(derivs) == 1 else w
+                    for bnd, pm in modes.items():
+                        if pm is None and (shape[1] < H or shape[2] < W):
+                            continue
+                        got = c2.correlate2d_valid_bf16_cuda(x, w, pm)
+                        want = c2.correlate2d_valid_bf16_plain(x, w, pm)
+                        what = (f"K2D-dense-bf16 {storage} {shape} {H}x{W} "
+                                f"K={len(derivs)} {bnd}")
+                        e = (f32_check(got, want, what)
+                             if storage == torch.float32
+                             else ulp_check(got, want, what))
+                        worst[storage] = max(worst[storage], e)
+                        cases += 1
+    torch.cuda.synchronize()
+    require(c2.LAUNCHES["corr2d_valid"] == cases and
+            c2.LAUNCHES["corr2d_sep"] == 0,
+            f"bf16 2D grid launched {c2.LAUNCHES} for {cases} cases")
+    return (f"bf16 2D grid: {cases} cases (windows 3x3-33x33, K = 1 / 3, "
+            f"four boundaries); max abs error f32 output "
+            f"{worst[torch.float32]:.3e} (tol {F32_TOL} scaled), bf16 output "
+            f"{worst[torch.bfloat16]:.3e} (one bf16 ulp)")
+
+
+def _contract(got, ref, what) -> float:
+    """max |got - ref| <= BF16_CONTRACT * max(1, max|ref|); returns the
+    scaled error."""
+    e, s = max_err(got, ref)
+    require(e <= BF16_CONTRACT * s, f"{what} vs f64: {e:.3e} (scale {s:.3e},"
+            f" contract {BF16_CONTRACT})")
+    return e / s
+
+
+def bf16_slice_1d(sgt, dev, card) -> list:
+    """The 1D headline in bf16 through the user's entry points: ``apply``
+    on bf16 and on f32 storage, ``apply_valid`` and the three pad
+    boundaries, each counted in its own zeroed window and held to the
+    contract against float64; each kernel against its plain version at the
+    headline; f64 gradients through the bf16 routes; times. Returns the
+    bf16 modes' records."""
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.ops.weights import savgol_weights_np
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, cudnn_ms
+
+    cfg = sgt.SavgolConfig(12, 4)
+    f = sgt.Savgol1D.create(cfg, device=dev)
+    x32 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B_FULL, N_FULL), dtype=np.float32)).to(dev)
+    xb = x32.to(torch.bfloat16)
+    c64, e64 = (torch.from_numpy(a).to(dev)
+                for a in savgol_weights_np(cfg, np.float64))
+    rows = sorted({0, 1, B_FULL // 2, B_FULL - 1})
+    runs = {
+        "apply bf16": (lambda: f.apply(xb, method="bf16"), {"sg1d_poly": 1},
+                       xb, lambda v: cc.savgol_polynomial_plain(
+                           v, c64, e64, 12)),
+        "apply f32": (lambda: f.apply(x32, method="bf16"), {"sg1d_poly": 1},
+                      x32, lambda v: cc.savgol_polynomial_plain(
+                          v, c64, e64, 12)),
+        "apply_valid bf16": (lambda: f.apply_valid(xb, method="bf16"),
+                             {"corr1d_valid": 1}, xb,
+                             lambda v: cc.correlate_valid_plain(v, c64)),
+    }
+    for bnd, mode in PAD_MODES.items():
+        runs[f"apply {bnd} bf16"] = (
+            lambda b=bnd: f.apply(xb, boundary=b, method="bf16"),
+            {"sg1d_pad": 1}, xb,
+            lambda v, m=mode: cc.savgol_padded_plain(v, c64, m, 12))
+    launches, errs = {}, {}
+    for name, (run, want, inp, oracle) in runs.items():
+        y, launches[name] = counted_all(run, want, f"Savgol1D {name}")
+        require(y.dtype == inp.dtype and bool(torch.isfinite(y).all()),
+                f"{name}: dtype {y.dtype} or non-finite output")
+        require(torch.equal(y, y.to(torch.bfloat16).to(y.dtype)),
+                f"{name}: outputs not bf16-rounded (not the bf16 mode)")
+        errs[name] = _contract(y[rows], oracle(inp[rows].double()), name)
+        del y
+    w, ew = f.center_weights, f.edge_weights
+    kern = {
+        "K1-bf16": (lambda: cc.savgol_polynomial_bf16_cuda(xb, w, ew, 12),
+                    lambda: cc.savgol_polynomial_bf16_plain(xb, w, ew, 12)),
+        "K1-bf16 f32 storage": (
+            lambda: cc.savgol_polynomial_bf16_cuda(x32, w, ew, 12),
+            lambda: cc.savgol_polynomial_bf16_plain(x32, w, ew, 12)),
+        "K2-bf16 symmetric": (
+            lambda: cc.savgol_padded_bf16_cuda(xb, w, "symmetric", 12),
+            lambda: cc.savgol_padded_bf16_plain(xb, w, "symmetric", 12)),
+        "K3-bf16": (lambda: cc.correlate_valid_bf16_cuda(xb, w),
+                    lambda: cc.correlate_valid_bf16_plain(xb, w)),
+    }
+    kerr = {k: ulp_check(a(), b(), f"{k} vs plain at the headline")
+            for k, (a, b) in kern.items()}
+
+    # f64 gradients through the bf16 routes against one cotangent: the
+    # exact route's (the backward is the exact plain version), K1 / K2 / K3
+    # launched once forward
+    xg = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (24, 4099))).to(dev)
+    fg = sgt.Savgol1D.create(sgt.deriv1(12, 4, dt=0.01), dtype=torch.float64,
+                             device=dev)
+    grad_err = 0.0
+    for name, call in (("polynomial", lambda v, m: fg.apply(v, method=m)),
+                       ("reflect", lambda v, m: fg.apply(v, boundary="reflect",
+                                                         method=m)),
+                       ("valid", lambda v, m: fg.apply_valid(v, method=m))):
+        gs = []
+        for method in ("bf16", "xla"):
+            v = xg.clone().requires_grad_()
+            before = sum(cc.LAUNCHES.values())
+            y = call(v, method)
+            require(method == "xla" or sum(cc.LAUNCHES.values()) == before + 1,
+                    f"bf16 {name} gradient run: one launch forward")
+            g = torch.randn(y.shape, dtype=y.dtype, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(7))
+            gs.append(torch.autograd.grad(y, v, g)[0])
+        grad_err = max(grad_err, (gs[0] - gs[1]).abs().max().item())
+    require(grad_err <= F64_TOL, f"bf16 backward vs exact: {grad_err:.3e}")
+
+    samples = B_FULL * N_FULL
+    t = {k: (cuda_time_ms(a), cuda_time_ms(b, warmup=1, reps=3))
+         for k, (a, b) in kern.items()}
+    t["Savgol1D.apply bf16"] = (cuda_time_ms(lambda: f.apply(
+        xb, method="bf16")), float("nan"))
+    x3 = xb.view(B_FULL, 1, N_FULL)
+    w3 = cc.bf16_taps(w).to(torch.bfloat16).view(1, 1, -1)
+    x4, w4 = (v.unsqueeze(2).contiguous(memory_format=torch.channels_last)
+              for v in (x3, w3))
+    lib = cudnn_ms(lambda: torch.nn.functional.conv1d(x3, w3),
+                   lambda: torch.nn.functional.conv2d(x4, w4))
+    del x4
+    b_bf = bound(4 * samples, 2 * 25 * samples, "bf16")
+    b_f32 = bound(8 * samples, 2 * 25 * samples, "bf16")
+    b3 = bound(2 * samples + 2 * B_FULL * (N_FULL - 24),
+               2 * 25 * B_FULL * (N_FULL - 24), "bf16")
+    print(f"bf16 1D slice ({B_FULL}, {N_FULL}) n=12 m=4: launches "
+          + ", ".join(f"{k} {nz(v)}" for k, v in launches.items())
+          + "; vs f64 scaled " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in errs.items())
+          + f" (contract {BF16_CONTRACT}); kernels vs plain at the headline "
+          + ", ".join(f"{k} {v:.3e}" for k, v in kerr.items())
+          + f" (one bf16 ulp); f64 gradients vs the exact route "
+          f"{grad_err:.3e} (tol {F64_TOL})")
+    print("library: F.conv1d on bf16 " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in lib.items())
+          + " (channels_last: a (1, 25) F.conv2d); bounds bf16 storage "
+          f"{b_bf['bound_ms']:.4f} ms ({b_bf['bound_by']}), f32 storage "
+          f"{b_f32['bound_ms']:.4f} ms, K3-bf16 {b3['bound_ms']:.4f} ms "
+          f"[{card}]")
+    for name, (k, p) in t.items():
+        print(f"time {name} ({B_FULL}, {N_FULL}): kernel {k:.4f} ms = "
+              f"{samples / k / 1e6:.2f} Gsamples/s; plain {p:.4f} ms "
+              f"[{card}]")
+    rec = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "sg1d_poly_bf16", **rec,
+         "source": "savgol_tpu_torch/csrc/sg1d_poly.cu",
+         "replaces": "savgol_tpu/ops/pallas_conv.py:659",
+         "launches": launches["apply bf16"]["sg1d_poly"],
+         "max_abs_err": kerr["K1-bf16"], "ms": t["K1-bf16"][0],
+         "plain_ms": t["K1-bf16"][1], **b_bf,
+         "f32_storage_ms": t["K1-bf16 f32 storage"][0],
+         "f32_storage_bound_ms": b_f32["bound_ms"],
+         "entry_ms": t["Savgol1D.apply bf16"][0]},
+        {"name": "sg1d_pad_bf16", **rec,
+         "source": "savgol_tpu_torch/csrc/sg1d_poly.cu",
+         "replaces": "savgol_tpu/ops/pallas_conv.py:830",
+         "launches": launches["apply reflect bf16"]["sg1d_pad"],
+         "max_abs_err": kerr["K2-bf16 symmetric"],
+         "ms": t["K2-bf16 symmetric"][0],
+         "plain_ms": t["K2-bf16 symmetric"][1], **b_bf},
+        {"name": "corr1d_valid_bf16", **rec,
+         "source": "savgol_tpu_torch/csrc/corr1d_valid.cu",
+         "replaces": "savgol_tpu/ops/pallas_conv.py:1098",
+         "launches": launches["apply_valid bf16"]["corr1d_valid"],
+         "max_abs_err": kerr["K3-bf16"], "ms": t["K3-bf16"][0],
+         "plain_ms": t["K3-bf16"][1], **b3, "library_ms": lib["best"],
+         "library_default_ms": lib["default"]},
+    ]
+
+
+def bf16_slice_2d(sgt, dev, card) -> list:
+    """The 2D headline in bf16: ``Savgol2D.apply`` on a bf16 and an f32
+    batch and the Hessian stack (K = 3), each one launch in its own zeroed
+    window, against float64 within the contract; K2D-dense-bf16 against its
+    plain version at the headline; f64 gradients; times beside the bound
+    and ``F.conv2d`` on bf16. Returns the records."""
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.ops import cuda_conv2d as c2
+    from savgol_tpu_torch.ops.weights import savgol2d_weights_np
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, cudnn_ms
+
+    cfg2 = sgt.Savgol2DConfig(5, 5, 3)
+    f2 = sgt.Savgol2D.create(cfg2, device=dev)
+    img32 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        IMG_FULL, dtype=np.float32)).to(dev)
+    imgb = img32.to(torch.bfloat16)
+    w64 = torch.from_numpy(savgol2d_weights_np(cfg2, np.float64)).to(dev)
+    sub = [0, IMG_FULL[0] - 1]
+    errs, launches = {}, {}
+    for name, inp in (("apply bf16", imgb), ("apply f32", img32)):
+        y, launches[name] = counted_all(lambda: f2.apply(inp, method="bf16"),
+                                        {"corr2d_valid": 1},
+                                        f"Savgol2D.apply {name}")
+        require(y.dtype == inp.dtype and y.shape == inp.shape
+                and bool(torch.isfinite(y).all()), f"2D {name} output")
+        errs[name] = _contract(y[sub], c2.correlate2d_valid_plain(
+            inp[sub].double(), w64, "edge"), f"Savgol2D.apply {name}")
+        del y
+    hess, launches["hessian bf16"] = counted_all(
+        lambda: sgt.savgol2d_hessian(imgb, 5, 5, 3, method="bf16"),
+        {"corr2d_valid": 1}, "savgol2d_hessian(method='bf16')")
+    want = sgt.savgol2d_hessian(imgb[sub].double(), 5, 5, 3, method="xla")
+    errs["hessian bf16"] = max(_contract(h[sub], r, "savgol2d_hessian bf16")
+                               for h, r in zip(hess, want))
+    del hess, want
+    w2 = f2.weights
+    w3 = torch.from_numpy(np.stack([savgol2d_weights_np(
+        sgt.Savgol2DConfig(5, 5, 3, deriv_x=dx, deriv_y=dy), np.float64)
+        for dx, dy in ((2, 0), (1, 1), (0, 2))])).to(dev, torch.float32)
+    kern = {
+        "K2D-dense-bf16": (
+            lambda: c2.correlate2d_valid_bf16_cuda(imgb, w2, "edge"),
+            lambda: c2.correlate2d_valid_bf16_plain(imgb, w2, "edge")),
+        "K2D-dense-bf16 f32 storage": (
+            lambda: c2.correlate2d_valid_bf16_cuda(img32, w2, "edge"),
+            lambda: c2.correlate2d_valid_bf16_plain(img32, w2, "edge")),
+        "K2D-dense-bf16 K=3": (
+            lambda: c2.correlate2d_valid_bf16_cuda(imgb, w3, "edge"),
+            lambda: c2.correlate2d_valid_bf16_plain(imgb, w3, "edge")),
+    }
+    kerr = {}
+    for k, (a, b) in kern.items():
+        kerr[k] = (f32_check(a(), b(), k) if "f32" in k
+                   else ulp_check(a(), b(), f"{k} vs plain at the headline"))
+
+    # f64 gradients through the bf16 route, image and stencil
+    xg = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 256, 320))).to(dev)
+    fg = sgt.Savgol2D.create(sgt.Savgol2DConfig(5, 5, 3, deriv_x=1,
+                                                delta_x=0.5),
+                             dtype=torch.float64, device=dev)
+    g = torch.randn_like(xg)
+    gs = []
+    for method in ("bf16", "xla"):
+        v = xg.clone().requires_grad_()
+        fg.weights.requires_grad_()
+        before = c2.LAUNCHES["corr2d_valid"]
+        gs.append(torch.autograd.grad(fg.apply(v, boundary="reflect",
+                                               method=method), [v, fg.weights],
+                                      g))
+        require(method == "xla" or c2.LAUNCHES["corr2d_valid"] == before + 1,
+                "2D bf16 gradient run: one K2D-dense launch forward")
+    grad_err = max((a - b).abs().max().item() for a, b in zip(*gs))
+    require(grad_err <= F64_TOL, f"2D bf16 backward vs exact: {grad_err:.3e}")
+
+    pix = img32.numel()
+    t = {k: (cuda_time_ms(a), cuda_time_ms(b, warmup=1, reps=3))
+         for k, (a, b) in kern.items()}
+    t["Savgol2D.apply bf16"] = (cuda_time_ms(lambda: f2.apply(
+        imgb, method="bf16")), float("nan"))
+    img4 = imgb.unsqueeze(1)
+    wb = cc.bf16_taps(w2).to(torch.bfloat16).view(1, 1, 11, 11)
+    wb3 = cc.bf16_taps(w3).to(torch.bfloat16).view(3, 1, 11, 11)
+    cl = torch.channels_last
+    img4c, wbc, wb3c = (v.contiguous(memory_format=cl)
+                        for v in (img4, wb, wb3))
+    conv = torch.nn.functional.conv2d
+    lib = cudnn_ms(lambda: conv(img4, wb, padding=5),
+                   lambda: conv(img4c, wbc, padding=5))
+    lib3 = cudnn_ms(lambda: conv(img4, wb3, padding=5),
+                    lambda: conv(img4c, wb3c, padding=5))
+    del img4c
+    # the FMAs at the bf16 tensor-core peak bound the function; the same
+    # FMAs at the f32 peak of the CUDA cores, which K2D-dense runs on, are
+    # kept beside it as cuda_core_ms
+    fma = 2 * 121 * pix
+    b_bf = bound(4 * pix, fma, "bf16")
+    b_f32 = bound(8 * pix, fma, "bf16")
+    b_k3 = bound(2 * pix + 3 * 2 * pix, 3 * fma, "bf16")
+    core = {"cuda_core_ms": fma / PEAK_FLOPS["f32"] * 1e3}
+    core3 = {"cuda_core_ms": 3 * fma / PEAK_FLOPS["f32"] * 1e3}
+    print(f"bf16 2D slice {IMG_FULL} 11x11 order 3 CONSTANT: launches "
+          + ", ".join(f"{k} {nz(v)}" for k, v in launches.items())
+          + "; vs f64 scaled " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in errs.items())
+          + f" (contract {BF16_CONTRACT}); kernels vs plain "
+          + ", ".join(f"{k} {v:.3e}" for k, v in kerr.items())
+          + f"; f64 gradients vs the exact route {grad_err:.3e}")
+    print("library: F.conv2d on bf16 (zero padding) " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in lib.items()) + "; 3 output channels "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in lib3.items())
+          + f"; bounds bf16 storage {b_bf['bound_ms']:.4f} ms "
+          f"({b_bf['bound_by']}), f32 storage {b_f32['bound_ms']:.4f} ms "
+          f"({b_f32['bound_by']}), K=3 {b_k3['bound_ms']:.4f} ms "
+          f"({b_k3['bound_by']}); the FMAs on CUDA cores "
+          f"{core['cuda_core_ms']:.4f} ms, K=3 {core3['cuda_core_ms']:.4f} "
+          f"ms [{card}]")
+    for name, (k, p) in t.items():
+        print(f"time {name} {IMG_FULL} 11x11: kernel {k:.4f} ms = "
+              f"{pix / k / 1e6:.2f} Gpix/s; plain {p:.4f} ms [{card}]")
+    rec = {"route": "cuda", "source": "savgol_tpu_torch/csrc/corr2d_valid.cu"}
+    return [
+        {"name": "corr2d_valid_bf16", **rec,
+         "replaces": "savgol_tpu/ops/pallas_conv.py:1547",
+         "launches": launches["apply bf16"]["corr2d_valid"],
+         "max_abs_err": kerr["K2D-dense-bf16"], "ms": t["K2D-dense-bf16"][0],
+         "plain_ms": t["K2D-dense-bf16"][1], **b_bf, **core,
+         "library_ms": lib["best"], "library_default_ms": lib["default"],
+         "f32_storage_ms": t["K2D-dense-bf16 f32 storage"][0],
+         "f32_storage_bound_ms": b_f32["bound_ms"],
+         "entry_ms": t["Savgol2D.apply bf16"][0]},
+        {"name": "corr2d_valid_bf16_stack", **rec,
+         "replaces": "savgol_tpu/ops/pallas_conv.py:1716",
+         "launches": launches["hessian bf16"]["corr2d_valid"],
+         "max_abs_err": kerr["K2D-dense-bf16 K=3"],
+         "ms": t["K2D-dense-bf16 K=3"][0],
+         "plain_ms": t["K2D-dense-bf16 K=3"][1], **b_k3, **core3,
+         "library_ms": lib3["best"], "library_default_ms": lib3["default"]},
+    ]
+
+
+def bf16_scipy(dev) -> str:
+    """``scipy_compat.savgol_filter(..., method="bf16")`` on a numpy batch
+    in all five modes, each one launch, within the contract of scipy."""
+    from scipy.signal import savgol_filter as sp_filter
+
+    from savgol_tpu_torch import scipy_compat as tsc
+    rows = np.random.default_rng(6).standard_normal(
+        (16, N_FULL)).astype(np.float32)
+    errs = {}
+    for mode in SCIPY_MODES:
+        got, _ = counted_all(
+            lambda: tsc.savgol_filter(rows, 25, 4, mode=mode, cval=0.5,
+                                      method="bf16", device=dev),
+            SCIPY_LAUNCHES[mode], f"savgol_filter(bf16, {mode})")
+        require(isinstance(got, np.ndarray), "numpy in, numpy out")
+        ref = sp_filter(rows.astype(np.float64), 25, 4, mode=mode, cval=0.5)
+        errs[mode] = _contract(torch.from_numpy(got), torch.from_numpy(ref),
+                               f"savgol_filter bf16 {mode}")
+    return (f"bf16 scipy_compat (16, {N_FULL}) numpy, window 25 order 4: vs "
+            f"scipy scaled " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in errs.items())
+            + f" (contract {BF16_CONTRACT}), one launch each")
+
+
+def rank_sharded_bf16(dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
+                      shape2d=IMG_FULL):
+    """``method="bf16"`` sharded 4 ways with ``halo="rdma"``: the 1D
+    headline (K13, then K3-bf16) and the 2D headline by rows (K13, then
+    K2D-dense-bf16), launches, the contract against float64, the
+    single-device bf16 apply (1D within one bf16 ulp away from the outer n
+    samples, whose edge rows the sharded route fits exactly; 2D f32 sums
+    within 2e-6 scaled), times."""
+    import savgol_tpu_torch as sgt
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.ops import cuda_conv2d as c2
+    from savgol_tpu_torch.ops.weights import (savgol2d_weights_np,
+                                              savgol_weights_np)
+    from savgol_tpu_torch.parallel import apply2d_sharded, apply_sharded, shard
+    from savgol_tpu_torch.parallel.sharded import mesh_axis
+
+    dev = torch.device(dev_type)
+    m = _rank_mesh(("batch", "seq"), (1, RING), dev)
+    _, idx, _ = mesh_axis(m, "seq")
+    x = torch.randn(shape1d, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    xl = shard(x, m, (None, "seq"))
+    L = xl.shape[-1]
+    cols = slice(idx * L, (idx + 1) * L)
+    cfg = sgt.SavgolConfig(12, 4)
+    f = sgt.Savgol1D.create(cfg, device=dev)
+    kw = dict(half_window=12, mesh=m, dt_inv=f.dt_inv, halo="rdma",
+              method="bf16")
+    args = (xl, f.center_weights, f.edge_weights)
+    y, l1 = _rank_counted(dev, lambda: apply_sharded(*args, **kw),
+                          {"halo_ring": 1, "corr1d_valid": 1},
+                          "apply_sharded(method='bf16')")
+    c64, e64 = (torch.from_numpy(a).to(dev)
+                for a in savgol_weights_np(cfg, np.float64))
+    rows = [0, 1, shape1d[0] // 2, shape1d[0] - 1]
+    e1 = _contract(y[rows], cc.savgol_polynomial_plain(
+        x[rows].double(), c64, e64, 12)[:, cols], "sharded bf16 1D")
+    lo = 12 if idx == 0 else 0
+    hi = L - (12 if idx == RING - 1 else 0)
+    single = f.apply(x, method="bf16")[:, cols]
+    u1 = ulp_check(y[:, lo:hi], single[:, lo:hi],
+                   "sharded bf16 1D vs single-device bf16")
+    del single, y
+    img = torch.randn(shape2d, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(5, 5, 3), device=dev)
+    il = shard(img, m, (None, "seq", None))
+    R = il.shape[-2]
+    kw2 = dict(mesh=m, boundary="constant", scale=f2.scale, method="bf16",
+               halo="rdma" if dev.type == "cuda" else "ppermute")
+    y2, l2 = _rank_counted(dev, lambda: apply2d_sharded(il, f2.weights,
+                                                        **kw2),
+                           {"halo_ring": 1, "corr2d_valid": 1},
+                           "apply2d_sharded(method='bf16')")
+    w64 = torch.from_numpy(savgol2d_weights_np(
+        sgt.Savgol2DConfig(5, 5, 3), np.float64)).to(dev)
+    rr = slice(idx * R, (idx + 1) * R)
+    e2 = _contract(y2[:1], c2.correlate2d_valid_plain(
+        img[:1].double(), w64, "edge")[:, rr], "sharded bf16 2D")
+    s2 = f32_check(y2, f2.apply(img, method="bf16")[:, rr],
+                   "sharded bf16 2D vs single-device bf16", F32_TOL_2D)
+    t = {"1D": _time(dev, lambda: apply_sharded(*args, **kw)),
+         "2D rows": _time(dev, lambda: apply2d_sharded(il, f2.weights,
+                                                       **kw2))}
+    return {"rank": idx, "launches": (l1, l2), "errs": (e1, u1, e2, s2),
+            "t": t}
+
+
+def probes_phase(dev, card) -> list:
+    """P3 at the 1D headline (bf16, 25 taps) and P2 at the 2D headline
+    (bf16, 11 x 11, CONSTANT): each variant once in its own zeroed window
+    (one launch), then ``measure`` (each against its plain version, times,
+    bounds). Returns the probes' records."""
+    import savgol_tpu_torch as sgt
+    from savgol_tpu_torch.ops.weights import (savgol2d_weights_np,
+                                              savgol_weights_np)
+    from savgol_tpu_torch.probes import bf16_1d as p3
+    from savgol_tpu_torch.probes import rowband2d as p2
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(B_FULL, N_FULL, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.from_numpy(savgol_weights_np(sgt.SavgolConfig(12, 4), np.float64)[0]
+                         ).to(dev)
+    l3 = {v: counted_all(lambda: p3.probe_cuda(x, w, v),
+                         {"probe_bf16_1d": 1}, f"P3 {v}")[1]["probe_bf16_1d"]
+          for v in p3.VARIANTS}
+    r3 = p3.measure(x, w)
+    del x
+    img = torch.randn(IMG_FULL, generator=g, device=dev).to(torch.bfloat16)
+    w2 = torch.from_numpy(savgol2d_weights_np(sgt.Savgol2DConfig(5, 5, 3),
+                                              np.float64)).to(dev)
+    want2 = {"A_lib": {"corr2d_valid": 1}, "B_alignctl": {"probe_rowband2d": 1},
+             "C_wh1": {"corr2d_valid": 1}}
+    l2 = {v: sum(counted_all(lambda: p2.variant_cuda(v, img, w2, "edge"),
+                             want, f"P2 {v}")[1].values())
+          for v, want in want2.items()}
+    r2 = p2.measure(img, w2, "edge")
+    for r in r3 + r2:
+        print(f"time probe {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), vs plain {r['max_abs_err']:.3e}"
+              + (f", library {r['library_ms']:.4f} ms"
+                 if r["library_ms"] is not None else "") + f" [{card}]")
+    p3_lines = {"copy": 152, "shift_only": 135, "taps_only": 119}
+    out = []
+    for r in r3:
+        if r["name"] not in p3_lines:
+            continue                 # K3-bf16, timed beside the variants
+        out.append({**r, "name": f"probe_bf16_1d {r['name']}",
+                    "route": "cuda",
+                    "source": "savgol_tpu_torch/csrc/probe_bf16_1d.cu",
+                    "replaces": f"benchmarks/probe_bf16_1d.py:"
+                                f"{p3_lines[r['name']]}",
+                    "launches": l3[r["name"]]})
+    for r in r2:
+        src = ("probe_rowband2d.cu" if r["name"] == "B_alignctl"
+               else "corr2d_valid.cu")
+        out.append({**r, "name": f"probe_rowband2d {r['name']}",
+                    "route": "cuda", "source": f"savgol_tpu_torch/csrc/{src}",
+                    "replaces": "benchmarks/probe_rowmxu.py:101",
+                    "launches": l2[r["name"]]})
+    return out
+
 
 
 def main() -> int:
@@ -2520,6 +3128,16 @@ def main() -> int:
     # -- 26-29. the sharded paths on a ring of ranks sharing the card -------
     t_ring = time.perf_counter()
     halo_kernel = sharded_phases(card)
+    # -- 30-35. method="bf16" and the attribution probes --------------------
+    t_bf16 = time.perf_counter()
+    print(bf16_grid_1d(dev))
+    print(bf16_grid_2d(dev))
+    t_bf16_slice = time.perf_counter()
+    bf16_kernels = (bf16_slice_1d(sgt, dev, card)
+                    + bf16_slice_2d(sgt, dev, card))
+    print(bf16_scipy(dev))
+    t_probes = time.perf_counter()
+    probe_kernels = probes_phase(dev, card)
     t_end = time.perf_counter()
     print(f"wall time: build and phases 3-11 {t_masked - t0:.1f} s, masked "
           f"phases 12-17 {t_nonuni - t_masked:.1f} s, irregular-sampling "
@@ -2529,7 +3147,9 @@ def main() -> int:
           f"{t_wide - t_bank:.1f} s (K2 grid {t_k4 - t_bank:.1f}, K4 grid "
           f"{t_bank_slice - t_k4:.1f}, slice {t_wide - t_bank_slice:.1f}), "
           f"window-101 phase 25 {t_ring - t_wide:.1f} s, sharded phases "
-          f"26-29 {t_end - t_ring:.1f} s")
+          f"26-29 {t_bf16 - t_ring:.1f} s, bf16 phases 30-34 "
+          f"{t_probes - t_bf16:.1f} s (grids {t_bf16_slice - t_bf16:.1f}), "
+          f"probes phase 35 {t_end - t_probes:.1f} s")
 
     kernels = [
         {"name": "sg1d_poly", "route": "cuda",
@@ -2557,7 +3177,8 @@ def main() -> int:
          "launches": launches_sep["corr2d_sep"], "max_abs_err": ks_err,
          "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1], **b2s,
          "library_ms": lib_2d},
-    ] + masked_kernels + nonuniform_kernels + bank_kernels + [halo_kernel]
+    ] + (masked_kernels + nonuniform_kernels + bank_kernels + [halo_kernel]
+         + bf16_kernels + probe_kernels)
     for rec in kernels:
         key = {"sg1d_poly": "K1", "sg1d_pad": "K2 symmetric",
                "corr1d_valid": "K3"}.get(rec["name"])

@@ -22,9 +22,12 @@ multi-rank overlap-save path, ``savgol_tpu_torch.parallel`` on
 ``torch.distributed``: ``apply_sharded``, ``apply2d_sharded`` and the
 masked / nonuniform ``*_apply_sharded``, SPMD over a mesh of ranks, their
 halos sent point to point or, with ``halo="rdma"``, stored into the
-neighbours' memory by the ring halo-exchange kernel K13. The kernels are
-built with ``nvcc`` at their first call on a CUDA tensor; CPU tensors take
-their plain PyTorch versions.
+neighbours' memory by the ring halo-exchange kernel K13. ``method="bf16"``,
+the throughput mode, runs K1, K2, K3 and K2D-dense in their bf16 mode
+(bf16 operands, f32 sums) on every 1D and 2D entry point that takes a
+``method``; ``savgol_tpu_torch.probes`` holds the kernels that attribute
+its time. The kernels are built with ``nvcc`` at their first call on a
+CUDA tensor; CPU tensors take their plain PyTorch versions.
 
 Quick start::
 

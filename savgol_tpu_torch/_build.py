@@ -31,7 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "savgol_tpu_torch"
 _SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr1d_bank.cu",
             "corr2d_valid.cu", "corr2d_sep.cu", "plane_solve.cu",
             "masked1d.cu", "masked2d.cu", "nonuniform.cu", "resample.cu",
-            "halo_ring.cu")
+            "halo_ring.cu", "probe_bf16_1d.cu", "probe_rowband2d.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
@@ -50,6 +50,18 @@ _SIGNATURES = {
     "sg1d_pad_f64": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "corr1d_valid_f32": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
     "corr1d_valid_f64": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
+    # method="bf16": the same arguments and a last int, 1 for bf16 storage
+    # (0 for f32) before the stream
+    "sg1d_poly_bf16": [_P, _P, _P, _P, _LL, _LL, _I, _F, _I, _P],
+    "sg1d_pad_bf16": [_P, _P, _P, _LL, _LL, _I, _I, _I, _P],
+    "corr1d_valid_bf16": [_P, _P, _P, _LL, _LL, _I, _I, _P],
+    "corr2d_valid_bf16": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _I,
+                          _P],
+    # P3: x, w, out, B, N, ws, variant, stream; the tile width
+    "probe_bf16_1d": [_P, _P, _P, _LL, _LL, _I, _I, _P],
+    "probe_bf16_1d_tile": [],
+    # P2 B_alignctl: x, w, out, B, R, C, H, W, mode, bf16 storage, stream
+    "probe_rowband2d": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _I, _P],
     # x, w, out, B, N, K, ws, pad, mode, stream
     "corr1d_bank_f32": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
     "corr1d_bank_f64": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],

@@ -33,16 +33,30 @@
 // here rather than shared (row_taps4, stencil_tile.cuh): a shared loop
 // generalised to 4 output rows measured 9-28% slower in this kernel on an
 // H100 (f32, 11 x 11 to 33 x 33, K = 1 and 3).
+//
+// method="bf16" (corr2d_valid_bf16) is the same kernel with sgt::Bf16Sum
+// (stencil_tile.cuh): it replaces K6a/K6b on bf16 operands at single-pass
+// MXU precision (correlate2d_valid_pallas_rowmxu :1580,
+// savgol2d_same_pallas_rowmxu :1622, correlate2d_valid_pallas_rowmxu_stack
+// :1749 with mxu_precision=DEFAULT). Samples are rounded to bf16 as they are
+// staged, the taps are bf16 values held in f32, the sums f32; f32 storage
+// gets the f32 sum unrounded, bf16 storage the sum rounded to bf16. On these
+// CUDA cores the mode does the same FMAs as f32: at 11 x 11 it stays bound
+// by them (0.242 ms at the 2D headline, derived), so it cannot beat the
+// exact kernel here; the TPU's gain came from its matrix unit. A tensor-core
+// (mma / wgmma bf16) form is later work.
 #include "stencil2d.cuh"
 
 namespace {
 
 using namespace sgt2d;
 
-template <typename T>
+// IO: sgt::AsStored (In = T: f32 or f64) or sgt::Bf16Sum (In f32 or bf16,
+// T = float: method="bf16").
+template <typename IO, typename In, typename T>
 __global__ void __launch_bounds__(kThreads)
-corr2d_valid_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ out, int R, int C, int Ro, int Co, int K,
+corr2d_valid_kernel(const In* __restrict__ x, const T* __restrict__ w,
+                    In* __restrict__ out, int R, int C, int Ro, int Co, int K,
                     int H, int W, int mode, int tiles_r, int tiles_c) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int SR = stage_rows(H), SW = stage_cols(W), WP = pad4(W);
@@ -51,7 +65,8 @@ corr2d_valid_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const Tile t = tile_of(tiles_r, tiles_c);
   const int oy = mode == kValid ? 0 : (H - 1) / 2;
   const int ox = mode == kValid ? 0 : (W - 1) / 2;
-  stage_tile(x + t.b * R * C, R, C, t.r0 - oy, t.c0 - ox, SR, SW, mode, xs);
+  stage_tile<IO>(x + t.b * R * C, R, C, t.r0 - oy, t.c0 - ox, SR, SW, mode,
+                 xs);
 
   const int cb = (threadIdx.x % kColThreads) * 4;
   const int rb = (threadIdx.x / kColThreads) * kQR;
@@ -110,13 +125,13 @@ corr2d_valid_kernel(const T* __restrict__ x, const T* __restrict__ w,
         }
       }
     }
-    T* plane = out + (t.b * K + k) * static_cast<long long>(Ro) * Co;
-    store_tile(plane, Ro, Co, t.r0 + rb, t.c0 + cb, acc);
+    In* plane = out + (t.b * K + k) * static_cast<long long>(Ro) * Co;
+    store_tile<IO>(plane, Ro, Co, t.r0 + rb, t.c0 + cb, acc);
   }
 }
 
-template <typename T>
-int launch(const T* x, const T* w, T* out, long long B, long long R,
+template <typename IO, typename In, typename T>
+int launch(const In* x, const T* w, In* out, long long B, long long R,
            long long C, long long K, long long H, long long W, int mode,
            void* stream) {
   int Ro, Co, tiles_r, tiles_c;
@@ -128,10 +143,10 @@ int launch(const T* x, const T* w, T* out, long long B, long long R,
   const int h = static_cast<int>(H), wd = static_cast<int>(W);
   const size_t smem =
       sizeof(T) * (stage_rows(h) * stage_cols(wd) + h * pad4(wd));
-  err = allow_smem(corr2d_valid_kernel<T>, smem);
+  err = allow_smem(corr2d_valid_kernel<IO, In, T>, smem);
   if (err != cudaSuccess) return err;
-  corr2d_valid_kernel<T><<<grid, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  corr2d_valid_kernel<IO, In, T><<<grid, kThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
       x, w, out, static_cast<int>(R), static_cast<int>(C), Ro, Co,
       static_cast<int>(K), h, wd, mode, tiles_r, tiles_c);
   return cudaGetLastError();
@@ -143,12 +158,27 @@ extern "C" int corr2d_valid_f32(const float* x, const float* w, float* out,
                                 long long B, long long R, long long C,
                                 long long K, long long H, long long W,
                                 int mode, void* stream) {
-  return launch<float>(x, w, out, B, R, C, K, H, W, mode, stream);
+  return launch<sgt::AsStored>(x, w, out, B, R, C, K, H, W, mode, stream);
 }
 
 extern "C" int corr2d_valid_f64(const double* x, const double* w,
                                 double* out, long long B, long long R,
                                 long long C, long long K, long long H,
                                 long long W, int mode, void* stream) {
-  return launch<double>(x, w, out, B, R, C, K, H, W, mode, stream);
+  return launch<sgt::AsStored>(x, w, out, B, R, C, K, H, W, mode, stream);
+}
+
+// method="bf16": x and out in f32 (bf16_storage = 0) or bf16 (1) storage,
+// w (K, H, W) bf16 values held in f32.
+extern "C" int corr2d_valid_bf16(const void* x, const float* w, void* out,
+                                 long long B, long long R, long long C,
+                                 long long K, long long H, long long W,
+                                 int mode, int bf16_storage, void* stream) {
+  if (bf16_storage)
+    return launch<sgt::Bf16Sum>(static_cast<const __nv_bfloat16*>(x), w,
+                                static_cast<__nv_bfloat16*>(out), B, R, C, K,
+                                H, W, mode, stream);
+  return launch<sgt::Bf16Sum>(static_cast<const float*>(x), w,
+                              static_cast<float*>(out), B, R, C, K, H, W,
+                              mode, stream);
 }

@@ -33,35 +33,49 @@
 // memory: the trailing window can start up to 2n samples before its output's
 // tile and the leading window sits at x[0, ws) whatever the tile, so neither
 // is reliably inside the staged span.
+//
+// method="bf16" (sg1d_poly_bf16, sg1d_pad_bf16) is the same kernel with
+// sgt::Bf16 (stencil_tile.cuh): it replaces the TPU kernels above on bf16
+// operands at single-pass MXU precision (savgol_polynomial_pallas_mxu :689
+// and savgol_padded_pallas_mxu :872 with mxu_precision=DEFAULT). Each sample
+// is rounded to bf16 as it is staged, the taps are bf16(bf16(w) * bf16(dt))
+// (rounded on the host), the sums are f32 and each output is rounded to
+// bf16. A bf16 product is exact in f32, so the kernel and its plain version
+// differ only in the order of the f32 sums of the edge rows. With the casts
+// fused, an f32 caller moves 8 B a sample and a bf16 caller 4 B: at the 1D
+// headline the bytes bound a bf16 caller at 0.160 ms, over the 0.100 ms of
+// its FMAs at the f32 peak (derived). Samples are staged with 2-byte loads.
 #include "stencil_tile.cuh"
 
 namespace {
 
 // mode: sgt::kZero for K1 (edge outputs fitted from ew), a pad mode for K2
 // (ew unused). MaxWs: the widest window of the instance (stencil_tile.cuh).
-template <typename T, int MaxWs>
+// IO: sgt::AsStored (In = T: f32 or f64) or sgt::Bf16 (In f32 or bf16
+// storage, T = float: method="bf16").
+template <typename IO, typename In, typename T, int MaxWs>
 __global__ void __launch_bounds__(sgt::kThreads, sgt::kMinBlocks)
-sg1d_poly_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const T* __restrict__ ew, T* __restrict__ out, long long N,
+sg1d_poly_kernel(const In* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ ew, In* __restrict__ out, long long N,
                  long long tiles, int n, T lead_sign, int mode) {
   __shared__ sgt::TileSmem<T, MaxWs> s;
   const long long b = blockIdx.x / tiles;
   const long long t0 = (blockIdx.x % tiles) * sgt::kTile;
   const int ws = 2 * n + 1;
-  const T* __restrict__ xrow = x + b * N;   // 64-bit: B * N passes 2^31
-  T* __restrict__ orow = out + b * N;
+  const In* __restrict__ xrow = x + b * N;   // 64-bit: B * N passes 2^31
+  In* __restrict__ orow = out + b * N;
 
-  sgt::tile_correlate<T, MaxWs>(xrow, N, t0 - n, w, ws, s, mode);
+  sgt::tile_correlate<IO>(xrow, N, t0 - n, w, ws, s, mode);
 
   if (t0 >= n && t0 + sgt::kTile <= N - n) {   // interior tile: no edges
     for (int i = threadIdx.x; i < sgt::kTile; i += sgt::kThreads)
-      orow[t0 + i] = s.xs[i];
+      IO::put(&orow[t0 + i], s.xs[i]);
     return;
   }
   if (mode != sgt::kZero) {   // K2's edge tiles: their pad is staged
     for (int i = threadIdx.x; i < sgt::kTile && t0 + i < N;
          i += sgt::kThreads)
-      orow[t0 + i] = s.xs[i];
+      IO::put(&orow[t0 + i], s.xs[i]);
     return;
   }
   for (int i = threadIdx.x; i < sgt::kTile; i += sgt::kThreads) {
@@ -71,21 +85,23 @@ sg1d_poly_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (j < n) {
       const T* __restrict__ e = ew + j * ws;
       T a = T(0);
-      for (int k = 0; k < ws; ++k) a = sgt::madd(e[k], xrow[ws - 1 - k], a);
+      for (int k = 0; k < ws; ++k)
+        a = sgt::madd(e[k], T(IO::load(xrow[ws - 1 - k])), a);
       v = lead_sign * a;
     } else if (j >= N - n) {
       const T* __restrict__ e = ew + (N - 1 - j) * ws;
-      const T* __restrict__ xt = xrow + (N - ws);
+      const In* __restrict__ xt = xrow + (N - ws);
       T a = T(0);
-      for (int k = 0; k < ws; ++k) a = sgt::madd(e[k], xt[k], a);
+      for (int k = 0; k < ws; ++k)
+        a = sgt::madd(e[k], T(IO::load(xt[k])), a);
       v = a;
     }
-    orow[j] = v;
+    IO::put(&orow[j], v);
   }
 }
 
-template <typename T>
-int launch(const T* x, const T* w, const T* ew, T* out, long long B,
+template <typename IO, typename In, typename T>
+int launch(const In* x, const T* w, const T* ew, In* out, long long B,
            long long N, int n, T lead_sign, int mode, void* stream) {
   const int ws = 2 * n + 1;
   if (n < 1 || ws > sgt::kMaxWs || N < ws || mode < sgt::kZero ||
@@ -96,11 +112,25 @@ int launch(const T* x, const T* w, const T* ew, T* out, long long B,
   const cudaError_t err = sgt::grid_for(B, N, &grid, &tiles);
   if (err != cudaSuccess) return err;
   const auto kernel = ws <= sgt::kNarrowWs
-                          ? sg1d_poly_kernel<T, sgt::kNarrowWs>
-                          : sg1d_poly_kernel<T, sgt::kMaxWs>;
+                          ? sg1d_poly_kernel<IO, In, T, sgt::kNarrowWs>
+                          : sg1d_poly_kernel<IO, In, T, sgt::kMaxWs>;
   kernel<<<grid, sgt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, w, ew, out, N, tiles, n, lead_sign, mode);
   return cudaGetLastError();
+}
+
+// method="bf16": storage f32 (bf16_storage = 0) or bf16 (1); taps are bf16
+// values held in f32.
+int launch_bf16(const void* x, const float* w, const float* ew, void* out,
+                long long B, long long N, int n, float lead_sign, int mode,
+                int bf16_storage, void* stream) {
+  if (bf16_storage)
+    return launch<sgt::Bf16>(static_cast<const __nv_bfloat16*>(x), w, ew,
+                             static_cast<__nv_bfloat16*>(out), B, N, n,
+                             lead_sign, mode, stream);
+  return launch<sgt::Bf16>(static_cast<const float*>(x), w, ew,
+                           static_cast<float*>(out), B, N, n, lead_sign,
+                           mode, stream);
 }
 
 }  // namespace
@@ -108,15 +138,16 @@ int launch(const T* x, const T* w, const T* ew, T* out, long long B,
 extern "C" int sg1d_poly_f32(const float* x, const float* w, const float* ew,
                              float* out, long long B, long long N, int n,
                              float lead_sign, void* stream) {
-  return launch<float>(x, w, ew, out, B, N, n, lead_sign, sgt::kZero, stream);
+  return launch<sgt::AsStored>(x, w, ew, out, B, N, n, lead_sign, sgt::kZero,
+                               stream);
 }
 
 extern "C" int sg1d_poly_f64(const double* x, const double* w,
                              const double* ew, double* out, long long B,
                              long long N, int n, double lead_sign,
                              void* stream) {
-  return launch<double>(x, w, ew, out, B, N, n, lead_sign, sgt::kZero,
-                        stream);
+  return launch<sgt::AsStored>(x, w, ew, out, B, N, n, lead_sign,
+                               sgt::kZero, stream);
 }
 
 // K2: mode is sgt::kEdge, kSymmetric or kWrap.
@@ -124,12 +155,34 @@ extern "C" int sg1d_pad_f32(const float* x, const float* w, float* out,
                             long long B, long long N, int n, int mode,
                             void* stream) {
   if (mode == sgt::kZero) return cudaErrorInvalidValue;
-  return launch<float>(x, w, nullptr, out, B, N, n, 1.0f, mode, stream);
+  return launch<sgt::AsStored>(x, w, static_cast<const float*>(nullptr),
+                               out, B, N, n, 1.0f, mode, stream);
 }
 
 extern "C" int sg1d_pad_f64(const double* x, const double* w, double* out,
                             long long B, long long N, int n, int mode,
                             void* stream) {
   if (mode == sgt::kZero) return cudaErrorInvalidValue;
-  return launch<double>(x, w, nullptr, out, B, N, n, 1.0, mode, stream);
+  return launch<sgt::AsStored>(x, w, static_cast<const double*>(nullptr),
+                               out, B, N, n, 1.0, mode, stream);
+}
+
+// method="bf16" of K1 and K2 (the JAX package's _sg1d_poly_mxu_call and
+// _sg1d_pad_mxu_call on bf16 operands at single-pass precision): x in f32
+// (bf16_storage = 0) or bf16 (1) storage, out in the same; w and ew bf16
+// values held in f32, dt_inv folded in by the caller.
+extern "C" int sg1d_poly_bf16(const void* x, const float* w, const float* ew,
+                              void* out, long long B, long long N, int n,
+                              float lead_sign, int bf16_storage,
+                              void* stream) {
+  return launch_bf16(x, w, ew, out, B, N, n, lead_sign, sgt::kZero,
+                     bf16_storage, stream);
+}
+
+extern "C" int sg1d_pad_bf16(const void* x, const float* w, void* out,
+                             long long B, long long N, int n, int mode,
+                             int bf16_storage, void* stream) {
+  if (mode == sgt::kZero) return cudaErrorInvalidValue;
+  return launch_bf16(x, w, nullptr, out, B, N, n, 1.0f, mode, bf16_storage,
+                     stream);
 }

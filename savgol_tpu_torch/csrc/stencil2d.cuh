@@ -60,10 +60,11 @@ __device__ __forceinline__ Tile tile_of(int tiles_r, int tiles_c) {
 }
 
 // Stages rows [row0, row0 + SR) x columns [col0, col0 + SW) of the padded
-// image into xs (row stride SW): each warp copies whole rows, its lanes
-// neighbouring columns.
-template <typename T>
-__device__ void stage_tile(const T* __restrict__ img, int R, int C, int row0,
+// image into xs (row stride SW), each sample read through IO::load
+// (stencil_tile.cuh): each warp copies whole rows, its lanes neighbouring
+// columns.
+template <typename IO = sgt::AsStored, typename In, typename T>
+__device__ void stage_tile(const In* __restrict__ img, int R, int C, int row0,
                            int col0, int SR, int SW, int mode,
                            T* __restrict__ xs) {
   const int lane = threadIdx.x & 31;
@@ -74,27 +75,28 @@ __device__ void stage_tile(const T* __restrict__ img, int R, int C, int row0,
       for (int j = lane; j < SW; j += 32) dst[j] = T(0);
       continue;
     }
-    const T* __restrict__ src = img + static_cast<long long>(gr) * C;
+    const In* __restrict__ src = img + static_cast<long long>(gr) * C;
     for (int j = lane; j < SW; j += 32) {
       const int gc = map_index(col0 + j, C, mode);
-      dst[j] = gc >= 0 ? src[gc] : T(0);
+      dst[j] = gc >= 0 ? T(IO::load(src[gc])) : T(0);
     }
   }
 }
 
-// Stores a thread's kQR x 4 outputs at (r, c) of an (Ro, Co) plane, masking
-// the ragged edge. Scalar stores: Co need not keep rows 16-byte aligned.
-template <typename T>
-__device__ __forceinline__ void store_tile(T* __restrict__ plane, int Ro,
+// Stores a thread's kQR x 4 outputs at (r, c) of an (Ro, Co) plane through
+// IO::put, masking the ragged edge. Scalar stores: Co need not keep rows
+// 16-byte aligned.
+template <typename IO = sgt::AsStored, typename In, typename T>
+__device__ __forceinline__ void store_tile(In* __restrict__ plane, int Ro,
                                            int Co, int r, int c,
                                            const T acc[kQR][4]) {
 #pragma unroll
   for (int q = 0; q < kQR; ++q) {
     if (r + q >= Ro) break;
-    T* __restrict__ orow = plane + static_cast<long long>(r + q) * Co;
+    In* __restrict__ orow = plane + static_cast<long long>(r + q) * Co;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      if (c + j < Co) orow[c + j] = acc[q][j];
+      if (c + j < Co) IO::put(&orow[c + j], acc[q][j]);
   }
 }
 

@@ -17,11 +17,51 @@
 //
 // Each thread owns Q = 4 consecutive outputs and runs row_taps4 over the
 // staged span.
+//
+// The staging loops and the kernels' stores take a policy: AsStored (the
+// exact kernels: samples, taps and sums in the storage type) or a bf16 mode
+// (the JAX package's method="bf16": bf16 operands, f32 sums). A bf16 mode
+// rounds each sample to bf16 in registers as it is staged and stages it as
+// f32, so the tap loops are the exact f32 ones; its taps are bf16 values
+// held in f32, so every product is exact in f32. It reads and writes the
+// caller's storage, f32 or bf16, so no cast pass runs before or after.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace sgt {
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The exact kernels: a sample staged and a sum written as they are.
+struct AsStored {
+  template <typename T> __device__ static T load(T v) { return v; }
+  template <typename T> __device__ static void put(T* p, T v) { *p = v; }
+};
+
+// bf16 mode of the 1D kernels: samples rounded to bf16 and staged as f32;
+// each output rounded to bf16, then written in the caller's storage (the
+// JAX kernels emit bf16, which the caller casts back).
+struct Bf16 {
+  __device__ static float load(float v) { return bf16_round(v); }
+  __device__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static void put(float* p, float v) { *p = bf16_round(v); }
+  __device__ static void put(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+};
+
+// bf16 mode of K2D-dense: operands as Bf16; the f32 sum written unrounded
+// into f32 storage and rounded into bf16 storage (the JAX kernel emits its
+// f32 accumulator for f32 input).
+struct Bf16Sum : Bf16 {
+  using Bf16::load;
+  using Bf16::put;
+  __device__ static void put(float* p, float v) { *p = v; }
+};
 
 // The pad mode codes of savgol_tpu_torch/ops/cuda_conv.py (MODE_CODE).
 enum PadMode : int { kZero = 0, kEdge = 1, kSymmetric = 2, kWrap = 3 };
@@ -151,9 +191,10 @@ template <typename T, int MaxWs> struct TileSmem {
 };
 
 // Stages xv[in0, in0 + stage) of a row of N >= 1 samples into xs, the
-// samples past [0, N) mapped by `mode` (no barrier).
-template <typename T>
-__device__ __forceinline__ void stage_row(const T* __restrict__ xrow,
+// samples past [0, N) mapped by `mode`, each read through IO::load (no
+// barrier). In is the storage type, T the staged one.
+template <typename IO = AsStored, typename In, typename T>
+__device__ __forceinline__ void stage_row(const In* __restrict__ xrow,
                                           long long N, long long in0, int ws,
                                           int mode, T* __restrict__ xs) {
   const int stage = kTile + (ws & ~(kQ - 1)) + kQ;
@@ -161,22 +202,22 @@ __device__ __forceinline__ void stage_row(const T* __restrict__ xrow,
     const long long g = in0 + i;
     T v = T(0);
     if (g >= 0 && g < N)
-      v = xrow[g];
+      v = IO::load(xrow[g]);
     else if (mode != kZero)   // a pad mode maps every index into [0, N)
-      v = xrow[map_index(g, N, mode)];
+      v = IO::load(xrow[map_index(g, N, mode)]);
     xs[i] = v;
   }
 }
 
 // Stages xv[in0, in0 + stage) (see stage_row) and w, computes the tile, and
 // leaves acc[i] in s.xs[i] for 0 <= i < kTile. Ends synchronised.
-template <typename T, int MaxWs>
-__device__ void tile_correlate(const T* __restrict__ xrow, long long N,
+template <typename IO, typename In, typename T, int MaxWs>
+__device__ void tile_correlate(const In* __restrict__ xrow, long long N,
                                long long in0, const T* __restrict__ w,
                                int ws, TileSmem<T, MaxWs>& s,
                                int mode = kZero) {
   const int tid = threadIdx.x;
-  stage_row(xrow, N, in0, ws, mode, s.xs);
+  stage_row<IO>(xrow, N, in0, ws, mode, s.xs);
   for (int k = tid; k < ws_pad(MaxWs); k += kThreads)
     s.w[k] = k < ws ? w[k] : T(0);
   __syncthreads();

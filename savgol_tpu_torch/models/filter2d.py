@@ -36,6 +36,7 @@ class Savgol2D(nn.Module):
         self.config = config
         self.register_buffer("weights", weights)
         self.register_buffer("scale", scale)
+        self._scale_seen = None    # (buffer, its version, whether it is 1)
 
     @classmethod
     def create(cls, config: Savgol2DConfig, dtype=torch.float32, *,
@@ -65,20 +66,35 @@ class Savgol2D(nn.Module):
     def extra_repr(self) -> str:
         return repr(self.config)
 
+    def _scale(self):
+        """The ``scale`` to apply: the Python 1.0 where the buffer holds
+        exactly 1 and needs no gradient, so no route pays a pass over its
+        output to multiply by 1 (the JAX package's ``_apply_scale`` skips a
+        concrete 1.0 likewise), else the buffer. The buffer is read on the
+        host once after each change to it (``.to()``, ``load_state_dict``,
+        an in-place write), not once a call."""
+        s = self.scale
+        if s.requires_grad or s.is_inference() or s.is_meta:
+            return s
+        seen = self._scale_seen
+        if seen is None or seen[0] is not s or seen[1] != s._version:
+            seen = self._scale_seen = (s, s._version, bool((s == 1).all()))
+        return 1.0 if seen[2] else s
+
     def apply(self, x: torch.Tensor, *,
               boundary: Boundary2D = Boundary2D.CONSTANT,
               method: str = "auto") -> torch.Tensor:
         """Filter the last two axes of ``x`` (ref: savgol2d_apply,
         src/savgol2d.c:398-456)."""
         return savgol2d_apply(x, self.weights, boundary=boundary,
-                              scale=self.scale, method=method)
+                              scale=self._scale(), method=method)
 
     def apply_valid(self, x: torch.Tensor, *,
                     method: str = "auto") -> torch.Tensor:
         """VALID-mode 2D filter (ref: savgol2d_apply_valid,
         src/savgol2d.c:356-396)."""
         return savgol2d_apply(x, self.weights, boundary=Boundary2D.VALID,
-                              scale=self.scale, method=method)
+                              scale=self._scale(), method=method)
 
     def forward(self, x: torch.Tensor, **kw) -> torch.Tensor:
         return self.apply(x, **kw)

@@ -19,12 +19,26 @@ src/savgolFilter.c:743-804):
 ``method`` keeps the JAX package's values. "auto": the CUDA kernels for a
 CUDA tensor, their plain PyTorch versions for a CPU tensor. "xla": the
 plain versions. "pallas" / "mxu": the kernels, which need a CUDA tensor.
-"bf16" is not ported yet. Dispatch is by the tensor's device only: a CUDA
-tensor reaches a kernel or an error, never the plain version by fallback.
+"bf16": the throughput mode, the same kernels in their bf16 mode (their
+bf16 plain versions for a CPU tensor, which the JAX package runs too, in
+interpret mode): samples and taps rounded to bf16 (the taps after
+``dt_inv`` is folded in, as ``bf16(bf16(w) * bf16(dt_inv))``), products
+exact and summed in f32, each output rounded to bf16 and returned in the
+caller's dtype, within the documented ~5e-3 relative contract. A bf16
+caller's samples go to the kernels as they are (2 B a sample each way)
+and come back bf16; f16 computes from f32, as on the exact path. Every
+length N >= 2n + 1 runs in bf16, where the JAX package falls back to its
+exact path at lengths no TPU block width admits (a tiling artefact; e.g.
+N = 12289). The padded boundaries take the TPU's fused route (``dt_inv``
+in the taps); ``apply_valid`` multiplies by ``dt_inv`` after, in the
+compute dtype, as the JAX package does. Dispatch is by the tensor's device
+only: a CUDA tensor reaches a kernel or an error, never the plain version
+by fallback.
 
 Gradients: the kernels run forward inside ``torch.autograd.Function``s
-whose backward is autograd through the plain version, as the JAX package's
-custom VJPs take the VJP of their XLA twins.
+whose backward is autograd through the exact plain version, as the JAX
+package's custom VJPs take the VJP of their XLA twins (for "bf16" too: the
+exact f32 twin, a bf16 caller's samples promoted to f32 for it).
 """
 
 from __future__ import annotations
@@ -36,10 +50,13 @@ import torch
 from savgol_tpu_torch.config import PAD_MODE, BoundaryMode
 from savgol_tpu_torch.ops.cuda_bank import (bank_correlate_plain,
                                             correlate_valid_bank_cuda)
-from savgol_tpu_torch.ops.cuda_conv import (correlate_valid_cuda,
+from savgol_tpu_torch.ops.cuda_conv import (correlate_valid_bf16_cuda,
+                                            correlate_valid_cuda,
                                             correlate_valid_plain,
+                                            savgol_padded_bf16_cuda,
                                             savgol_padded_cuda,
                                             savgol_padded_plain,
+                                            savgol_polynomial_bf16_cuda,
                                             savgol_polynomial_cuda,
                                             savgol_polynomial_plain,
                                             scalar_like)
@@ -56,16 +73,12 @@ _METHODS = ("auto", "xla", "pallas", "mxu", "bf16")
 
 def _use_kernel(method: str, x: torch.Tensor) -> bool:
     """Whether ``method`` routes through the kernel wrappers (which pick
-    the plain version for a CPU tensor themselves) or straight to the
-    plain version."""
+    the plain version for a CPU tensor themselves; "bf16" always does) or
+    straight to the plain version."""
     if method not in _METHODS:
         raise ValueError(
             f"method must be 'auto', 'xla', 'pallas', 'mxu' or 'bf16', "
             f"got {method!r}")
-    if method == "bf16":
-        raise NotImplementedError(
-            "method='bf16' is not ported yet: see ROADMAP.md, Queue 1, "
-            "'`method=\"bf16\"` in 1D and 2D'")
     if method in ("pallas", "mxu") and x.device.type != "cuda":
         raise ValueError(
             f"method={method!r} runs the CUDA kernel and needs a CUDA "
@@ -89,12 +102,33 @@ def _ensure_float(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _compute_dtype(x: torch.Tensor):
+def _compute_dtype(x: torch.Tensor, bf16: bool = False):
     """Half-precision inputs compute in f32 (quantizing the weights to
-    bf16/f16 would cost ~1e-2 accuracy); returns (x_f32, restore_dtype)."""
+    bf16/f16 would cost ~1e-2 accuracy); returns (x_f32, restore_dtype).
+    With ``bf16`` (method="bf16") a bf16 input stays as it is: the kernels
+    read and write bf16 storage and round to bf16 all the same."""
+    if bf16 and x.dtype == torch.bfloat16:
+        return x, None
     if x.dtype in (torch.bfloat16, torch.float16):
         return x.to(torch.float32), x.dtype
     return x, None
+
+
+def _scale_of(v, x: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-dim tensor of ``x``'s compute dtype (float32 for bf16
+    storage) on its device."""
+    if x.dtype == torch.bfloat16:
+        return scalar_like(v, x.new_empty((), dtype=torch.float32))
+    return scalar_like(v, x)
+
+
+def _exact_twin(plain, x: torch.Tensor, *args):
+    """``plain(x, *args)`` in ``x``'s compute dtype, returned in ``x``'s
+    dtype: the exact function whose autograd gives a route's gradients (a
+    bf16 input is promoted to f32 for it, as the JAX package's is)."""
+    if x.dtype == torch.bfloat16:
+        return plain(x.float(), *args).to(x.dtype)
+    return plain(x, *args)
 
 
 def _complex_split(fn, x: torch.Tensor) -> torch.Tensor:
@@ -131,60 +165,70 @@ def _grads_through(plain, saved, needs, g):
 
 
 class _SavgolPolyFn(torch.autograd.Function):
-    """Fused POLYNOMIAL apply (kernel K1 on CUDA) whose backward is
-    autograd through ``savgol_polynomial_plain`` — the counterpart of
+    """Fused POLYNOMIAL apply (kernel K1 on CUDA, in its bf16 mode for
+    ``bf16``) whose backward is autograd through the exact
+    ``savgol_polynomial_plain`` — the counterpart of
     ``savgol_tpu.ops.apply._pallas_poly_diff``."""
 
     @staticmethod
-    def forward(ctx, x, cw, ew, dt_inv, n: int, lead_sign: float):
+    def forward(ctx, x, cw, ew, dt_inv, n: int, lead_sign: float,
+                bf16: bool):
         ctx.save_for_backward(x, cw, ew, dt_inv)
         ctx.n, ctx.lead_sign = n, lead_sign
-        return savgol_polynomial_cuda(x, cw, ew, n, dt_inv, lead_sign)
+        fn = savgol_polynomial_bf16_cuda if bf16 else savgol_polynomial_cuda
+        return fn(x, cw, ew, n, dt_inv, lead_sign)
 
     @staticmethod
     def backward(ctx, g):
         def plain(x, cw, ew, dt):
-            return savgol_polynomial_plain(x, cw, ew, ctx.n, dt,
-                                           ctx.lead_sign)
+            return _exact_twin(savgol_polynomial_plain, x, cw, ew, ctx.n, dt,
+                               ctx.lead_sign)
         grads = _grads_through(plain, ctx.saved_tensors,
                                ctx.needs_input_grad[:4], g)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 class _CorrValidFn(torch.autograd.Function):
-    """VALID correlation (kernel K3 on CUDA) whose backward is autograd
-    through ``correlate_valid_plain`` — the counterpart of
-    ``savgol_tpu.ops.apply._pallas_corr_diff``."""
+    """VALID correlation (kernel K3 on CUDA, in its bf16 mode for ``bf16``)
+    whose backward is autograd through the exact ``correlate_valid_plain``
+    — the counterpart of ``savgol_tpu.ops.apply._pallas_corr_diff``."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, bf16: bool):
         ctx.save_for_backward(x, w)
-        return correlate_valid_cuda(x, w)
+        return (correlate_valid_bf16_cuda if bf16 else
+                correlate_valid_cuda)(x, w)
 
     @staticmethod
     def backward(ctx, g):
-        return tuple(_grads_through(correlate_valid_plain, ctx.saved_tensors,
-                                    ctx.needs_input_grad[:2], g))
+        def plain(x, w):
+            return _exact_twin(correlate_valid_plain, x, w)
+        grads = _grads_through(plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:2], g)
+        return (*grads, None)
 
 
 class _SavgolPadFn(torch.autograd.Function):
-    """Fused REFLECT / PERIODIC / CONSTANT apply (kernel K2 on CUDA) whose
-    backward is autograd through ``savgol_padded_plain`` — the counterpart
-    of ``savgol_tpu.ops.apply._pallas_pad_diff``."""
+    """Fused REFLECT / PERIODIC / CONSTANT apply (kernel K2 on CUDA, in its
+    bf16 mode for ``bf16``) whose backward is autograd through the exact
+    ``savgol_padded_plain`` — the counterpart of
+    ``savgol_tpu.ops.apply._pallas_pad_diff``."""
 
     @staticmethod
-    def forward(ctx, x, cw, dt_inv, n: int, pad_mode: str):
+    def forward(ctx, x, cw, dt_inv, n: int, pad_mode: str, bf16: bool):
         ctx.save_for_backward(x, cw, dt_inv)
         ctx.n, ctx.pad_mode = n, pad_mode
-        return savgol_padded_cuda(x, cw, pad_mode, n, dt_inv)
+        fn = savgol_padded_bf16_cuda if bf16 else savgol_padded_cuda
+        return fn(x, cw, pad_mode, n, dt_inv)
 
     @staticmethod
     def backward(ctx, g):
         def plain(x, cw, dt):
-            return savgol_padded_plain(x, cw, ctx.pad_mode, ctx.n, dt)
+            return _exact_twin(savgol_padded_plain, x, cw, ctx.pad_mode,
+                               ctx.n, dt)
         grads = _grads_through(plain, ctx.saved_tensors,
                                ctx.needs_input_grad[:3], g)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 class _BankFn(torch.autograd.Function):
@@ -206,9 +250,13 @@ class _BankFn(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _correlate(x: torch.Tensor, w: torch.Tensor, kernel: bool):
+def _correlate(x: torch.Tensor, w: torch.Tensor, kernel: bool,
+               bf16: bool = False):
+    """VALID correlation: kernel K3 (in its bf16 mode for ``bf16``) through
+    :class:`_CorrValidFn`, or the exact plain version (``kernel`` False,
+    which "bf16" never is)."""
     if kernel:
-        return _CorrValidFn.apply(x.contiguous(), w)
+        return _CorrValidFn.apply(x.contiguous(), w, bf16)
     return correlate_valid_plain(x, w)
 
 
@@ -256,9 +304,10 @@ def savgol_apply_core(
                 v, center_w, edge_w, half_window, boundary, dt_inv,
                 derivative=derivative,
                 reference_edge_sign=reference_edge_sign, method=method), x)
+    bf16 = method == "bf16"
     x = _ensure_float(x, center_w)
-    x, restore = _compute_dtype(x)
-    dt = scalar_like(dt_inv, x)
+    x, restore = _compute_dtype(x, bf16)
+    dt = _scale_of(dt_inv, x)
 
     if boundary is BoundaryMode.POLYNOMIAL:
         lead_sign = 1.0
@@ -266,13 +315,13 @@ def savgol_apply_core(
             lead_sign = -1.0
         if kernel:
             y = _SavgolPolyFn.apply(x.contiguous(), center_w, edge_w, dt, n,
-                                    lead_sign)
+                                    lead_sign, bf16)
         else:
             y = savgol_polynomial_plain(x, center_w, edge_w, n, dt,
                                         lead_sign)
     elif kernel:
         y = _SavgolPadFn.apply(x.contiguous(), center_w, dt, n,
-                               PAD_MODE[boundary])
+                               PAD_MODE[boundary], bf16)
     else:
         y = savgol_padded_plain(x, center_w, PAD_MODE[boundary], n, dt)
     return y.to(restore) if restore is not None else y
@@ -326,10 +375,10 @@ def savgol_apply_valid(
                 v, center_w, half_window=half_window, dt_inv=dt_inv,
                 method=method), xl)
         return _restore_axis(y, moved)
+    bf16 = method == "bf16"
     xl = _ensure_float(xl, center_w)
-    xl, restore = _compute_dtype(xl)
-    dt = scalar_like(dt_inv, xl)
-    y = _correlate(xl, center_w, kernel) * dt
+    xl, restore = _compute_dtype(xl, bf16)
+    y = _correlate(xl, center_w, kernel, bf16) * _scale_of(dt_inv, xl)
     if restore is not None:
         y = y.to(restore)
     return _restore_axis(y, moved)

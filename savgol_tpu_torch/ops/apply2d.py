@@ -16,7 +16,13 @@ stencils and run them as one correlation (reference src/savgol2d.c:462-618).
 ``method`` keeps the JAX package's values. "auto": the CUDA kernels for a
 CUDA tensor, their plain PyTorch versions for a CPU tensor. "xla": the
 plain version (dense). "pallas": the kernels, which need a CUDA tensor.
-"sep": the separable kernel K2D-sep. "bf16" is not ported yet. Under "auto"
+"sep": the separable kernel K2D-sep. "bf16": the throughput mode, K2D-dense
+in its bf16 mode for every stencil it takes, sides up to 33 (its bf16
+plain version for a CPU tensor): image and stencil rounded to bf16, f32 sums; f32 input gets the
+f32 sums unrounded, other dtypes (a bf16 image, read as it is) the sums
+rounded to bf16; ``scale`` (scales) multiplied after, in the output's
+dtype, not folded into the stencil; a stack reads the image once for all
+its stencils; within the documented ~5e-3 relative contract. Under "auto"
 and "pallas" a stencil wider than 17 taps takes K2D-sep (r * (H + W) taps
 instead of H * W), every other K2D-dense; a stack goes to K2D-dense in one
 launch that reads the image once. K2D-sep takes a stencil's rank factors,
@@ -43,11 +49,13 @@ import torch
 
 from savgol_tpu_torch.config import Boundary2D, Savgol2DConfig
 from savgol_tpu_torch.ops.apply import (_check_device, _complex_split,
-                                        _compute_dtype, _grads_through)
+                                        _compute_dtype, _exact_twin,
+                                        _grads_through)
 from savgol_tpu_torch.ops.cuda_conv import scalar_like
 from savgol_tpu_torch.ops.cuda_conv2d import (_svd_stencil_np,
                                               correlate2d_sep_cuda,
                                               correlate2d_sep_plain,
+                                              correlate2d_valid_bf16_cuda,
                                               correlate2d_valid_cuda,
                                               correlate2d_valid_plain)
 from savgol_tpu_torch.ops.weights import savgol2d_weights_np
@@ -88,16 +96,12 @@ def correlate2d_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _resolve_method2d(method: str, x: torch.Tensor) -> str:
     """'auto' -> 'pallas' (the kernel wrappers, which take their plain
-    versions for a CPU tensor); raises for unknown or unported methods and
-    for 'pallas' on a tensor that is not on the card."""
+    versions for a CPU tensor; so does 'bf16'); raises for unknown methods
+    and for 'pallas' on a tensor that is not on the card."""
     if method not in _METHODS:
         raise ValueError(
             f"method must be 'auto', 'xla', 'pallas', 'sep' or 'bf16', "
             f"got {method!r}")
-    if method == "bf16":
-        raise NotImplementedError(
-            "method='bf16' is not ported yet: see ROADMAP.md, Queue 1, "
-            "'`method=\"bf16\"` in 1D and 2D'")
     if method == "pallas" and x.device.type != "cuda":
         raise ValueError(
             f"method='pallas' runs the CUDA kernel and needs a CUDA tensor, "
@@ -124,24 +128,28 @@ def _scale_tensor(scale, x: torch.Tensor) -> Optional[torch.Tensor]:
 
 
 class _Corr2dFn(torch.autograd.Function):
-    """Dense 2D correlation (kernel K2D-dense on CUDA) whose backward is
-    autograd through ``correlate2d_valid_plain`` — the counterpart of the
-    JAX package's ``_pallas_rowmxu_same_exact_diff`` /
-    ``_pallas_rowmxu_exact_diff`` / ``_pallas_corr2d_diff``."""
+    """Dense 2D correlation (kernel K2D-dense on CUDA, in its bf16 mode for
+    ``bf16``) whose backward is autograd through the exact
+    ``correlate2d_valid_plain`` — the counterpart of the JAX package's
+    ``_pallas_rowmxu_same_exact_diff`` / ``_pallas_rowmxu_exact_diff`` /
+    ``_pallas_corr2d_diff`` and, for ``bf16``,
+    ``_pallas_rowmxu_bf16_diff`` / ``_pallas_rowmxu_same_bf16_diff`` /
+    ``_pallas_rowmxu_stack_bf16_diff``."""
 
     @staticmethod
-    def forward(ctx, x, w, pad_mode):
+    def forward(ctx, x, w, pad_mode, bf16: bool = False):
         ctx.save_for_backward(x, w)
         ctx.pad_mode = pad_mode
-        return correlate2d_valid_cuda(x, w, pad_mode)
+        fn = correlate2d_valid_bf16_cuda if bf16 else correlate2d_valid_cuda
+        return fn(x, w, pad_mode)
 
     @staticmethod
     def backward(ctx, g):
         def plain(x, w):
-            return correlate2d_valid_plain(x, w, ctx.pad_mode)
+            return _exact_twin(correlate2d_valid_plain, x, w, ctx.pad_mode)
         grads = _grads_through(plain, ctx.saved_tensors,
                                ctx.needs_input_grad[:2], g)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 class _CorrSepFn(torch.autograd.Function):
@@ -222,9 +230,16 @@ def _sep(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
 def _correlate(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
                pad_mode, method: str) -> torch.Tensor:
     """The correlation route of a resolved ``method`` for the stencil(s)
-    ``w`` scaled by ``s`` (None, 0-dim, or (K,) for a stack). The dense
-    routes fold ``s`` into the (tiny) stencil on the device instead of
-    paying a full output read + write."""
+    ``w`` scaled by ``s`` (None, 0-dim, or (K,) for a stack). The exact
+    dense routes fold ``s`` into the (tiny) stencil on the device instead
+    of paying a full output read + write; "bf16" multiplies after, as the
+    JAX package's bf16 routes do (a bf16 stencil times a bf16 scale would
+    round twice)."""
+    if method == "bf16":
+        y = _Corr2dFn.apply(x.contiguous(), w, pad_mode, True)
+        if s is None:
+            return y
+        return y * (s[..., None, None] if s.dim() else s)
     needs_grad = torch.is_grad_enabled() and (
         w.requires_grad or (s is not None and s.requires_grad))
     if method != "xla" and not needs_grad and (
@@ -262,7 +277,7 @@ def savgol2d_apply(
         return _complex_split(
             lambda v: savgol2d_apply(v, weights, boundary=boundary,
                                      scale=scale, method=method), x)
-    x, restore = _compute_dtype(_promote(x, weights))
+    x, restore = _compute_dtype(_promote(x, weights), route == "bf16")
     pad_mode = (None if boundary is Boundary2D.VALID
                 else _PAD_MODE_2D[boundary])
     y = _correlate(x, weights, _scale_tensor(scale, x), pad_mode, route)
@@ -287,7 +302,7 @@ def savgol2d_apply_stack(
             lambda v: savgol2d_apply_stack(v, weight_stack,
                                            boundary=boundary, scales=scales,
                                            method=method), x)
-    x, restore = _compute_dtype(_promote(x, weight_stack))
+    x, restore = _compute_dtype(_promote(x, weight_stack), route == "bf16")
     # the output's dtype, never an integer input's: fractional derivative
     # scales must not truncate
     s = (None if scales is None

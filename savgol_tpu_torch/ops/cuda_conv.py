@@ -15,6 +15,17 @@ The plain versions are a tap loop over shifted slices plus elementwise edge
 sums: no matmul and no convolution, so TF32 cannot enter them on the card.
 They are the CPU path, the reference the kernels are held against, and the
 functions whose autograd gives the gradients (``ops.apply``).
+
+``method="bf16"`` has its own wrappers and plain versions
+(``savgol_polynomial_bf16_cuda`` / ``_plain`` and the padded and VALID
+pairs): the same kernels in their bf16 mode, the counterparts of the
+Pallas wrappers on bf16 operands at single-pass MXU precision. Samples and
+taps are rounded to bf16 (the taps as ``bf16(bf16(w) * bf16(dt_inv))``, on
+the host side by :func:`bf16_taps` for both versions, so both get the same
+bits), products are exact in f32, sums are f32, and each output is rounded
+to bf16. The kernels read and write the caller's f32 or bf16 storage;
+other dtypes are rounded to bf16 first and get their dtype back. They count
+their launches under the same kernel names.
 """
 
 from __future__ import annotations
@@ -38,6 +49,14 @@ __all__ = [
     "savgol_padded_plain",
     "correlate_valid_cuda",
     "correlate_valid_plain",
+    "bf16_taps",
+    "bf16_ulp_gate",
+    "savgol_polynomial_bf16_cuda",
+    "savgol_polynomial_bf16_plain",
+    "savgol_padded_bf16_cuda",
+    "savgol_padded_bf16_plain",
+    "correlate_valid_bf16_cuda",
+    "correlate_valid_bf16_plain",
 ]
 
 # Kernel launches since the last reset_launches(), one count per wrapper.
@@ -159,10 +178,24 @@ def _check_cuda_input(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: input must have at least one axis")
 
 
-def _weights_on(w: torch.Tensor, x: torch.Tensor, name: str) -> torch.Tensor:
+def _check_bf16_input(x: torch.Tensor, name: str) -> None:
+    if not x.is_floating_point():
+        raise TypeError(f"{name}: the kernel takes floating input, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the kernel needs a contiguous input")
+    if x.dim() < 1:
+        raise ValueError(f"{name}: input must have at least one axis")
+
+
+def _same_device(w: torch.Tensor, x: torch.Tensor, name: str) -> None:
     if w.device != x.device:
         raise ValueError(f"{name}: weights on {w.device}, input on "
                          f"{x.device}")
+
+
+def _weights_on(w: torch.Tensor, x: torch.Tensor, name: str) -> torch.Tensor:
+    _same_device(w, x, name)
     return w.to(x.dtype)
 
 
@@ -183,6 +216,122 @@ def _plain_or_cuda(x: torch.Tensor, name: str) -> bool:
                      f"{x.device}")
 
 
+def _operands(x: torch.Tensor, taps, dt_inv, bf16: bool, name: str):
+    """(storage the kernel reads, its taps, dtype to restore or None) for
+    either mode, after the taps' device check. Exact: ``x`` as it is, the
+    taps in its dtype times ``dt_inv`` (None: not multiplied). bf16:
+    :func:`_bf16_storage` and :func:`bf16_taps`."""
+    for t in taps:
+        _same_device(t, x, name)
+    if bf16:
+        xs, restore = _bf16_storage(x)
+        return xs, [bf16_taps(t, dt_inv).contiguous() for t in taps], restore
+    ws = [t.to(x.dtype) for t in taps]
+    if dt_inv is not None:
+        ws = [t * scalar_like(dt_inv, x) for t in ws]
+    return x, [t.contiguous() for t in ws], None
+
+
+def _launch(name: str, counts: dict, key: str, base: str, xs: torch.Tensor,
+            bf16: bool, *args) -> None:
+    """Launch the ``extern "C"`` entry for ``xs``'s storage, ``base``_f32 or
+    ``base``_f64, or ``base``_bf16 with its storage flag (1 for bf16, 0 for
+    f32), on the current stream of ``xs``'s card without synchronising;
+    raises on a launch error, else counts one launch in ``counts[key]``."""
+    lib = library()
+    if bf16:
+        fn = getattr(lib, base + "_bf16")
+        args += (int(xs.dtype == torch.bfloat16),)
+    else:
+        fn = getattr(lib, base + ("_f32" if xs.dtype == torch.float32
+                                  else "_f64"))
+    with torch.cuda.device(xs.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(err, name)
+    counts[key] += 1
+
+
+def _check_half_window(name: str, n: int) -> None:
+    if n < 1 or 2 * n + 1 > _MAX_WS:
+        raise ValueError(f"{name}: half window must be in [1, "
+                         f"{_MAX_WS // 2}], got {n}")
+
+
+def _check_length(N: int, ws: int) -> None:
+    if N < ws:
+        raise ValueError(f"data length ({N}) must be >= window size ({ws})")
+
+
+def _k1(name: str, x: torch.Tensor, center_w: torch.Tensor,
+        edge_w: torch.Tensor, n: int, dt_inv, lead_sign: float,
+        bf16: bool) -> torch.Tensor:
+    """K1's checks and launch in either mode, ``dt_inv`` folded into the
+    taps."""
+    (_check_bf16_input if bf16 else _check_cuda_input)(x, name)
+    n = int(n)
+    ws = 2 * n + 1
+    N = x.shape[-1]
+    _check_half_window(name, n)
+    if tuple(center_w.shape) != (ws,) or tuple(edge_w.shape) != (n, ws):
+        raise ValueError(f"{name}: weights of shape {tuple(center_w.shape)} "
+                         f"and {tuple(edge_w.shape)} do not match n={n}")
+    _check_length(N, ws)
+    xs, (w, ew), restore = _operands(x, (center_w, edge_w), dt_inv, bf16,
+                                     name)
+    out = torch.empty_like(xs)
+    B = xs.numel() // N
+    if B > 0:
+        _launch(name, LAUNCHES, "sg1d_poly", "sg1d_poly", xs, bf16,
+                xs.data_ptr(), w.data_ptr(), ew.data_ptr(), out.data_ptr(),
+                B, N, n, float(lead_sign))
+    return out if restore is None else out.to(restore)
+
+
+def _k2(name: str, x: torch.Tensor, center_w: torch.Tensor, pad_mode: str,
+        n: int, dt_inv, bf16: bool) -> torch.Tensor:
+    """K2's checks and launch in either mode, ``dt_inv`` folded into the
+    taps."""
+    (_check_bf16_input if bf16 else _check_cuda_input)(x, name)
+    n = int(n)
+    ws = 2 * n + 1
+    N = x.shape[-1]
+    if pad_mode not in ("symmetric", "wrap", "edge"):
+        raise ValueError(f"{name}: unsupported pad mode {pad_mode!r}")
+    _check_half_window(name, n)
+    if tuple(center_w.shape) != (ws,):
+        raise ValueError(f"{name}: weights of shape {tuple(center_w.shape)} "
+                         f"do not match n={n}")
+    _check_length(N, ws)
+    xs, (w,), restore = _operands(x, (center_w,), dt_inv, bf16, name)
+    out = torch.empty_like(xs)
+    B = xs.numel() // N
+    if B > 0:
+        _launch(name, LAUNCHES, "sg1d_pad", "sg1d_pad", xs, bf16,
+                xs.data_ptr(), w.data_ptr(), out.data_ptr(), B, N, n,
+                MODE_CODE[pad_mode])
+    return out if restore is None else out.to(restore)
+
+
+def _k3(name: str, x: torch.Tensor, w: torch.Tensor,
+        bf16: bool) -> torch.Tensor:
+    """K3's checks and launch in either mode."""
+    (_check_bf16_input if bf16 else _check_cuda_input)(x, name)
+    if w.dim() != 1 or not 1 <= w.shape[0] <= _MAX_WS:
+        raise ValueError(f"{name}: taps must be 1D with 1..{_MAX_WS} "
+                         f"entries, got shape {tuple(w.shape)}")
+    ws = w.shape[0]
+    N = x.shape[-1]
+    _check_length(N, ws)
+    xs, (wc,), restore = _operands(x, (w,), None, bf16, name)
+    out = torch.empty(xs.shape[:-1] + (N - ws + 1,), dtype=xs.dtype,
+                      device=x.device)
+    B = xs.numel() // N
+    if B > 0:
+        _launch(name, LAUNCHES, "corr1d_valid", "corr1d_valid", xs, bf16,
+                xs.data_ptr(), wc.data_ptr(), out.data_ptr(), B, N, ws)
+    return out if restore is None else out.to(restore)
+
+
 def savgol_polynomial_cuda(x: torch.Tensor, center_w: torch.Tensor,
                            edge_w: torch.Tensor, n: int, dt_inv=1.0,
                            lead_sign: float = 1.0) -> torch.Tensor:
@@ -197,34 +346,7 @@ def savgol_polynomial_cuda(x: torch.Tensor, center_w: torch.Tensor,
     if not _plain_or_cuda(x, name):
         return savgol_polynomial_plain(x, center_w, edge_w, n, dt_inv,
                                        lead_sign)
-    _check_cuda_input(x, name)
-    n = int(n)
-    ws = 2 * n + 1
-    N = x.shape[-1]
-    if n < 1 or ws > _MAX_WS:
-        raise ValueError(f"{name}: half window must be in [1, "
-                         f"{_MAX_WS // 2}], got {n}")
-    if tuple(center_w.shape) != (ws,) or tuple(edge_w.shape) != (n, ws):
-        raise ValueError(f"{name}: weights of shape {tuple(center_w.shape)} "
-                         f"and {tuple(edge_w.shape)} do not match n={n}")
-    if N < ws:
-        raise ValueError(f"data length ({N}) must be >= window size ({ws})")
-    dt = scalar_like(dt_inv, x)
-    w = (_weights_on(center_w, x, name) * dt).contiguous()
-    ew = (_weights_on(edge_w, x, name) * dt).contiguous()
-    out = torch.empty_like(x)
-    B = x.numel() // N
-    if B == 0:
-        return out
-    lib = library()
-    fn = lib.sg1d_poly_f32 if x.dtype == torch.float32 else lib.sg1d_poly_f64
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), ew.data_ptr(), out.data_ptr(),
-                 B, N, n, float(lead_sign),
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["sg1d_poly"] += 1
-    return out
+    return _k1(name, x, center_w, edge_w, n, dt_inv, lead_sign, False)
 
 
 def savgol_padded_cuda(x: torch.Tensor, center_w: torch.Tensor,
@@ -241,33 +363,7 @@ def savgol_padded_cuda(x: torch.Tensor, center_w: torch.Tensor,
     name = "savgol_padded_cuda"
     if not _plain_or_cuda(x, name):
         return savgol_padded_plain(x, center_w, pad_mode, n, dt_inv)
-    _check_cuda_input(x, name)
-    n = int(n)
-    ws = 2 * n + 1
-    N = x.shape[-1]
-    if pad_mode not in ("symmetric", "wrap", "edge"):
-        raise ValueError(f"{name}: unsupported pad mode {pad_mode!r}")
-    if n < 1 or ws > _MAX_WS:
-        raise ValueError(f"{name}: half window must be in [1, "
-                         f"{_MAX_WS // 2}], got {n}")
-    if tuple(center_w.shape) != (ws,):
-        raise ValueError(f"{name}: weights of shape {tuple(center_w.shape)} "
-                         f"do not match n={n}")
-    if N < ws:
-        raise ValueError(f"data length ({N}) must be >= window size ({ws})")
-    w = (_weights_on(center_w, x, name) * scalar_like(dt_inv, x)).contiguous()
-    out = torch.empty_like(x)
-    B = x.numel() // N
-    if B == 0:
-        return out
-    lib = library()
-    fn = lib.sg1d_pad_f32 if x.dtype == torch.float32 else lib.sg1d_pad_f64
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, N, n,
-                 MODE_CODE[pad_mode], torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["sg1d_pad"] += 1
-    return out
+    return _k2(name, x, center_w, pad_mode, n, dt_inv, False)
 
 
 def correlate_valid_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -280,26 +376,131 @@ def correlate_valid_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     name = "correlate_valid_cuda"
     if not _plain_or_cuda(x, name):
         return correlate_valid_plain(x, w)
-    _check_cuda_input(x, name)
-    if w.dim() != 1 or not 1 <= w.shape[0] <= _MAX_WS:
-        raise ValueError(f"{name}: taps must be 1D with 1..{_MAX_WS} "
-                         f"entries, got shape {tuple(w.shape)}")
-    ws = w.shape[0]
-    N = x.shape[-1]
-    if N < ws:
-        raise ValueError(f"data length ({N}) must be >= window size ({ws})")
-    wc = _weights_on(w, x, name).contiguous()
-    out = torch.empty(x.shape[:-1] + (N - ws + 1,), dtype=x.dtype,
-                      device=x.device)
-    B = x.numel() // N
-    if B == 0:
-        return out
-    lib = library()
-    fn = (lib.corr1d_valid_f32 if x.dtype == torch.float32
-          else lib.corr1d_valid_f64)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wc.data_ptr(), out.data_ptr(), B, N, ws,
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["corr1d_valid"] += 1
-    return out
+    return _k3(name, x, w, False)
+
+
+# -- method="bf16" -------------------------------------------------------------
+
+
+def bf16_taps(w: torch.Tensor, dt_inv=None) -> torch.Tensor:
+    """The taps of ``method="bf16"`` as float32 holding bf16 values:
+    ``bf16(w)``, or ``bf16(bf16(w) * bf16(dt_inv))`` with ``dt_inv`` (the
+    product of two bf16 values rounded once, as ``pallas_conv.py:723-726``
+    forms them). The kernels and the plain versions take them from here."""
+    t = w.to(torch.bfloat16)
+    if dt_inv is not None:
+        t = t * scalar_like(dt_inv, t)
+    return t.float()
+
+
+def bf16_ulp_gate(want: torch.Tensor) -> torch.Tensor:
+    """The gate a bf16-mode result is held to against another computation
+    of the same bf16 sums in another order: one bf16 ulp of each reference
+    value, ``2**-8 * 2**e`` for ``|want|`` in ``[2**(e-1), 2**e)`` (an
+    output whose sum crosses a rounding boundary moves by one ulp), plus
+    ``1e-6 * max|want|`` for the f32 order differences of outputs near
+    zero; elementwise, in float64."""
+    want = want.double()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want.abs())[1] - 8)
+    return torch.where(want == 0, 0.0, ulp) + 1e-6 * want.abs().max()
+
+
+def _bf16_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 and held in float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_storage(x: torch.Tensor):
+    """(storage the bf16 kernels take, dtype to return): f32 and bf16 as
+    they are; any other dtype rounded to bf16 first and restored after."""
+    if x.dtype in (torch.float32, torch.bfloat16):
+        return x, None
+    return x.to(torch.bfloat16), x.dtype
+
+
+def _bf16_result(y: torch.Tensor, dtype) -> torch.Tensor:
+    """A float32 sum rounded to bf16, in ``dtype``."""
+    return y.to(torch.bfloat16).to(dtype)
+
+
+def savgol_polynomial_bf16_plain(x: torch.Tensor, center_w: torch.Tensor,
+                                 edge_w: torch.Tensor, n: int, dt_inv=1.0,
+                                 lead_sign: float = 1.0) -> torch.Tensor:
+    """``method="bf16"`` same-length POLYNOMIAL apply (counterpart of
+    ``savgol_polynomial_pallas_mxu`` on bf16 operands at DEFAULT precision):
+    :func:`savgol_polynomial_plain` in float32 on bf16 samples and
+    :func:`bf16_taps` with ``dt_inv`` folded in, each output rounded to bf16;
+    returned in ``x``'s dtype."""
+    y = savgol_polynomial_plain(_bf16_operand(x),
+                                bf16_taps(center_w, dt_inv),
+                                bf16_taps(edge_w, dt_inv), n, 1.0, lead_sign)
+    return _bf16_result(y, x.dtype)
+
+
+def savgol_padded_bf16_plain(x: torch.Tensor, center_w: torch.Tensor,
+                             pad_mode: str, n: int,
+                             dt_inv=1.0) -> torch.Tensor:
+    """``method="bf16"`` same-length REFLECT / PERIODIC / CONSTANT apply
+    (counterpart of ``savgol_padded_pallas_mxu`` on bf16 operands):
+    :func:`savgol_padded_plain` as :func:`savgol_polynomial_bf16_plain`
+    rounds."""
+    y = savgol_padded_plain(_bf16_operand(x), bf16_taps(center_w, dt_inv),
+                            pad_mode, n, 1.0)
+    return _bf16_result(y, x.dtype)
+
+
+def correlate_valid_bf16_plain(x: torch.Tensor,
+                               w: torch.Tensor) -> torch.Tensor:
+    """``method="bf16"`` VALID correlation (counterpart of
+    ``correlate_valid_pallas_mxu`` on bf16 operands): bf16 samples and taps,
+    float32 sums, outputs rounded to bf16, in ``x``'s dtype."""
+    y = correlate_valid_plain(_bf16_operand(x), bf16_taps(w))
+    return _bf16_result(y, x.dtype)
+
+
+def savgol_polynomial_bf16_cuda(x: torch.Tensor, center_w: torch.Tensor,
+                                edge_w: torch.Tensor, n: int, dt_inv=1.0,
+                                lead_sign: float = 1.0) -> torch.Tensor:
+    """``method="bf16"`` same-length POLYNOMIAL apply along the last axis.
+
+    CUDA tensor: kernel K1 in its bf16 mode (``sg1d_poly_bf16``), one launch
+    that reads and writes f32 or bf16 storage (other dtypes go through bf16
+    and come back); any length N >= 2n + 1 runs, where the TPU kernel needs
+    an admissible block width. CPU tensor:
+    :func:`savgol_polynomial_bf16_plain`.
+    """
+    name = "savgol_polynomial_bf16_cuda"
+    if not _plain_or_cuda(x, name):
+        return savgol_polynomial_bf16_plain(x, center_w, edge_w, n, dt_inv,
+                                            lead_sign)
+    return _k1(name, x, center_w, edge_w, n, dt_inv, lead_sign, True)
+
+
+def savgol_padded_bf16_cuda(x: torch.Tensor, center_w: torch.Tensor,
+                            pad_mode: str, n: int,
+                            dt_inv=1.0) -> torch.Tensor:
+    """``method="bf16"`` same-length REFLECT / PERIODIC / CONSTANT apply.
+
+    CUDA tensor: kernel K2 in its bf16 mode (``sg1d_pad_bf16``), the pad
+    mapped while staging and ``dt_inv`` folded into the bf16 taps, as the
+    TPU's fused-pad kernel does. CPU tensor:
+    :func:`savgol_padded_bf16_plain`.
+    """
+    name = "savgol_padded_bf16_cuda"
+    if not _plain_or_cuda(x, name):
+        return savgol_padded_bf16_plain(x, center_w, pad_mode, n, dt_inv)
+    return _k2(name, x, center_w, pad_mode, n, dt_inv, True)
+
+
+def correlate_valid_bf16_cuda(x: torch.Tensor,
+                              w: torch.Tensor) -> torch.Tensor:
+    """``method="bf16"`` VALID correlation along the last axis; output
+    (..., N - len(w) + 1).
+
+    CUDA tensor: kernel K3 in its bf16 mode (``corr1d_valid_bf16``). CPU
+    tensor: :func:`correlate_valid_bf16_plain`.
+    """
+    name = "correlate_valid_bf16_cuda"
+    if not _plain_or_cuda(x, name):
+        return correlate_valid_bf16_plain(x, w)
+    return _k3(name, x, w, True)

@@ -10,6 +10,14 @@ or of the image extended by the boundary mode (``pad_mode`` "edge",
 The kernels map an out-of-range source index themselves while they stage a
 tile, so the same-size route makes no padded copy of the image.
 
+``correlate2d_valid_bf16_cuda`` / ``_plain`` are ``method="bf16"``: K2D-dense
+in its bf16 mode, the counterpart of the row-banded MXU kernels on bf16
+operands at single-pass precision. Samples and taps are rounded to bf16,
+products are exact and summed in f32; f32 input gets the f32 sums
+unrounded, any other dtype the sums rounded to bf16 (in its own dtype), as
+the JAX package's wrappers emit them. The bf16 kernel counts its launches
+under ``corr2d_valid``.
+
 As in 1D, each wrapper dispatches on the device of the tensor it is given:
 a CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises. The plain versions are tap loops over shifted slices of an image
@@ -22,10 +30,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from savgol_tpu_torch._build import library
-from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _check_cuda_input,
-                                            _plain_or_cuda, _raise_on_error,
-                                            _weights_on, pad_index)
+from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _bf16_operand,
+                                            _check_bf16_input,
+                                            _check_cuda_input, _launch,
+                                            _operands, _plain_or_cuda,
+                                            bf16_taps, pad_index)
 
 __all__ = [
     "LAUNCHES",
@@ -35,6 +44,8 @@ __all__ = [
     "correlate2d_valid_cuda",
     "correlate2d_sep_plain",
     "correlate2d_sep_cuda",
+    "correlate2d_valid_bf16_plain",
+    "correlate2d_valid_bf16_cuda",
 ]
 
 # Kernel launches since the last reset_launches(), one count per wrapper.
@@ -136,10 +147,11 @@ def correlate2d_sep_plain(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _geometry(x: torch.Tensor, H: int, W: int, pad_mode, name: str):
+def _geometry(x: torch.Tensor, H: int, W: int, pad_mode, name: str,
+              check=_check_cuda_input):
     """(B, R, C, R', C') for a kernel launch; raises for what the kernels
-    do not take."""
-    _check_cuda_input(x, name)
+    do not take (``check``: the input's dtype and layout)."""
+    check(x, name)
     if not (H % 2 == 1 and W % 2 == 1 and 1 <= H <= _MAX_TAPS
             and 1 <= W <= _MAX_TAPS):
         raise ValueError(f"{name}: stencil sides must be odd and in "
@@ -150,6 +162,28 @@ def _geometry(x: torch.Tensor, H: int, W: int, pad_mode, name: str):
         raise ValueError(f"{name}: an image of {R} x {C} samples passes the "
                          "kernels' 32-bit in-image indices")
     return x.numel() // (R * C), R, C, Ro, Co
+
+
+def _k2d_dense(name: str, x: torch.Tensor, w: torch.Tensor, pad_mode,
+               bf16: bool) -> torch.Tensor:
+    """K2D-dense's checks and launch in either mode."""
+    if w.dim() not in (2, 3):
+        raise ValueError(f"{name}: stencils must be (H, W) or (K, H, W), "
+                         f"got shape {tuple(w.shape)}")
+    K = 1 if w.dim() == 2 else w.shape[0]
+    H, W = w.shape[-2:]
+    B, R, C, Ro, Co = _geometry(x, H, W, pad_mode, name,
+                                _check_bf16_input if bf16
+                                else _check_cuda_input)
+    xs, (wc,), restore = _operands(x, (w,), None, bf16, name)
+    stack = (K,) if w.dim() == 3 else ()
+    out = torch.empty(x.shape[:-2] + stack + (Ro, Co), dtype=xs.dtype,
+                      device=x.device)
+    if B > 0 and K > 0:
+        _launch(name, LAUNCHES, "corr2d_valid", "corr2d_valid", xs, bf16,
+                xs.data_ptr(), wc.data_ptr(), out.data_ptr(), B, R, C, K, H,
+                W, MODE_CODE[pad_mode])
+    return out if restore is None else out.to(restore)
 
 
 def correlate2d_valid_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -164,28 +198,7 @@ def correlate2d_valid_cuda(x: torch.Tensor, w: torch.Tensor,
     name = "correlate2d_valid_cuda"
     if not _plain_or_cuda(x, name):
         return correlate2d_valid_plain(x, w, pad_mode)
-    if w.dim() not in (2, 3):
-        raise ValueError(f"{name}: stencils must be (H, W) or (K, H, W), "
-                         f"got shape {tuple(w.shape)}")
-    K = 1 if w.dim() == 2 else w.shape[0]
-    H, W = w.shape[-2:]
-    B, R, C, Ro, Co = _geometry(x, H, W, pad_mode, name)
-    ws = _weights_on(w, x, name).contiguous()
-    stack = (K,) if w.dim() == 3 else ()
-    out = torch.empty(x.shape[:-2] + stack + (Ro, Co), dtype=x.dtype,
-                      device=x.device)
-    if B == 0 or K == 0:
-        return out
-    lib = library()
-    fn = (lib.corr2d_valid_f32 if x.dtype == torch.float32
-          else lib.corr2d_valid_f64)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), ws.data_ptr(), out.data_ptr(), B, R, C, K, H,
-                 W, MODE_CODE[pad_mode],
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["corr2d_valid"] += 1
-    return out
+    return _k2d_dense(name, x, w, pad_mode, False)
 
 
 def correlate2d_sep_cuda(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -207,19 +220,41 @@ def correlate2d_sep_cuda(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)}")
     rank, H, W = u.shape[0], u.shape[1], v.shape[1]
     B, R, C, Ro, Co = _geometry(x, H, W, pad_mode, name)
-    uc = _weights_on(u, x, name).contiguous()
-    vc = _weights_on(v, x, name).contiguous()
+    _, (uc, vc), _ = _operands(x, (u, v), None, False, name)
     out = torch.empty(x.shape[:-2] + (Ro, Co), dtype=x.dtype,
                       device=x.device)
-    if B == 0:
-        return out
-    lib = library()
-    fn = (lib.corr2d_sep_f32 if x.dtype == torch.float32
-          else lib.corr2d_sep_f64)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), uc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-                 B, R, C, rank, H, W, MODE_CODE[pad_mode],
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["corr2d_sep"] += 1
+    if B > 0:
+        _launch(name, LAUNCHES, "corr2d_sep", "corr2d_sep", x, False,
+                x.data_ptr(), uc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+                B, R, C, rank, H, W, MODE_CODE[pad_mode])
     return out
+
+
+def correlate2d_valid_bf16_plain(x: torch.Tensor, w: torch.Tensor,
+                                 pad_mode=None) -> torch.Tensor:
+    """``method="bf16"`` dense 2D correlation, laid out as
+    :func:`correlate2d_valid_plain` (counterpart of
+    ``correlate2d_valid_pallas_rowmxu`` / ``savgol2d_same_pallas_rowmxu`` /
+    ``correlate2d_valid_pallas_rowmxu_stack`` on bf16 operands at DEFAULT
+    precision): bf16 samples and taps, float32 sums; f32 input gets the
+    sums, any other dtype the sums rounded to bf16, in its dtype."""
+    y = correlate2d_valid_plain(_bf16_operand(x), bf16_taps(w), pad_mode)
+    if x.dtype == torch.float32:
+        return y
+    return y.to(torch.bfloat16).to(x.dtype)
+
+
+def correlate2d_valid_bf16_cuda(x: torch.Tensor, w: torch.Tensor,
+                                pad_mode=None) -> torch.Tensor:
+    """``method="bf16"`` dense 2D correlation of ``x`` (..., R, C) with
+    ``w`` (K, H, W) or (H, W).
+
+    CUDA tensor: kernel K2D-dense in its bf16 mode (``corr2d_valid_bf16``),
+    one launch that reads f32 or bf16 storage once for all K stencils
+    (other dtypes go through bf16 and come back). CPU tensor:
+    :func:`correlate2d_valid_bf16_plain`.
+    """
+    name = "correlate2d_valid_bf16_cuda"
+    if not _plain_or_cuda(x, name):
+        return correlate2d_valid_bf16_plain(x, w, pad_mode)
+    return _k2d_dense(name, x, w, pad_mode, True)

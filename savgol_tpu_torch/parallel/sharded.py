@@ -30,7 +30,8 @@ import torch
 import torch.distributed as dist
 
 from savgol_tpu_torch.config import BoundaryMode
-from savgol_tpu_torch.ops.apply import _correlate, _ensure_float, _use_kernel
+from savgol_tpu_torch.ops.apply import (_correlate, _ensure_float, _scale_of,
+                                        _use_kernel)
 from savgol_tpu_torch.ops.cuda_conv import _edge_sums, scalar_like
 from savgol_tpu_torch.ops.cuda_halo import halo_exchange_plain
 from savgol_tpu_torch.parallel.ici_halo import (exchange_last,
@@ -57,7 +58,12 @@ def make_mesh(axis_names=("batch", "seq"), shape=None, device_type=None):
     if shape is None:
         shape = (1,) * (len(axis_names) - 1) + (dist.get_world_size(),)
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh builds a mesh of cards by default, and "
+                "torch.cuda.is_available() is False: pass device_type=\"cpu\" "
+                "for a mesh of CPU ranks")
+        device_type = "cuda"
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axis_names))
 
@@ -125,9 +131,10 @@ def _halo_exchange(x_local: torch.Tensor, n: int, group):
 
 
 def _local_apply(x_local, center_w, edge_w, n, boundary, dt_inv, lead_sign,
-                 ring, kernel: bool, halo: str):
+                 ring, kernel: bool, halo: str, bf16: bool):
     """A rank's body: halo exchange, the local VALID correlation (kernel
-    K3 for a CUDA tensor), and the outer ranks' edge fixes."""
+    K3 for a CUDA tensor, in its bf16 mode for ``bf16``), and the outer
+    ranks' edge fixes."""
     group, idx, size = ring
     ws = 2 * n + 1
     nloc = x_local.shape[-1]
@@ -152,23 +159,30 @@ def _local_apply(x_local, center_w, edge_w, n, boundary, dt_inv, lead_sign,
         left = vleft if is_first else left
         right = vright if is_last else right
 
-    # dt_inv folded into the (tiny) taps, as kernel K1 folds it, instead of
-    # a pass over the output
-    dt = scalar_like(dt_inv, x_local)
     xp = torch.cat([left, x_local, right], dim=-1)
-    y = _correlate(xp, center_w.to(dt.dtype) * dt, kernel)   # (..., nloc)
+    if bf16:
+        # the JAX package's sharded bf16 route: K3 in bf16 on the unscaled
+        # taps, the outer edge rows exact in the compute dtype, then
+        # * dt_inv (not the single-device route's fused bf16 edge rows)
+        dt = _scale_of(dt_inv, x_local)
+        y = _correlate(xp, center_w, kernel, bf16=True)
+    else:
+        # dt_inv folded into the (tiny) taps, as kernel K1 folds it, instead
+        # of a pass over the output
+        dt = scalar_like(dt_inv, x_local)
+        y = _correlate(xp, center_w.to(dt.dtype) * dt, kernel)  # (..., nloc)
 
     if boundary is BoundaryMode.POLYNOMIAL:
         # the edge rows as products and sums (no matmul, so no TF32),
         # written over the n outputs they replace
-        ew = edge_w.to(dt.dtype) * dt
+        ew = edge_w.to(y.dtype) if bf16 else edge_w.to(dt.dtype) * dt
         if is_first:
             y[..., :n] = _edge_sums(ew, x_local[..., :ws].flip(-1)) \
                 * lead_sign
         if is_last:
             y[..., nloc - n:] = _edge_sums(ew,
                                            x_local[..., nloc - ws:]).flip(-1)
-    return y
+    return y * dt.to(y.dtype) if bf16 else y
 
 
 def apply_sharded(
@@ -195,7 +209,10 @@ def apply_sharded(
     Semantics identical to :func:`savgol_tpu_torch.ops.apply.savgol_apply`
     on the global array; communication is two neighbour sends of
     ``half_window`` samples a rank. ``method`` as for the single-device
-    call (the local correlation runs kernel K3 for a CUDA tensor). ``halo``
+    call (the local correlation runs kernel K3 for a CUDA tensor; "bf16"
+    runs it in its bf16 mode and, as the JAX package's sharded route, fits
+    the outer POLYNOMIAL edge rows exactly in the compute dtype and
+    multiplies by ``dt_inv`` after). ``halo``
     selects the exchange: ``"ppermute"`` (point-to-point sends on the
     group's backend) or ``"rdma"`` (kernel K13, see
     :mod:`savgol_tpu_torch.parallel.ici_halo`); both give identical
@@ -216,5 +233,5 @@ def apply_sharded(
         lead_sign = -1.0
     y = _local_apply(_ensure_float(x, center_w), center_w, edge_w, n,
                      boundary, dt_inv, lead_sign, mesh_axis(mesh, seq_axis),
-                     kernel, halo)
+                     kernel, halo, method == "bf16")
     return y[0] if squeeze else y

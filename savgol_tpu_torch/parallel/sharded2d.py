@@ -172,7 +172,7 @@ def apply2d_sharded(
     squeeze = x.dim() == 2
     if squeeze:
         x = x[None]
-    x, restore = _compute_dtype(_promote(x, weights))
+    x, restore = _compute_dtype(_promote(x, weights), route == "bf16")
     rows = mesh_axis(mesh, seq_axis)
     if col_axis is not None:
         cols = mesh_axis(mesh, col_axis)

@@ -20,8 +20,13 @@ Mode mapping (scipy name -> implementation, kernel on a CUDA tensor):
 
 The kernels take windows up to 129 samples, the JAX package's Pallas cap
 (past the reference's 65): past that, a CUDA tensor raises under
-``method="auto"`` and ``method="xla"`` takes the plain version. As in scipy,
-input that is not a tensor comes back as a numpy array.
+``method="auto"`` and ``method="xla"`` takes the plain version.
+``method="bf16"`` runs every mode in the kernels' bf16 mode, as
+``Savgol1D.apply`` does (the extension modes pad in the compute dtype,
+then K3 in bf16, then ``* 1/delta**deriv``). As in scipy, input that is
+not a tensor comes back as a numpy array; it is computed on ``device``,
+the card by default, which raises where there is none (pass
+``device="cpu"`` to compute on the CPU).
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ from savgol_tpu_torch.config import BoundaryMode, SavgolConfig
 from savgol_tpu_torch.ops.apply import (_complex_split, _compute_dtype,
                                         _correlate, _ensure_float,
                                         _move_axis_last, _restore_axis,
-                                        _use_kernel, savgol_apply_core)
-from savgol_tpu_torch.ops.cuda_conv import pad_last, scalar_like
+                                        _scale_of, _use_kernel,
+                                        savgol_apply_core)
+from savgol_tpu_torch.ops.cuda_conv import pad_last
 from savgol_tpu_torch.ops.weights import (_gram_table, _norm_factors,
                                           _weights_from_table,
                                           savgol_weights_np)
@@ -124,15 +130,21 @@ def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
                   cval: float = 0.0, *, method: str = "auto", device=None):
     """scipy.signal.savgol_filter equivalent on the port. A tensor is
     filtered on its own device and comes back as a tensor there; anything
-    else (a numpy array, a list) is computed on ``device``, by default the
-    card when one is present, so the import swap reaches the kernels, and
-    comes back as a numpy array, as scipy returns. ``method`` as for
+    else (a numpy array, a list) is computed on ``device``, by default
+    ``"cuda"``, so the import swap reaches the kernels, and comes back as a
+    numpy array, as scipy returns. With no card the default raises: pass
+    ``device="cpu"`` to compute on the CPU. ``method`` as for
     ``Savgol1D.apply``."""
     if isinstance(x, torch.Tensor):
         return _filter(x, window_length, polyorder, deriv, delta, axis, mode,
                        cval, method)
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "savgol_filter computes input that is not a tensor on the "
+                "card by default, and torch.cuda.is_available() is False: "
+                "pass device=\"cpu\" to compute on the CPU")
+        device = "cuda"
     y = _filter(torch.as_tensor(x, device=device), window_length, polyorder,
                 deriv, delta, axis, mode, cval, method)
     return y.cpu().numpy()
@@ -177,18 +189,19 @@ def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
         raise ValueError(
             f"data length ({xl.shape[-1]}) must be >= window_length")
     kernel = _use_kernel(method, xl)
+    bf16 = method == "bf16"
 
     def ext_apply(xv):
         if mode == "mirror":
             xp = pad_last(xv, n, "reflect")
         else:
             xp = F.pad(xv, (n, n), value=float(cval))
-        return _correlate(xp, cw, kernel) * scalar_like(dt_inv, xv)
+        return _correlate(xp, cw, kernel, bf16) * _scale_of(dt_inv, xv)
 
     if xl.is_complex():
         # real-linear split, as on the native-mode branch
         return _restore_axis(_complex_split(ext_apply, xl), moved)
-    xl, restore = _compute_dtype(xl)
+    xl, restore = _compute_dtype(xl, bf16)
     y = ext_apply(xl)
     if restore is not None:
         y = y.to(restore)

@@ -8,6 +8,8 @@ overwrites a buffer larger than the H100's 50 MB L2 cache, so every call
 finds its input in device memory, as a caller streaming fresh data would.
 :func:`host_ms` times the host instead: how long a call takes to enqueue
 its work, which bounds a call whose device work is shorter.
+:func:`cudnn_ms` times a library yardstick under the settings cuDNN can be
+run with, and :func:`bound` gives the least time the card could take.
 """
 
 
@@ -19,9 +21,16 @@ from typing import Callable
 
 import torch
 
-__all__ = ["cuda_time_ms", "host_ms"]
+__all__ = ["cuda_time_ms", "host_ms", "cudnn_ms", "bound", "HBM_BPS",
+           "PEAK_FLOPS"]
 
 _FLUSH_BYTES = 256 << 20
+
+# H100 SXM data sheet: the memory rate, and the dense peak rate of each
+# operand type (f32 and f64 outside the tensor cores; bf16 products summed
+# in f32 on the tensor cores)
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
 
 
 def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3,
@@ -62,3 +71,35 @@ def host_ms(fn: Callable[[], object], *, warmup: int = 10,
     elapsed = time.perf_counter() - start
     torch.cuda.synchronize()
     return elapsed / reps * 1e3
+
+
+def cudnn_ms(call: Callable[[], object],
+             call_nhwc: Callable[[], object] | None = None) -> dict:
+    """Device milliseconds (:func:`cuda_time_ms`) of a cuDNN call at its
+    default algorithm pick ("default") and with ``cudnn.benchmark`` on,
+    which times cuDNN's algorithms at the first call of a shape and keeps
+    the fastest ("benchmark"); ``call_nhwc``, the same call on
+    channels_last tensors, with it on too ("benchmark channels_last").
+    "best" is the least of them. The setting is restored after."""
+    flag = torch.backends.cudnn.benchmark
+    t = {"default": cuda_time_ms(call)}
+    try:
+        torch.backends.cudnn.benchmark = True
+        t["benchmark"] = cuda_time_ms(call)
+        if call_nhwc is not None:
+            t["benchmark channels_last"] = cuda_time_ms(call_nhwc)
+    finally:
+        torch.backends.cudnn.benchmark = flag
+    t["best"] = min(t.values())
+    return t
+
+
+def bound(nbytes: float, flops: float, kind: str = "f32") -> dict:
+    """{"bound_ms", "bound_by"}: the least time the card could take for a
+    function that moves ``nbytes`` (each input read once, each output
+    written once) and does ``flops`` operations of type ``kind`` (an FMA
+    counted as two), the larger of the two times."""
+    t_b = nbytes / HBM_BPS * 1e3
+    t_o = flops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}

@@ -206,8 +206,12 @@ def test_method_values():
             ft.apply(x, method=method)
         with pytest.raises(ValueError, match="CUDA"):
             ft.apply_valid(x, method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.apply(x, method="bf16")
+    # "bf16" runs on a CPU tensor (its plain bf16 version): bf16-rounded
+    # values in the caller's dtype, within the mode's contract
+    y = ft.apply(x, method="bf16")
+    assert y.dtype == x.dtype
+    assert torch.equal(y, y.to(torch.bfloat16).to(y.dtype))
+    _assert_close(y, ft.apply(x, method="xla"), tol=3e-2)
     with pytest.raises(ValueError, match="window size"):
         ft.apply(x[:, :24])
 

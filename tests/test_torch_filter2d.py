@@ -412,11 +412,21 @@ def test_method_values():
         ft.apply(x, method="pallas")
     with pytest.raises(ValueError, match="CUDA"):
         sgt.savgol2d_gradient(x, 2, 2, 2, method="pallas")
-    for call in (lambda: ft.apply(x, method="bf16"),
-                 lambda: ft.apply_valid(x, method="bf16"),
-                 lambda: sgt.savgol2d_hessian(x, 2, 2, 2, method="bf16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # "bf16" runs on a CPU tensor (K2D-dense's bf16 plain version), within
+    # the mode's contract of the exact route: f32 input gets the f32 sums,
+    # f64 input the sums rounded to bf16, in f64
+    for v in (x, x.double()):
+        for bf16, exact in (
+                (lambda: ft.apply(v, method="bf16"), lambda: ft.apply(v)),
+                (lambda: ft.apply_valid(v, method="bf16"),
+                 lambda: ft.apply_valid(v)),
+                (lambda: sgt.savgol2d_hessian(v, 2, 2, 2, method="bf16")[1],
+                 lambda: sgt.savgol2d_hessian(v, 2, 2, 2)[1])):
+            got, want = bf16(), exact()
+            assert got.dtype == want.dtype == v.dtype
+            rounded = torch.equal(got, got.to(torch.bfloat16).to(got.dtype))
+            assert rounded == (v.dtype == torch.float64)
+            _assert_close(got, want, tol=3e-2)
 
 
 def test_module_on_other_device_raises():

@@ -258,10 +258,15 @@ def _error(pool, entry, mesh, args, kwargs):
     ("too_short", "ValueError", "window size"),
     ("halo", "ValueError", "halo"),
     ("method", "ValueError", "method"),
-    ("bf16", "NotImplementedError", "ROADMAP"),
+    ("bf16", None, None),
     ("boundary", "ValueError", "banana"),
 ])
 def test_apply_sharded_errors(pool, case, kind, match):
+    """Each bad argument raises on every rank alike; ``method="bf16"``,
+    which raised here until the mode was ported, now runs: K3's bf16
+    plain version on each rank's block, equal to the single-device bf16
+    apply away from the outer ``n`` samples (where the sharded route fits
+    its edge rows exactly, as the JAX package's does)."""
     cfg = sgt.SavgolConfig(8 if case == "too_short" else 4, 2)
     cw, ew = savgol_weights_np(cfg, np.float64)
     N = {"indivisible": 100, "too_short": 64}.get(case, 256)
@@ -269,10 +274,37 @@ def test_apply_sharded_errors(pool, case, kind, match):
     kw.update({"halo": dict(halo="nccl"), "method": dict(method="cuda"),
                "bf16": dict(method="bf16"),
                "boundary": dict(boundary="banana")}.get(case, {}))
-    name, msg = _error(pool, "apply_sharded", SEQ8,
-                       [Sharded(np.zeros((2, N)), (None, "seq")), Full(cw),
-                        Full(ew)], kw)
+    x = np.random.default_rng(31).standard_normal((2, N))
+    args = [Sharded(x, (None, "seq")), Full(cw), Full(ew)]
+    if kind is None:
+        errs = pool.run(run_error, "apply_sharded", *SEQ8, args, kw)
+        assert errs == [None] * len(errs), errs
+        y, _ = _run(pool, "apply_sharded", SEQ8, args, kw, (None, "seq"))
+        f = sgt.Savgol1D.create(cfg, dtype=torch.float64, device="cpu")
+        want = f.apply(torch.from_numpy(x), method="bf16").numpy()
+        n = cfg.half_window
+        np.testing.assert_array_equal(y[:, n:-n], want[:, n:-n])
+        return
+    name, msg = _error(pool, "apply_sharded", SEQ8, args, kw)
     assert name == kind and match in msg, (name, msg)
+
+
+def test_make_mesh_default_needs_a_card(tmp_path):
+    """``make_mesh()`` builds a mesh of cards unless told otherwise: with no
+    card it raises and names ``device_type="cpu"``, which then works."""
+    import torch.distributed as dist
+    from savgol_tpu_torch.parallel import make_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match='device_type="cpu"'):
+                make_mesh()
+        m = make_mesh(device_type="cpu")
+        assert m.mesh_dim_names == ("batch", "seq")
+        assert tuple(m.mesh.shape) == (1, 1)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("case,kind,match", [
