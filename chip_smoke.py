@@ -53,7 +53,16 @@ contract of float64; ``scipy_compat`` in bf16 against scipy; f64 gradients;
 times beside the bounds and ``F.conv1d`` / ``F.conv2d`` on bf16. Then the
 attribution probes P3 (``probes/bf16_1d.py``) and P2
 (``probes/rowband2d.py``) at the headlines against their plain versions,
-with their times.
+with their times. Then P1 (``probes/dma1d.py``), the double-buffered VALID
+correlation, against its plain version and bit for bit against K3 over the
+JAX probe's geometries, windows, N of each residue mod 4 and short
+``n_out``, and at the JAX bench's geometry (128 x (2^20 + 128), its (rows,
+cols) variants, B = 256, N = 2^20 + 173) timed beside K3, ``F.conv1d`` and
+its bound. Then streaming on the card (``SavgolConfig(12, 4)``, f32 and
+f64): the push protocol over 8,192 samples against ``Savgol1D.apply`` and
+its host time a push, ``stream_apply`` (one K3 launch) against float64, 64
+chunks of 8,192 and of 65,536 samples (one K3 launch a chunk) against the
+batch apply with their throughput, and checkpoints resumed bit for bit.
 Beside each kernel's time it prints its bound (bytes or operations
 at the data sheet's rates) and, where one PyTorch call computes the same
 function, that call's time. Every phase prints one line; any failure raises
@@ -287,10 +296,10 @@ def kernel_modules():
                                       cuda_halo, cuda_masked, cuda_masked2d,
                                       cuda_nonuniform, cuda_resample,
                                       cuda_solve)
-    from savgol_tpu_torch.probes import bf16_1d, rowband2d
+    from savgol_tpu_torch.probes import bf16_1d, dma1d, rowband2d
     return (cuda_conv, cuda_bank, cuda_conv2d, cuda_solve, cuda_masked,
             cuda_masked2d, cuda_nonuniform, cuda_resample, cuda_halo,
-            bf16_1d, rowband2d)
+            bf16_1d, rowband2d, dma1d)
 
 
 def counted_all(run, want: dict, what: str):
@@ -2354,9 +2363,10 @@ def bf16_slice_1d(sgt, dev, card) -> list:
         "K1-bf16 f32 storage": (
             lambda: cc.savgol_polynomial_bf16_cuda(x32, w, ew, 12),
             lambda: cc.savgol_polynomial_bf16_plain(x32, w, ew, 12)),
-        "K2-bf16 symmetric": (
-            lambda: cc.savgol_padded_bf16_cuda(xb, w, "symmetric", 12),
-            lambda: cc.savgol_padded_bf16_plain(xb, w, "symmetric", 12)),
+        **{f"K2-bf16 {m}": (
+            lambda m=m: cc.savgol_padded_bf16_cuda(xb, w, m, 12),
+            lambda m=m: cc.savgol_padded_bf16_plain(xb, w, m, 12))
+           for m in ("symmetric", "wrap", "edge")},
         "K3-bf16": (lambda: cc.correlate_valid_bf16_cuda(xb, w),
                     lambda: cc.correlate_valid_bf16_plain(xb, w)),
     }
@@ -2400,6 +2410,15 @@ def bf16_slice_1d(sgt, dev, card) -> list:
     lib = cudnn_ms(lambda: torch.nn.functional.conv1d(x3, w3),
                    lambda: torch.nn.functional.conv2d(x4, w4))
     del x4
+    # K2-bf16's wrap and edge modes: one nn.Conv1d on bf16 with the same
+    # bf16 taps, circular / replicate padding (symmetric has none)
+    lib_pad = {}
+    for mode, pm in (("wrap", "circular"), ("edge", "replicate")):
+        conv = torch.nn.Conv1d(1, 1, 25, padding=12, padding_mode=pm,
+                               bias=False, device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            conv.weight.copy_(w3)
+            lib_pad[mode] = cuda_time_ms(lambda: conv(x3))
     b_bf = bound(4 * samples, 2 * 25 * samples, "bf16")
     b_f32 = bound(8 * samples, 2 * 25 * samples, "bf16")
     b3 = bound(2 * samples + 2 * B_FULL * (N_FULL - 24),
@@ -2416,8 +2435,9 @@ def bf16_slice_1d(sgt, dev, card) -> list:
         f"{k} {v:.4f} ms" for k, v in lib.items())
           + " (channels_last: a (1, 25) F.conv2d); bounds bf16 storage "
           f"{b_bf['bound_ms']:.4f} ms ({b_bf['bound_by']}), f32 storage "
-          f"{b_f32['bound_ms']:.4f} ms, K3-bf16 {b3['bound_ms']:.4f} ms "
-          f"[{card}]")
+          f"{b_f32['bound_ms']:.4f} ms, K3-bf16 {b3['bound_ms']:.4f} ms; "
+          f"nn.Conv1d on bf16 circular {lib_pad['wrap']:.4f} ms, replicate "
+          f"{lib_pad['edge']:.4f} ms [{card}]")
     for name, (k, p) in t.items():
         print(f"time {name} ({B_FULL}, {N_FULL}): kernel {k:.4f} ms = "
               f"{samples / k / 1e6:.2f} Gsamples/s; plain {p:.4f} ms "
@@ -2439,7 +2459,11 @@ def bf16_slice_1d(sgt, dev, card) -> list:
          "launches": launches["apply reflect bf16"]["sg1d_pad"],
          "max_abs_err": kerr["K2-bf16 symmetric"],
          "ms": t["K2-bf16 symmetric"][0],
-         "plain_ms": t["K2-bf16 symmetric"][1], **b_bf},
+         "plain_ms": t["K2-bf16 symmetric"][1], **b_bf,
+         "ms_by_mode": {m: t[f"K2-bf16 {m}"][0]
+                        for m in ("symmetric", "wrap", "edge")},
+         "library_wrap_ms": lib_pad["wrap"],
+         "library_replicate_ms": lib_pad["edge"]},
         {"name": "corr1d_valid_bf16", **rec,
          "source": "savgol_tpu_torch/csrc/corr1d_valid.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1098",
@@ -2738,6 +2762,237 @@ def probes_phase(dev, card) -> list:
                     "launches": l2[r["name"]]})
     return out
 
+
+
+# -- P1 and streaming ---------------------------------------------------------
+
+# the JAX probe's correctness geometries (B, N, ws, cols), rows 8
+# (benchmarks/probe_dma1d.py:214-215)
+P1_JAX_GEOMS = ((16, 4096, 25, 2048), (8, 5000, 25, 2048),
+                (16, 4333, 13, 1024), (8, 2100, 25, 1024))
+P1_N_OUT = 1 << 20             # the JAX bench: N = n_out + 128, aligned
+STREAM_T = 8192                # bench.py:713-716
+CHUNKS = ((64, 8192), (64, 65_536))   # run_benchmarks.py:146-150, README:347
+
+
+def p1_grid(dev) -> str:
+    """P1 against its plain version and bit for bit against K3 over the JAX
+    probe's geometries and ws in {3, 25, 65} x N of each residue mod 4 x
+    n_out full and shorter, one launch a call."""
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.probes import dma1d
+
+    rng = np.random.default_rng(36)
+    cases = [(B, N, ws, cols, 8) for B, N, ws, cols in P1_JAX_GEOMS]
+    cases += [(12, 4096 + r, ws, cols, 4) for r in range(4)
+              for ws in (3, 25, 65) for cols in (1024, 2048)]
+    worst, count = 0.0, 0
+    for B, N, ws, cols, rows in cases:
+        x = torch.from_numpy(rng.standard_normal((B, N))).to(dev,
+                                                             torch.float32)
+        w = torch.from_numpy(rng.standard_normal(ws)).to(dev, torch.float32)
+        for short in (0, 333):
+            n_out = N - ws + 1 - short
+            got, _ = counted_all(
+                lambda: dma1d.corr1d_dma_cuda(x, w, rows=rows, cols=cols,
+                                              n_out=n_out),
+                {"corr1d_dma": 1}, f"P1 B={B} N={N} ws={ws}")
+            want = dma1d.corr1d_dma_plain(x, w, rows=rows, cols=cols,
+                                          n_out=n_out)
+            e, sc = max_err(got, want)
+            require(e <= F32_TOL * sc, f"P1 B={B} N={N} ws={ws} cols={cols} "
+                    f"n_out={n_out}: {e:.3e} from plain")
+            require(torch.equal(got, cc.correlate_valid_cuda(x, w)[:, :n_out]),
+                    f"P1 B={B} N={N} ws={ws} cols={cols} n_out={n_out}: not "
+                    f"bit-equal to K3")
+            worst = max(worst, e / sc)
+            count += 1
+    return (f"P1 grid: {count} cases (the JAX probe's 4 geometries; ws 3, 25, "
+            f"65 x N mod 4 = 0..3 x cols 1024, 2048; n_out full and -333), "
+            f"worst scaled error vs plain {worst:.3e} (tol {F32_TOL}), all "
+            f"bit-equal to K3, 1 launch each")
+
+
+def p1_headline(dev, card) -> dict:
+    """P1 at the JAX bench's geometry (128 x (2^20 + 128) float32, n_out =
+    2^20, 25 taps) with its (rows, cols) variants, (256, 2048) at B = 256,
+    and N = 2^20 + 173, each held to its plain version and K3 and timed
+    beside K3, F.conv1d and the bound. Returns P1's kernel record."""
+    import savgol_tpu_torch as sgt
+    from savgol_tpu_torch.ops.weights import savgol_weights_np
+    from savgol_tpu_torch.probes import dma1d
+
+    g = torch.Generator(device=dev).manual_seed(37)
+    w = torch.from_numpy(savgol_weights_np(sgt.SavgolConfig(12, 4),
+                                           np.float64)[0]).to(dev,
+                                                              torch.float32)
+    x = torch.randn(B_FULL, P1_N_OUT + 128, generator=g, device=dev)
+    _, got = counted_all(lambda: dma1d.corr1d_dma_cuda(
+        x, w, rows=128, cols=2048, n_out=P1_N_OUT), {"corr1d_dma": 1},
+        "P1 headline")
+    recs = dma1d.measure(x, w, P1_N_OUT, [(r, c) for r, c, b in
+                                          dma1d.GEOMETRIES if b == B_FULL])
+    del x
+    x = torch.randn(2 * B_FULL, P1_N_OUT + 128, generator=g, device=dev)
+    recs += dma1d.measure(x, w, P1_N_OUT, [(256, 2048)])
+    del x
+    x = torch.randn(B_FULL, P1_N_OUT + 173, generator=g, device=dev)
+    recs += dma1d.measure(x, w, P1_N_OUT, [(128, 2048)])
+    del x
+    for r in recs:
+        print(f"time P1 rows={r['rows']} cols={r['cols']} ({r['B']}, "
+              f"{r['N']}) n_out={r['n_out']}: kernel {r['ms']:.4f} ms, K3 "
+              f"{r['k3_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), F.conv1d (TF32 "
+              f"off) {r['library_ms']:.4f} ms; vs plain "
+              f"{r['max_abs_err']:.3e}, bit-equal to K3 [{card}]")
+    head = recs[0]
+    return {"name": "corr1d_dma", "route": "cuda",
+            "source": "savgol_tpu_torch/csrc/probe_dma1d.cu",
+            "replaces": "benchmarks/probe_dma1d.py:185",
+            "launches": got["corr1d_dma"],
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "k3_ms")},
+            "variants": [{k: r[k] for k in ("rows", "cols", "B", "N", "ms",
+                                            "k3_ms", "bound_ms")}
+                         for r in recs]}
+
+
+def _resumed(state, run, tail):
+    """``run(state, tail)``'s emissions against the same run on ``state``
+    after torch.save / torch.load, bit for bit."""
+    import io
+    buf = io.BytesIO()
+    torch.save(state, buf)
+    buf.seek(0)
+    back = torch.load(buf, weights_only=False)
+    require(type(back) is type(state), "checkpoint type")
+    require(back[0].device == state[0].device, "checkpoint device")
+    require(torch.equal(run(state, tail), run(back, tail)),
+            f"{type(state).__name__} resumed differently after torch.save")
+
+
+def stream_phase(dev, card) -> str:
+    """Streaming on the card at the JAX benchmarks' sizes, SavgolConfig(12,
+    4): the push protocol over 8,192 samples in f32 and f64 against
+    Savgol1D.apply (conservation, no module kernel a push) and its host time
+    a push; ``stream_apply`` over 8,192 samples (one K3 launch) against
+    float64; 64 chunks of 8,192 and of 65,536 samples (one K3 launch a
+    chunk) against the batch apply, with throughput; checkpoints of both
+    states resumed bit for bit."""
+    import savgol_tpu_torch as sgt
+    from savgol_tpu_torch import stream as ts
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.ops.weights import savgol_weights_np
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, host_ms
+
+    cfg = sgt.SavgolConfig(12, 4)
+    n = cfg.half_window
+    rng = np.random.default_rng(38)
+    x_np = rng.standard_normal(STREAM_T)
+    parts = []
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, 1e-10)):
+        s = sgt.SavgolStream(cfg, dtype, device=dev)
+        x = torch.from_numpy(x_np).to(dev, dtype)
+        vals = x_np.astype(np.float32 if dtype == torch.float32 else
+                           np.float64).tolist()
+        t0 = time.perf_counter()
+        outs, _ = counted_all(
+            lambda: [s.push_full(v) for v in vals] + [s.flush()], {},
+            f"push_full {dtype}")
+        wall = time.perf_counter() - t0
+        y = torch.cat(outs)
+        require(y.numel() == STREAM_T == s.samples_output,
+                f"push {dtype}: {y.numel()} outputs for {STREAM_T} inputs")
+        e, sc = max_err(y, s.filter.apply(x))
+        require(e <= tol * sc, f"push {dtype} vs Savgol1D.apply: {e:.3e}")
+        hot = sgt.SavgolStream(cfg, dtype, device=dev)
+        for v in vals[:2 * n + 1]:
+            hot.push_full(v)
+        push = host_ms(lambda: hot.push_full(0.5), warmup=10, reps=100)
+        parts.append(f"{dtype}: {STREAM_T} pushes in {wall:.2f} s, vs apply "
+                     f"{e:.3e} (tol {tol} x {sc:.2f}), host {push:.4f} ms a "
+                     f"push_full")
+
+    # stream_apply: one K3 launch, against float64
+    f = sgt.Savgol1D.create(cfg, device=dev)
+    x = torch.from_numpy(x_np).to(dev, torch.float32)
+
+    def apply():
+        return ts.stream_apply(x, f.center_weights, f.edge_weights,
+                               half_window=n, dt_inv=f.dt_inv)
+
+    y, _ = counted_all(apply, {"corr1d_valid": 1}, "stream_apply")
+    c64, e64 = (torch.from_numpy(a).to(dev)
+                for a in savgol_weights_np(cfg, np.float64))
+    ref = cc.savgol_polynomial_plain(x.double()[None], c64, e64, n)[0]
+    e_apply = (y.double() - ref).abs().max().item()
+    require(y.shape == x.shape and e_apply <= GATE_ABS,
+            f"stream_apply vs f64: {e_apply:.3e}")
+    parts.append(f"stream_apply ({STREAM_T},) f32: 1 corr1d_valid, vs f64 "
+                 f"{e_apply:.3e} (gate {GATE_ABS}), "
+                 f"{cuda_time_ms(apply):.4f} ms device, "
+                 f"{host_ms(apply, reps=100):.4f} ms host")
+
+    # chunked: 64 chunks of C samples, one K3 launch a chunk
+    cw, ew, dt = f.center_weights, f.edge_weights, f.dt_inv
+    for k, C in CHUNKS:
+        chunks = torch.from_numpy(rng.standard_normal((k, C))).to(
+            dev, torch.float32)
+
+        def run(st, chs):
+            outs = []
+            for ch in chs:
+                st, o, c = ts.stream_process_chunk(st, ch, cw, ew, dt)
+                outs.append(o[:c])
+            return st, outs
+
+        st0 = ts.chunk_init(n, device=dev)
+        (st, outs), _ = counted_all(lambda: run(st0, chunks),
+                                    {"corr1d_valid": k},
+                                    f"{k} chunks of {C}")
+        counted_all(lambda: run(st0, chunks[:1]), {"corr1d_valid": 1},
+                    "one chunk")
+        got = torch.cat(outs)
+        flat = chunks.reshape(-1)
+        require(got.numel() == flat.numel() - n,
+                f"chunks of {C}: {got.numel()} outputs before the flush")
+        want = f.apply(flat)
+        e_chunk = (got - want[:flat.numel() - n]).abs().max().item()
+        require(e_chunk <= 1e-5, f"chunks of {C} vs batch: {e_chunk:.3e}")
+        _, tail, c = ts.stream_flush_chunked(st, ew, dt)
+        e_tail = (tail[:c] - want[-n:]).abs().max().item()
+        require(c == n and e_tail <= 1e-5, f"chunked flush: {e_tail:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(st0, chunks)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        parts.append(f"{k} chunks of {C}: 1 corr1d_valid a chunk, vs batch "
+                     f"{e_chunk:.3e} (gate 1e-5), "
+                     f"{k * C / sec / 1e6:.1f} Msamples/s, "
+                     f"{sec / k * 1e3:.4f} ms a chunk")
+
+    # checkpoints on the card, mid-stream
+    st = ts.stream_init(n, device=dev)
+    for v in x_np[:100].tolist():
+        st, _, _ = ts.stream_push_full(st, v, cw, ew, dt)
+
+    def pushes(state, vals):
+        outs = []
+        for v in vals:
+            state, o, c = ts.stream_push_full(state, v, cw, ew, dt)
+            outs.append(o[:c])
+        return torch.cat(outs)
+
+    _resumed(st, pushes, x_np[100:150].tolist())
+    cs, _ = run(ts.chunk_init(n, device=dev), chunks[:3])
+    _resumed(cs, lambda state, chs: torch.cat(run(state, chs)[1]),
+             chunks[3:6])
+    parts.append("StreamState and ChunkState resumed bit for bit after "
+                 "torch.save / torch.load on the card")
+    return "stream: " + "; ".join(parts) + f" [{card}]"
 
 
 def main() -> int:
@@ -3138,6 +3393,12 @@ def main() -> int:
     print(bf16_scipy(dev))
     t_probes = time.perf_counter()
     probe_kernels = probes_phase(dev, card)
+    # -- 36-38. P1 and streaming --------------------------------------------
+    t_p1 = time.perf_counter()
+    print(p1_grid(dev))
+    p1_kernel = p1_headline(dev, card)
+    t_stream = time.perf_counter()
+    print(stream_phase(dev, card))
     t_end = time.perf_counter()
     print(f"wall time: build and phases 3-11 {t_masked - t0:.1f} s, masked "
           f"phases 12-17 {t_nonuni - t_masked:.1f} s, irregular-sampling "
@@ -3149,7 +3410,9 @@ def main() -> int:
           f"window-101 phase 25 {t_ring - t_wide:.1f} s, sharded phases "
           f"26-29 {t_bf16 - t_ring:.1f} s, bf16 phases 30-34 "
           f"{t_probes - t_bf16:.1f} s (grids {t_bf16_slice - t_bf16:.1f}), "
-          f"probes phase 35 {t_end - t_probes:.1f} s")
+          f"probes phase 35 {t_p1 - t_probes:.1f} s, P1 phases 36-37 "
+          f"{t_stream - t_p1:.1f} s, streaming phase 38 "
+          f"{t_end - t_stream:.1f} s")
 
     kernels = [
         {"name": "sg1d_poly", "route": "cuda",
@@ -3178,7 +3441,7 @@ def main() -> int:
          "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1], **b2s,
          "library_ms": lib_2d},
     ] + (masked_kernels + nonuniform_kernels + bank_kernels + [halo_kernel]
-         + bf16_kernels + probe_kernels)
+         + bf16_kernels + probe_kernels + [p1_kernel])
     for rec in kernels:
         key = {"sg1d_poly": "K1", "sg1d_pad": "K2 symmetric",
                "corr1d_valid": "K3"}.get(rec["name"])

@@ -26,7 +26,10 @@ neighbours' memory by the ring halo-exchange kernel K13. ``method="bf16"``,
 the throughput mode, runs K1, K2, K3 and K2D-dense in their bf16 mode
 (bf16 operands, f32 sums) on every 1D and 2D entry point that takes a
 ``method``; ``savgol_tpu_torch.probes`` holds the kernels that attribute
-its time. The kernels are built with ``nvcc`` at their first call on a
+its time, and P1, the double-buffered VALID correlation. So is streaming:
+:class:`SavgolStream` and the functional ``stream_*`` core, whose chunked
+step and whole-sequence apply run the VALID correlation kernel K3. The
+kernels are built with ``nvcc`` at their first call on a
 CUDA tensor; CPU tensors take their plain PyTorch versions.
 
 Quick start::
@@ -41,6 +44,10 @@ Quick start::
     y = sgt.savgol_apply_nonuniform(x, t, half_window=12, poly_order=4)
     sm, vel, acc = sgt.SavgolBank.smooth_and_derivatives(
         12, 4, 2, device="cuda").apply(x)
+    s = sgt.SavgolStream(sgt.SavgolConfig(6, 3), device="cuda")
+    y = s.push_full(0.5)                    # emissions so far, on the card
+    for out in s.process_chunked(chunks):   # one K3 launch a chunk
+        ...
 
     # on each rank of an initialised process group, on its own block:
     from savgol_tpu_torch import parallel
@@ -62,7 +69,8 @@ from savgol_tpu_torch.config import (
     num_terms_2d,
     smooth,
 )
-from savgol_tpu_torch.models import Savgol1D, Savgol2D, SavgolBank
+from savgol_tpu_torch.models import (Savgol1D, Savgol2D, SavgolBank,
+                                     SavgolStream)
 from savgol_tpu_torch.ops.apply import savgol_apply, savgol_apply_valid
 from savgol_tpu_torch.ops.masked import (savgol2d_apply_masked,
                                          savgol_apply_masked)
@@ -75,6 +83,20 @@ from savgol_tpu_torch.ops.apply2d import (
     savgol2d_hessian,
     savgol2d_laplacian,
 )
+from savgol_tpu_torch.stream import (
+    ChunkState,
+    StreamState,
+    chunk_init,
+    stream_apply,
+    stream_flush,
+    stream_flush_chunked,
+    stream_flush_leading,
+    stream_init,
+    stream_process_chunk,
+    stream_push,
+    stream_push_full,
+    stream_reset,
+)
 from savgol_tpu_torch.ops.weights import (monomial_index,
                                           savgol2d_weights_np,
                                           savgol_all_weights_np,
@@ -86,7 +108,7 @@ __all__ = [
     "BoundaryMode", "Boundary2D", "SavgolConfig", "Savgol2DConfig",
     "MAX_HALF_WINDOW", "MAX_POLY_ORDER", "MAX_DERIVATIVE",
     "smooth", "deriv1", "deriv2", "num_terms_2d",
-    "Savgol1D", "Savgol2D", "SavgolBank",
+    "Savgol1D", "Savgol2D", "SavgolBank", "SavgolStream",
     "savgol_weights_np", "savgol_all_weights_np",
     "savgol2d_weights_np", "monomial_index",
     "savgol_apply", "savgol_apply_valid",
@@ -94,4 +116,8 @@ __all__ = [
     "savgol2d_hessian", "savgol2d_laplacian",
     "savgol_apply_masked", "savgol2d_apply_masked",
     "savgol_apply_nonuniform", "savgol_resample",
+    "StreamState", "stream_init", "stream_reset", "stream_push",
+    "stream_push_full", "stream_flush", "stream_flush_leading",
+    "stream_apply", "ChunkState", "chunk_init", "stream_process_chunk",
+    "stream_flush_chunked",
 ]

@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import (MAX_HALF_WINDOW, MAX_POLY_ORDER,
                                      PAD_MODE, BoundaryMode)
 from savgol_tpu_torch.ops.apply import _compute_dtype, correlate_bank
@@ -97,7 +98,9 @@ def savgol_weights_masked(n, m, derivative: int = 0, dtype=torch.float32, *,
     """Weights of the configurations (n, m) (ints, or equal-length integer
     tensors / sequences for a whole sweep): center (65,), lead (32, 65),
     trail (32, 65) each, padded and masked, with a leading (C,) axis for a
-    sequence. Computed in ``dtype`` on ``device``.
+    sequence. Computed in ``dtype`` on ``device``: by default the device of
+    ``n`` or ``m`` where either is a tensor, else the card (raising without
+    one; pass ``device="cpu"`` to compute on the CPU).
 
     * ``center[_M + i]`` weights x[j+i] for |i| <= n, zero outside.
     * ``trail[e]`` is the reference edge row (target t = n - e,
@@ -107,6 +110,10 @@ def savgol_weights_masked(n, m, derivative: int = 0, dtype=torch.float32, *,
       edge; see ``savgol_tpu_torch.ops.apply`` on the reference's
       odd-derivative sign flip).
     """
+    if device is None:
+        held = [v.device for v in (n, m) if isinstance(v, torch.Tensor)]
+        device = held[0] if held else card_unless_named(
+            None, "savgol_weights_masked")
     n = torch.as_tensor(n, device=device)
     m = torch.as_tensor(m, device=device)
     scalar = n.dim() == 0

@@ -29,6 +29,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import BoundaryMode
 from savgol_tpu_torch.ops.apply import (_correlate, _ensure_float, _scale_of,
                                         _use_kernel)
@@ -47,8 +48,9 @@ def make_mesh(axis_names=("batch", "seq"), shape=None, device_type=None):
 
     The default shape puts all ranks on the LAST axis (sequence sharding);
     pass ``shape`` to split, e.g. ``(2, 4)`` for 2-way batch x 4-way
-    sequence on 8 ranks. ``device_type`` defaults to ``"cuda"`` where a
-    card is present, else ``"cpu"``. Collective: every rank calls it.
+    sequence on 8 ranks. ``device_type`` defaults to ``"cuda"`` and raises
+    without a card; pass ``"cpu"`` for a mesh of CPU ranks. Collective:
+    every rank calls it.
     """
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -57,13 +59,8 @@ def make_mesh(axis_names=("batch", "seq"), shape=None, device_type=None):
                            "call torch.distributed.init_process_group first")
     if shape is None:
         shape = (1,) * (len(axis_names) - 1) + (dist.get_world_size(),)
-    if device_type is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_mesh builds a mesh of cards by default, and "
-                "torch.cuda.is_available() is False: pass device_type=\"cpu\" "
-                "for a mesh of CPU ranks")
-        device_type = "cuda"
+    device_type = card_unless_named(device_type, "make_mesh",
+                                    "device_type")
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axis_names))
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import BoundaryMode, SavgolConfig
 from savgol_tpu_torch.ops.apply import (_complex_split, _compute_dtype,
                                         _correlate, _ensure_float,
@@ -138,13 +139,8 @@ def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
     if isinstance(x, torch.Tensor):
         return _filter(x, window_length, polyorder, deriv, delta, axis, mode,
                        cval, method)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "savgol_filter computes input that is not a tensor on the "
-                "card by default, and torch.cuda.is_available() is False: "
-                "pass device=\"cpu\" to compute on the CPU")
-        device = "cuda"
+    device = card_unless_named(device, "savgol_filter on input that is not "
+                               "a tensor")
     y = _filter(torch.as_tensor(x, device=device), window_length, polyorder,
                 deriv, delta, axis, mode, cval, method)
     return y.cpu().numpy()

@@ -66,7 +66,7 @@ def test_weights_match_jax(jax_side, n, m, d):
     _, js, jnp = jax_side
     want = js.savgol_weights_masked(jnp.asarray(n), jnp.asarray(m), d,
                                     dtype=jnp.float64)
-    got = savgol_weights_masked(n, m, d, torch.float64)
+    got = savgol_weights_masked(n, m, d, torch.float64, device="cpu")
     for g, w in zip(got, want):
         w = np.asarray(w)
         _assert_close(g.numpy(), w)
@@ -82,7 +82,7 @@ def test_weights_vectorised_over_configs():
     for i in range(4):
         for a, b in zip((c[i], lead[i], trail[i]),
                         savgol_weights_masked(int(ns[i]), int(ms[i]), 1,
-                                              torch.float64)):
+                                              torch.float64, device="cpu")):
             assert torch.equal(a, b)
 
 
@@ -90,7 +90,8 @@ def test_weights_match_host_tables_and_mirror():
     """The window slice holds the static generator's stencil, and lead[e]
     is trail[e] mirrored with (-1)^d."""
     for n, m, d in ((6, 3, 1), (12, 4, 2), (30, 9, 3)):
-        c, lead, trail = savgol_weights_masked(n, m, d, torch.float64)
+        c, lead, trail = savgol_weights_masked(n, m, d, torch.float64,
+                                               device="cpu")
         c_ref, e_ref = sgt.savgol_weights_np(sgt.SavgolConfig(n, m, d),
                                              np.float64)
         np.testing.assert_allclose(c[M_ - n:M_ + n + 1].numpy(), c_ref,
@@ -103,13 +104,27 @@ def test_weights_match_host_tables_and_mirror():
             atol=1e-9)
 
 
+def test_weights_device_defaults_to_the_card():
+    """Integer configs name no device, so the weights go to the card: with
+    no card that raises and names ``device="cpu"`` instead of computing on
+    the CPU unasked. Tensor configs keep their own device."""
+    if not torch.cuda.is_available():
+        for n, m in ((12, 4), ([2, 5], [1, 3])):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                savgol_weights_masked(n, m)
+    c, _, _ = savgol_weights_masked(12, 4, device="cpu")
+    assert c.device.type == "cpu"
+    c, _, _ = savgol_weights_masked(torch.tensor([2, 5]), [1, 3])
+    assert c.device == torch.device("cpu") and c.shape == (2, 65)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 32])
 def test_no_nans_across_full_grid(n):
     """Every valid (n, m) gives finite weights: the k > m guard stops the
     invalid denominators' NaN from propagating."""
     ms = list(range(0, min(2 * n, 10) + 1))
     c, lead, trail = savgol_weights_masked([n] * len(ms), ms, 0,
-                                           torch.float32)
+                                           torch.float32, device="cpu")
     for a in (c, lead, trail):
         assert bool(torch.isfinite(a).all()), (n, ms)
 
