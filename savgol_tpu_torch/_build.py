@@ -90,12 +90,12 @@ _SIGNATURES = {
                      _LL, _P],
     "masked1d_f64": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _I, _D, _P,
                      _LL, _P],
-    # x, w, out, B, Rp, Cp, nx, ny, m, P, Sx, Sy, M, ftab, itab, kmin, fill,
-    # use_rcond, sqrt_rcond, stream
+    # x, w, out, B, Rp, Cp, nx, ny, m, P, Sx, Sy, M, nnz, ftab, itab, kmin,
+    # fill, use_rcond, sqrt_rcond, stream
     "masked2d_f32": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
-                     _P, _P, _I, _F, _I, _D, _P],
+                     _I, _P, _P, _I, _F, _I, _D, _P],
     "masked2d_f64": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, _I,
-                     _P, _P, _I, _D, _I, _D, _P],
+                     _I, _P, _P, _I, _D, _I, _D, _P],
     # x, w, t, out, B, N, t_stride, n, m, d, kmin, fill, sqrt_rcond,
     # emit_planes, scratch, scratch_threads, stream
     **{f"nonuniform_{x}_t{t}": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I,

@@ -6,10 +6,22 @@
 // algebra has one home on the card.
 //
 // A thread's Gram G (packed lower triangle, G[tri(i, j)], i >= j), right-hand
-// side, factor and vectors live in a workspace. The kernels give each thread
-// a local array of a compile-time size (kmax <= kLocalKmax) or, for larger k,
-// a slice of a scratch buffer in device memory, interleaved across threads so
-// that neighbouring threads touch neighbouring addresses (Span's stride).
+// side, factor and vectors live in a workspace W whose members G, L, r, dinv,
+// z, c, t, u each index like an array. factor / substitute / chol_solve are
+// templated on K, the size of the system when it is known at compile time:
+//
+//   K > 0  every loop unrolls, every tri(i, j) is a constant, and a member
+//          held as Regs<T, N> is a set of registers (never local memory); a
+//          member held as Strided<T, S> is shared memory laid out by thread
+//          (element e of thread t at e * S + t: a warp's lanes touch
+//          consecutive words). K9 keeps its whole workspace in registers;
+//          K10 keeps G in shared memory and the rest in registers.
+//   K = 0  the runtime form: k is an argument and the workspace is a Span
+//          (K8a; K9 and K10 past their compile-time sizes): a local array of
+//          a compile-time size (kmax <= kLocalKmax) or, for larger k, a slice
+//          of a scratch buffer in device memory, interleaved across threads
+//          (Span's stride). Its loops do not unroll, so its code is the
+//          runtime-k routine it always was.
 //
 // chol_solve follows lsq.py::cholesky_solve_planes step by step: positions
 // under quorum are solved against the identity; the unshifted factor is kept
@@ -18,10 +30,12 @@
 // code computes both factors and selects, where(finite0, L0, L1): the same
 // result, with one factor live instead of two); the optional rcond rule; a
 // forward and a back substitution; one step of refinement with a residual
-// compensated by TwoProd (an exact fma) and TwoSum. The error-free transforms
-// use __fmul_rn so that nvcc cannot contract a product into the following
-// add. Products elsewhere may contract into fma: a rounding difference from
-// the plain version, never a change of algorithm.
+// compensated by TwoProd (an exact fma) and TwoSum. Every product and sum
+// is rounded as the plain version rounds it (mul_rn and add_rn, which nvcc
+// cannot contract into an fma), so from the same stored G and r the solve
+// gives the plain version's coefficients bit for bit: on an ill-conditioned
+// window a contracted factor measured 1.7e-4 against K9's 2e-5 gate at
+// k = 9, where the refinement does not make up the difference.
 //
 // dd_chol_solve follows lsq.py::cholesky_solve_planes_dd in double-word
 // arithmetic on FP64 pairs (eps ~ 2^-106). K8b feeds it float32 (hi, lo)
@@ -95,22 +109,60 @@ __device__ __forceinline__ Span<T> thread_span(T* local, T* scratch) {
   return {scratch + tid, static_cast<long long>(gridDim.x) * blockDim.x};
 }
 
+// A workspace member held in registers: indexed only by constants once the
+// loops over it unroll.
+template <typename T, int N>
+struct Regs {
+  T v[N];
+  __device__ __forceinline__ T& operator[](int i) { return v[i]; }
+};
+
+// A workspace member in shared memory laid out by thread: element i of this
+// thread at p[i * S], p = base + threadIdx.x, S the block's thread count.
+// Volatile, so that each read is a load where the algorithm reads: merged
+// reads of one element (the residual reads each G entry twice) would hold
+// the values in registers across the solve and spill them.
+template <typename T, int S>
+struct Strided {
+  volatile T* p;
+  __device__ __forceinline__ volatile T& operator[](int i) const {
+    return p[i * S];
+  }
+};
+
+// The workspace of a system of compile-time size K: G as GS and L as LS
+// (registers or shared memory), the vectors in registers.
+template <typename T, int K, typename GS = Regs<T, packed(K)>,
+          typename LS = Regs<T, packed(K)>>
+struct FixedWork {
+  GS G;
+  LS L;
+  Regs<T, K> r, dinv, z, c, t, u;
+};
+
 // Factors G (+ shift on the diagonal) into L and 1/diag(L); returns whether
 // every 1/L_jj is finite.
-template <typename T>
-__device__ bool factor(int k, const Work<T>& w, T shift) {
+template <int K, typename T, typename W>
+__device__ __forceinline__ bool factor(int kk, W& w, T shift) {
+  const int k = K > 0 ? K : kk;
   bool finite = true;
+#pragma unroll
   for (int j = 0; j < k; ++j) {
     T s = w.G[tri(j, j)] + shift;
-    for (int p = 0; p < j; ++p) s = s - w.L[tri(j, p)] * w.L[tri(j, p)];
+#pragma unroll
+    for (int p = 0; p < j; ++p)
+      s = add_rn(s, -mul_rn(w.L[tri(j, p)], w.L[tri(j, p)]));
     const T d = sqrt(s);
     w.L[tri(j, j)] = d;
     const T di = T(1) / d;
     w.dinv[j] = di;
     finite = finite && isfinite(di);
+#pragma unroll
     for (int i = j + 1; i < k; ++i) {
       T t = w.G[tri(i, j)];
-      for (int p = 0; p < j; ++p) t = t - w.L[tri(i, p)] * w.L[tri(j, p)];
+#pragma unroll
+      for (int p = 0; p < j; ++p)
+        t = add_rn(t, -mul_rn(w.L[tri(i, p)], w.L[tri(j, p)]));
       w.L[tri(i, j)] = t * di;
     }
   }
@@ -118,38 +170,49 @@ __device__ bool factor(int k, const Work<T>& w, T shift) {
 }
 
 // L z = r, then L^T c = z.
-template <typename T>
-__device__ void substitute(int k, const Work<T>& w, Span<T> r, Span<T> c) {
+template <int K, typename W, typename R, typename C>
+__device__ __forceinline__ void substitute(int kk, W& w, R& r, C& c) {
+  const int k = K > 0 ? K : kk;
+#pragma unroll
   for (int i = 0; i < k; ++i) {
-    T s = r[i];
-    for (int j = 0; j < i; ++j) s = s - w.L[tri(i, j)] * w.z[j];
+    auto s = r[i];
+#pragma unroll
+    for (int j = 0; j < i; ++j) s = add_rn(s, -mul_rn(w.L[tri(i, j)], w.z[j]));
     w.z[i] = s * w.dinv[i];
   }
+#pragma unroll
   for (int i = k - 1; i >= 0; --i) {
-    T s = w.z[i];
-    for (int j = i + 1; j < k; ++j) s = s - w.L[tri(j, i)] * c[j];
+    auto s = w.z[i];
+#pragma unroll
+    for (int j = i + 1; j < k; ++j) s = add_rn(s, -mul_rn(w.L[tri(j, i)], c[j]));
     c[i] = s * w.dinv[i];
   }
 }
 
 // Solves G c = r for the G and r the caller wrote into w (raw, not
 // substituted); the solution is left in w.c. Returns ok: quorate and, with
-// use_rcond, identifiable.
-template <typename T>
-__device__ bool chol_solve(int k, bool quorum, bool use_rcond, T sqrt_rcond,
-                           const Work<T>& w) {
+// use_rcond, identifiable. K > 0 fixes k = K at compile time.
+template <int K, typename T, typename W>
+__device__ __forceinline__ bool chol_solve(int kk, bool quorum,
+                                           bool use_rcond, T sqrt_rcond,
+                                           W& w) {
+  const int k = K > 0 ? K : kk;
   T tr = w.G[0];
+#pragma unroll
   for (int j = 1; j < k; ++j) tr = tr + w.G[tri(j, j)];
   if (!quorum)
+#pragma unroll
     for (int i = 0; i < k; ++i)
+#pragma unroll
       for (int j = 0; j <= i; ++j) w.G[tri(i, j)] = i == j ? T(1) : T(0);
-  if (!factor(k, w, T(0)) && quorum)
-    factor(k, w, T(2.0 * k * (k + 1) * eps_of(T(0))) * fabs(tr));
+  if (!factor<K>(k, w, T(0)) && quorum)
+    factor<K>(k, w, mul_rn(T(2.0 * k * (k + 1) * eps_of(T(0))), T(fabs(tr))));
 
   bool ok = quorum;
   if (use_rcond) {
     bool finite = true;
     T dmin = w.L[0], dmax = fabs(w.L[0]);
+#pragma unroll
     for (int j = 0; j < k; ++j) {
       const T d = w.L[tri(j, j)];
       finite = finite && isfinite(d);
@@ -158,18 +221,22 @@ __device__ bool chol_solve(int k, bool quorum, bool use_rcond, T sqrt_rcond,
     }
     ok = quorum && finite && dmin > sqrt_rcond * fmax(dmax, T(1e-30));
     if (!ok) {
+#pragma unroll
       for (int j = 0; j < k; ++j) {
+#pragma unroll
         for (int i = j + 1; i < k; ++i) w.L[tri(i, j)] = T(0);
         w.dinv[j] = T(1);
       }
     }
   }
 
-  substitute(k, w, w.r, w.c);
+  substitute<K>(k, w, w.r, w.c);
   // residual r - G c, each product split exactly by fma and summed with
   // TwoSum, the rounding errors gathered apart
+#pragma unroll
   for (int i = 0; i < k; ++i) {
     T s = w.r[i], comp = T(0);
+#pragma unroll
     for (int j = 0; j < k; ++j) {
       const T g = i >= j ? w.G[tri(i, j)] : w.G[tri(j, i)];
       const T p = mul_rn(g, -w.c[j]);
@@ -182,7 +249,8 @@ __device__ bool chol_solve(int k, bool quorum, bool use_rcond, T sqrt_rcond,
     }
     w.t[i] = s + comp;
   }
-  substitute(k, w, w.t, w.u);
+  substitute<K>(k, w, w.t, w.u);
+#pragma unroll
   for (int i = 0; i < k; ++i) w.c[i] = w.c[i] + w.u[i];
   return ok;
 }

@@ -46,7 +46,7 @@ plane_solve_kernel(const T* __restrict__ gram, const T* __restrict__ rhs,
         w.G[tri(i, j)] = gram[pi[i * k + j] * pos + p];
       w.r[i] = rhs[i * pos + p];
     }
-    const bool ok = chol_solve(k, quorum[p] != 0, use_rcond != 0, sqrt_rcond,
+    const bool ok = chol_solve<0>(k, quorum[p] != 0, use_rcond != 0, sqrt_rcond,
                                w);
     for (int i = 0; i < k; ++i) coef[i * pos + p] = w.c[i];
     ok_out[p] = ok;

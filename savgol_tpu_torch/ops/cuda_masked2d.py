@@ -36,7 +36,13 @@ __all__ = ["LAUNCHES", "reset_launches", "fused2d_supported",
 # launches the kernel adds to its count.
 LAUNCHES = {"masked2d": 0}
 
-_TR, _TC = 8, 32            # masked2d.cu output tile
+_TR, _TC = 8, 32            # masked2d.cu output tile (the runtime instance)
+# comb entries at or under this size are rounding noise of the host
+# expansions (products of exactly-zero grid inner products, ~1e-35; the
+# meaningful ones are ~1e-2): tensor_tables_2d drops a moment no entry
+# passes it, and the kernel's tables drop the entries (119 of 1,409 kept at
+# 11x11, order 3), which moves a Gram entry by ~1e-33 of itself
+_COMB_ZERO = 1e-13
 
 
 def reset_launches() -> None:
@@ -144,11 +150,13 @@ def _extract_row(tables, deriv_x, deriv_y, delta_x, delta_y,
 @functools.lru_cache(maxsize=64)
 def _kernel_tables(nx: int, ny: int, m: int, dx: int, dy: int,
                    delta_x: float, delta_y: float, device):
-    """The kernel's (ftab, itab, (P, Sx, Sy, M)) on the device: PhiX^T,
+    """The kernel's (ftab, itab, (P, Sx, Sy, M, nnz)) on the device: PhiX^T,
     PhiY^T, the nonzero comb entries as CSR rows in the packed lower order
-    of the Gram, and the extraction row, in float64 (the kernel's
-    arithmetic for either input dtype); the moment and basis indices and
-    the CSR offsets and columns. Uploaded once per configuration."""
+    of the Gram, the extraction row and the same entries by moment (CSC, the
+    rows ascending within a moment), in float64 (the kernel's arithmetic for
+    either input dtype); the moment and basis indices, the CSR offsets and
+    columns and the CSC offsets and rows; entries under ``_COMB_ZERO`` are
+    left out. Uploaded once per configuration."""
     t = tensor_tables_2d(nx, ny, m)
     basis, pi, comb = t["basis"], t["pair_index"], t["comb"]
     P = len(basis)
@@ -156,19 +164,26 @@ def _kernel_tables(nx: int, ny: int, m: int, dx: int, dy: int,
     for a in range(P):
         for b in range(a + 1):
             row = comb[pi[a, b]]
-            nz = np.flatnonzero(row)
+            nz = np.flatnonzero(np.abs(row) > _COMB_ZERO)
             cols.extend(nz.tolist())
             vals.extend(row[nz].tolist())
             offs.append(len(cols))
+    rows = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
+    by_moment = np.lexsort((rows, cols))
+    moff = np.searchsorted(np.asarray(cols)[by_moment],
+                           np.arange(len(t["moments"]) + 1))
     extract = _extract_row(t, dx, dy, delta_x, delta_y, nx, ny)
     ftab = np.concatenate([t["PhiX"].T.ravel(), t["PhiY"].T.ravel(),
-                           np.asarray(vals, np.float64), extract])
+                           np.asarray(vals, np.float64), extract,
+                           np.asarray(vals, np.float64)[by_moment]])
     mom = np.asarray(t["moments"], np.int32).reshape(-1, 2)
     bas = np.asarray(basis, np.int32).reshape(-1, 2)
     itab = np.concatenate([mom[:, 0], mom[:, 1], bas[:, 0], bas[:, 1],
                            np.asarray(offs, np.int32),
-                           np.asarray(cols, np.int32)]).astype(np.int32)
-    dims = (P, t["PhiX"].shape[1], t["PhiY"].shape[1], len(t["moments"]))
+                           np.asarray(cols, np.int32), moff,
+                           rows[by_moment]]).astype(np.int32)
+    dims = (P, t["PhiX"].shape[1], t["PhiY"].shape[1], len(t["moments"]),
+            len(cols))
     return (torch.as_tensor(ftab, dtype=torch.float64, device=device),
             torch.as_tensor(itab, device=device), dims)
 
@@ -211,7 +226,7 @@ def savgol_masked2d_fused_cuda(
     if Rp * Cp >= 2 ** 31:
         raise ValueError(f"{name}: an image of {Rp} x {Cp} samples passes "
                          "the kernel's 32-bit in-image indices")
-    ftab, itab, (P, Sx, Sy, M) = _kernel_tables(
+    ftab, itab, (P, Sx, Sy, M, nnz) = _kernel_tables(
         nx, ny, m, int(deriv_x), int(deriv_y), float(delta_x),
         float(delta_y), xv.device)
     if P > LOCAL_KMAX:
@@ -232,7 +247,7 @@ def savgol_masked2d_fused_cuda(
     fn = lib.masked2d_f32 if xv.dtype == torch.float32 else lib.masked2d_f64
     with torch.cuda.device(xv.device):
         err = fn(xv.data_ptr(), wp.data_ptr(), out.data_ptr(), B, Rp, Cp, nx,
-                 ny, m, P, Sx, Sy, M, ftab.data_ptr(), itab.data_ptr(),
+                 ny, m, P, Sx, Sy, M, nnz, ftab.data_ptr(), itab.data_ptr(),
                  int(kmin), float(fill), 1, math.sqrt(rcond),
                  torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, name)

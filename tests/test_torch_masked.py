@@ -376,6 +376,59 @@ def test_cuda_k9_any_order(cuda, n, m, frac, boundary, dtype):
     _compare(got, want, tol, where=well)
 
 
+# k = m + 1 from 1 to 8 on K9's compile-time instances (n = 12: the window
+# fixed too), each boundary and weights; k = 9 and stencils past shared
+# memory (n = 320 in f64) on the runtime instance, either side of the split
+K9_INSTANCES = [(2, 0, 0, "truncate", False), (3, 1, 1, "constant", True),
+                (4, 2, 2, "reflect", False), (5, 3, 1, "periodic", True),
+                (12, 4, 0, "truncate", True), (12, 5, 1, "constant", False),
+                (6, 6, 2, "reflect", True), (12, 7, 0, "periodic", False),
+                (9, 7, 1, "truncate", True), (12, 8, 0, "reflect", False),
+                (320, 7, 0, "reflect", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d,boundary,weighted", K9_INSTANCES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_k9_instances(cuda, n, m, d, boundary, weighted, dtype):
+    # an odd length: the last block of 128 outputs is partial
+    rng = np.random.default_rng(100 * n + m)
+    x = _holed(rng, (2, 4 * n + 301), frac=0.12).astype(dtype)
+    wts = None
+    if weighted:
+        wts = np.where(np.isfinite(x), rng.uniform(0.2, 2.0, x.shape),
+                       0.0).astype(dtype)
+    c9.reset_launches()
+    got, want = _card_pair(cuda, x, wts, half_window=n, poly_order=m,
+                           derivative=d, time_step=0.5, boundary=boundary)
+    assert c9.LAUNCHES["masked1d"] == 1
+    well = _coverage(np.isfinite(x), n) >= 0.7 * (2 * n + 1)
+    _compare(got, want, F32_TOL if dtype == np.float32 else F64_TOL,
+             where=well)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(4, 2), (6, 3), (12, 4)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cuda_k9_r1_gates_on_each_instance(cuda, n, m, weighted):
+    # tests/test_fused_masked.py's two gates (test_weighted,
+    # test_odd_length_partial_block), everywhere, with each data on each
+    # of their windows and on the path's (n = 12: the window fixed too)
+    rng = np.random.default_rng(7 if weighted else 13)
+    x = _holed(rng, (2, 400) if weighted else (1, 131), dtype=np.float32)
+    wts = None
+    if weighted:
+        wts = np.where(np.isfinite(x), rng.uniform(0.2, 2.0, x.shape),
+                       0.0).astype(np.float32)
+    got, want = _card_pair(cuda, x, wts, half_window=n, poly_order=m)
+    if weighted:
+        _compare(got, want, F32_TOL)
+    else:
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), fin)
+        assert np.abs(got[fin] - want[fin]).max() <= 2e-5
+
+
 @pytest.mark.cuda
 def test_cuda_qr_and_fill(cuda):
     from savgol_tpu_torch.ops import cuda_solve as cs

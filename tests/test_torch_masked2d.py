@@ -163,6 +163,43 @@ def test_comb_reconstructs_every_pair_stencil(nx, ny, m):
             assert np.abs(rec - pair).max() <= 1e-10
 
 
+@pytest.mark.parametrize("nx,ny,m", TABLE_CASES)
+def test_kernel_tables_by_moment_sum_as_by_row(nx, ny, m):
+    # K10's tables: the comb entries the kernels read (those past
+    # _COMB_ZERO) still rebuild every pair stencil; the by-moment copy holds
+    # the same entries, and scattering each moment into the Gram in moment
+    # order (the compile-time instances) gives the by-row sums (the runtime
+    # instance) bit for bit
+    ftab, itab, (P, Sx, Sy, M, nnz) = c10._kernel_tables(
+        nx, ny, m, 0, 0, 1.0, 1.0, torch.device("cpu"))
+    f, i = ftab.numpy(), itab.numpy()
+    t = c10.tensor_tables_2d(nx, ny, m)
+    kp, wx, wy = P * (P + 1) // 2, 2 * nx + 1, 2 * ny + 1
+    base = 2 * M + 2 * P
+    coff, cidx = i[base:base + kp + 1], i[base + kp + 1:base + kp + 1 + nnz]
+    moff, crow = i[base + kp + 1 + nnz:-nnz], i[-nnz:]
+    by_row = f[Sx * wx + Sy * wy:Sx * wx + Sy * wy + nnz]
+    by_moment = f[-nnz:]
+    assert len(moff) == M + 1 and coff[-1] == moff[-1] == nnz
+    dense = np.zeros((kp, M))
+    for e in range(kp):
+        dense[e, cidx[coff[e]:coff[e + 1]]] = by_row[coff[e]:coff[e + 1]]
+    kept = np.abs(t["comb"]) > c10._COMB_ZERO
+    order = [t["pair_index"][a, b] for a in range(P) for b in range(a + 1)]
+    np.testing.assert_array_equal(dense, np.where(kept, t["comb"], 0)[order])
+    assert np.abs(np.where(kept, 0, t["comb"])).max() <= c10._COMB_ZERO
+    moments = np.random.default_rng(nx + 10 * m).standard_normal(M) * 50
+    gather = np.zeros(kp)
+    for e in range(kp):
+        for q in range(coff[e], coff[e + 1]):
+            gather[e] = gather[e] + by_row[q] * moments[cidx[q]]
+    scatter = np.zeros(kp)
+    for mi in range(M):
+        for q in range(moff[mi], moff[mi + 1]):
+            scatter[crow[q]] = scatter[crow[q]] + by_moment[q] * moments[mi]
+    np.testing.assert_array_equal(scatter, gather)
+
+
 def test_fused2d_supported_matches_jax():
     jp = pytest.importorskip("savgol_tpu.ops.pallas_masked2d")
     for nx in range(1, 5):
@@ -460,6 +497,37 @@ def test_cuda_k10_weighted_and_f64(cuda):
         assert ok.mean() > 0.9
         assert np.abs(got - want)[ok].max() < (1e-4 if dtype == np.float32
                                                else 1e-10)
+
+
+# K10's compile-time instances P = 1, 3, 6, 10 (the path's 11 x 11, order
+# 3), 15, with derivatives and weights; P = 21 and 28 on the runtime
+# instance, the other side of the split
+K10_INSTANCES = [(1, 1, 0, 0, 0, False), (1, 2, 1, 1, 0, True),
+                 (2, 3, 2, 0, 1, False), (5, 5, 3, 0, 0, True),
+                 (5, 5, 3, 1, 1, False), (3, 6, 4, 2, 0, True),
+                 (5, 5, 4, 0, 1, False), (4, 4, 5, 1, 0, False),
+                 (11, 11, 6, 0, 0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx,ny,m,dx,dy,weighted", K10_INSTANCES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_k10_instances(cuda, nx, ny, m, dx, dy, weighted, dtype):
+    rng = np.random.default_rng(10 * nx + m)
+    x = _holed(rng, (2, 4 * ny + 19, 4 * nx + 67), frac=0.1, dtype=dtype)
+    w = None
+    if weighted:
+        w = np.where(np.isfinite(x), rng.uniform(0.2, 2.0, x.shape),
+                     0.0).astype(dtype)
+    c10.reset_launches()
+    got, want = _card(cuda, x, w, half_window_x=nx, half_window_y=ny,
+                      poly_order=m, deriv_x=dx, deriv_y=dy, delta_x=0.5,
+                      delta_y=2.0)
+    assert c10.LAUNCHES["masked2d"] == 1
+    well = _coverage(np.isfinite(x), nx, ny) >= 0.7 * (2 * nx + 1) * (
+        2 * ny + 1)
+    _compare(got, want, 5e-5 if dtype == np.float32 else 1e-9, where=well,
+             decided=well)
 
 
 @pytest.mark.cuda
