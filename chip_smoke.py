@@ -27,7 +27,8 @@ and query sets; ``savgol_apply_nonuniform`` and ``savgol_resample`` at
 launches counted; gradients; and timings, K11 also at the 1D headline
 batch. Then the padded-boundary and filter-bank paths: the fused-pad apply
 K2 and the K-stencil bank K4 against their plain versions over grids of
-windows, pad modes, bank sizes, shapes and dtypes; the padded
+windows, pad modes, bank sizes, shapes and dtypes (K4 also on rows with NaN
+and inf samples, whose pattern must match exactly); the padded
 ``Savgol1D.apply``, ``SavgolBank.smooth_and_derivatives(12, 4, 2)`` and the
 (n, m) sweep at full size against float64, ``scipy_compat.savgol_filter`` in
 all five modes against scipy, each entry point's launches counted;
@@ -43,10 +44,12 @@ four ways against the single-device apply and float64, and
 ``apply2d_sharded`` on the 2D headline by rows and by 2 x 2 tiles, each
 call's launches counted on every rank; float64 gradients through K13; and
 timings by rank; the same four ranks with ``method="bf16"``.
-Then ``method="bf16"``: K1, K2, K3 and K2D-dense in their bf16 mode against
+Then ``method="bf16"``: K1, K2, K3 and K2D-dense in their bf16 mode (in 2D
+on the tensor cores, ``csrc/corr2d_bf16_mma.cu``) against
 their bf16 plain versions over grids of windows (to 129 taps in 1D, 33 x 33
 in 2D), batches, lengths, boundaries, stacks and f32 / bf16 storage (one
-bf16 ulp; 2D f32 sums 2e-6 scaled); the 1D and 2D headlines in bf16 through
+bf16 ulp; 2D f32 sums 2e-6 scaled, 1e-5 at random stencils); the 1D and 2D
+headlines in bf16 through
 ``Savgol1D.apply`` / ``apply_valid`` (all four boundaries), ``Savgol2D.apply``
 and ``savgol2d_hessian``, each one launch, within ``bench.py``'s 5e-3
 contract of float64; ``scipy_compat`` in bf16 against scipy; f64 gradients;
@@ -1323,6 +1326,9 @@ K4_KS = (1, 3, 6, 17, 40)
 K4_WS = (3, 25, 65)
 # (B, N): a row shorter than the sweep's pad of 32, an odd length, a wide one
 K4_SHAPES = ((1, 20), (3, 4099), (16, 65_537))
+# non-finite samples: a row's first, mid-tile, both sides of a tile border
+# (K4's tiles are 1024 outputs), its last
+K4_BAD_AT = (0, 511, 1023, 1024, 2560, 4098)
 # bench.py:671-673's sweep row
 SWEEP_X = (4_194_304,)
 SWEEP_NS, SWEEP_MS = [4, 8, 12, 16, 24, 32], [2, 3, 4, 4, 5, 6]
@@ -1381,15 +1387,18 @@ def k2_grid(sgt, dev) -> str:
 def k4_grid(dev) -> str:
     """K4 against its plain version over K x ws x staging (VALID, zeros,
     edge, symmetric and wrap by the half window, symmetric by the sweep's
-    32) x (B, N) x dtype."""
+    32) x (B, N) x dtype; then rows with NaN and inf samples through the
+    sweep's stacks and stencils with zero taps at their ends (a tile with a
+    non-finite sample runs every tap, as the plain version does)."""
     from savgol_tpu_torch.ops import cuda_bank as cb
     gen = torch.Generator(device=dev).manual_seed(22)
     worst = {torch.float32: 0.0, torch.float64: 0.0}
-    cases = 0
+    cases = bad = 0
     cb.reset_launches()
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         xs = [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
               for shape in K4_SHAPES]
+        x_bad = k4_nonfinite_input(gen, dev, dtype)
         for K in K4_KS:
             for ws in K4_WS:
                 h = (ws - 1) // 2
@@ -1410,13 +1419,66 @@ def k4_grid(dev) -> str:
                                 f"{dtype}: {e:.3e}")
                         worst[dtype] = max(worst[dtype], e / sc)
                         cases += 1
+        for w in k4_nonfinite_stacks(gen, dev, dtype):
+            for pad, mode in ((32, None), (32, "symmetric"), (0, None)):
+                e, sc = k4_nonfinite_check(
+                    cb.correlate_valid_bank_cuda(x_bad, w, pad, mode),
+                    cb.bank_correlate_plain(x_bad, w, pad, mode),
+                    f"K4 non-finite K={w.shape[0]} pad={pad} {mode} {dtype}")
+                require(e <= tol * sc, f"K4 non-finite K={w.shape[0]} "
+                        f"pad={pad} {mode} {dtype}: {e:.3e}")
+                worst[dtype] = max(worst[dtype], e / sc)
+                cases += 1
+                bad += 1
     torch.cuda.synchronize()
     require(cb.LAUNCHES["corr1d_bank"] == cases,
             f"K4 grid launched {cb.LAUNCHES}, expected {cases}")
     return (f"K4 grid: {cases} cases (K {K4_KS} x ws {K4_WS} x 6 stagings x "
-            f"{K4_SHAPES} x f32/f64), worst scaled error "
-            f"f32={worst[torch.float32]:.3e} f64={worst[torch.float64]:.3e} "
-            f"(tol {F32_TOL}, {F64_TOL}), launches {dict(cb.LAUNCHES)}")
+            f"{K4_SHAPES} x f32/f64; {bad} with NaN / inf samples at "
+            f"{K4_BAD_AT}, the sweep's stack and {K4_KS[-1]} random 65-tap "
+            f"stencils with zeroed ends: non-finite pattern exact), worst "
+            f"scaled error f32={worst[torch.float32]:.3e} "
+            f"f64={worst[torch.float64]:.3e} (tol {F32_TOL}, {F64_TOL}), "
+            f"launches {dict(cb.LAUNCHES)}")
+
+
+def k4_nonfinite_input(gen, dev, dtype) -> torch.Tensor:
+    """Rows of 4099 random samples, each but the last with one non-finite
+    sample (NaN, +inf or -inf) at one of ``K4_BAD_AT``; the last holds +inf
+    and -inf 10 samples apart, whose sum is NaN."""
+    vals = (float("nan"), float("inf"), float("-inf"))
+    x = torch.randn(len(K4_BAD_AT) * len(vals) + 1, 4099, generator=gen,
+                    device=dev, dtype=dtype)
+    for i, (j, v) in enumerate((j, v) for j in K4_BAD_AT for v in vals):
+        x[i, j] = v
+    x[-1, 1500], x[-1, 1510] = float("inf"), float("-inf")
+    return x
+
+
+def k4_nonfinite_stacks(gen, dev, dtype) -> list:
+    """The sweep's centred stencils (zero outside each window) and
+    ``K4_KS[-1]`` random 65-tap stencils whose first and last taps are
+    zeroed, by how many the stencil's index says."""
+    from savgol_tpu_torch.ops.sweep import savgol_weights_masked
+    center = savgol_weights_masked(SWEEP_NS, SWEEP_MS, 1, dtype,
+                                   device=dev)[0]
+    K = K4_KS[-1]
+    w = torch.randn(K, 65, generator=gen, device=dev, dtype=dtype)
+    t = torch.arange(65, device=dev)
+    k = torch.arange(K, device=dev)[:, None]
+    return [center, torch.where((t < k % 33) | (t >= 65 - k % 17), 0.0, w)]
+
+
+def k4_nonfinite_check(got, want, what) -> tuple[float, float]:
+    """NaN, +inf and -inf exactly where the plain version has them; the
+    (max abs error, scale) of the finite outputs."""
+    for name, f in (("NaN", torch.isnan), ("+inf", torch.isposinf),
+                    ("-inf", torch.isneginf)):
+        require(torch.equal(f(got), f(want)), f"{what}: {name} pattern "
+                f"differs in {int((f(got) != f(want)).sum())} outputs")
+    fin = torch.isfinite(want)
+    require(int(fin.sum()) < want.numel(), f"{what}: nothing non-finite")
+    return max_err(got[fin], want[fin])
 
 
 def cat_pad(x: torch.Tensor, n: int, mode: str) -> torch.Tensor:
@@ -1699,6 +1761,8 @@ def bank_slice(sgt, dev, card) -> list:
             x3, wdt.view(3, 1, 25), padding=12))
         lib["sweep"] = cuda_time_ms(lambda: F.conv1d(
             xs.view(1, 1, -1), center.view(6, 1, 65), padding=32))
+        lib["sweep 128x1M"] = cuda_time_ms(lambda: F.conv1d(
+            x3, center.view(6, 1, 65), padding=32), warmup=1, reps=5)
     torch.backends.cudnn.allow_tf32 = tf32
     samples = B_FULL * N_FULL
     taps = sum(2 * n + 1 for n in SWEEP_NS)
@@ -1715,7 +1779,8 @@ def bank_slice(sgt, dev, card) -> list:
           f"{b4_64['bound_ms']:.4f} {b4_64['bound_by']}), sweep {SWEEP_X} "
           f"{b_sw['bound_ms']:.4f} ({b_sw['bound_by']}; {taps} taps a "
           f"sample), sweep ({B_FULL}, {N_FULL}) {b_swh['bound_ms']:.4f} "
-          f"[{card}]")
+          f"({b_swh['bound_by']}; F.conv1d 6 x 65 taps there "
+          f"{lib['sweep 128x1M']:.4f} ms) [{card}]")
     return [
         {"name": "sg1d_pad", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/sg1d_poly.cu",
@@ -1739,7 +1804,9 @@ def bank_slice(sgt, dev, card) -> list:
          "sweep_ms": t["K4 sweep 4M"][0],
          "sweep_plain_ms": t["K4 sweep 4M"][1],
          "sweep_bound_ms": b_sw["bound_ms"], "sweep_library_ms": lib["sweep"],
-         "sweep_headline_ms": t["K4 sweep 128x1M"][0]},
+         "sweep_headline_ms": t["K4 sweep 128x1M"][0],
+         "sweep_headline_bound_ms": b_swh["bound_ms"],
+         "sweep_headline_library_ms": lib["sweep 128x1M"]},
     ]
 
 
@@ -2282,7 +2349,8 @@ def bf16_grid_2d(dev) -> str:
     """K2D-dense in its bf16 mode against its plain version over every 2D
     window up to 33 x 33, the four boundaries, stacks K = 1 and 3, three
     images and both storages (f32 output within 2e-6 scaled, bf16 output
-    one bf16 ulp)."""
+    one bf16 ulp); then random stencils of every window on the first image,
+    f32 output within F32_TOL_2D."""
     from savgol_tpu_torch.ops import cuda_conv2d as c2
     from savgol_tpu_torch.ops.apply2d import _stencil_stack
     rng = np.random.default_rng(12)
@@ -2314,6 +2382,23 @@ def bf16_grid_2d(dev) -> str:
                              else ulp_check(got, want, what))
                         worst[storage] = max(worst[storage], e)
                         cases += 1
+    # random N(0, 1) stencils: partial sums far above the result, where the
+    # tensor cores' f32 sums meet F32_TOL_2D (tests/test_torch_bf16_2d.py)
+    x = torch.from_numpy(rng.standard_normal(IMAGES_2D[0],
+                                             dtype=np.float32)).to(dev)
+    rand_worst = {}
+    for H, W in WINDOWS_2D:
+        w = torch.from_numpy(rng.standard_normal(
+            (H, W), dtype=np.float32)).to(dev)
+        for bnd, pm in modes.items():
+            got = c2.correlate2d_valid_bf16_cuda(x, w, pm)
+            want = c2.correlate2d_valid_bf16_plain(x, w, pm)
+            e, sc = max_err(got, want)
+            require(e <= F32_TOL_2D * sc, f"K2D-dense-bf16 random {H}x{W} "
+                    f"{bnd}: {e:.3e} (scale {sc:.3e})")
+            rand_worst[f"{H}x{W}"] = max(rand_worst.get(f"{H}x{W}", 0.0),
+                                         e / sc)
+            cases += 1
     torch.cuda.synchronize()
     require(c2.LAUNCHES["corr2d_valid"] == cases and
             c2.LAUNCHES["corr2d_sep"] == 0,
@@ -2321,7 +2406,10 @@ def bf16_grid_2d(dev) -> str:
     return (f"bf16 2D grid: {cases} cases (windows 3x3-33x33, K = 1 / 3, "
             f"four boundaries); max abs error f32 output "
             f"{worst[torch.float32]:.3e} (tol {F32_TOL} scaled), bf16 output "
-            f"{worst[torch.bfloat16]:.3e} (one bf16 ulp)")
+            f"{worst[torch.bfloat16]:.3e} (one bf16 ulp); random stencils, "
+            f"f32 output, worst scaled error by window "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rand_worst.items())
+            + f" (tol {F32_TOL_2D})")
 
 
 def _contract(got, ref, what) -> float:
@@ -2588,8 +2676,9 @@ def bf16_slice_2d(sgt, dev, card) -> list:
                     lambda: conv(img4c, wb3c, padding=5))
     del img4c
     # the FMAs at the bf16 tensor-core peak bound the function; the same
-    # FMAs at the f32 peak of the CUDA cores, which K2D-dense runs on, are
-    # kept beside it as cuda_core_ms
+    # FMAs at the f32 peak of the CUDA cores, which the exact K2D-dense runs
+    # on (the bf16 mode runs on the tensor cores), are kept beside it as
+    # cuda_core_ms
     fma = 2 * 121 * pix
     b_bf = bound(4 * pix, fma, "bf16")
     b_f32 = bound(8 * pix, fma, "bf16")
@@ -2615,7 +2704,8 @@ def bf16_slice_2d(sgt, dev, card) -> list:
     for name, (k, p) in t.items():
         print(f"time {name} {IMG_FULL} 11x11: kernel {k:.4f} ms = "
               f"{pix / k / 1e6:.2f} Gpix/s; plain {p:.4f} ms [{card}]")
-    rec = {"route": "cuda", "source": "savgol_tpu_torch/csrc/corr2d_valid.cu"}
+    rec = {"route": "cuda",
+           "source": "savgol_tpu_torch/csrc/corr2d_bf16_mma.cu"}
     return [
         {"name": "corr2d_valid_bf16", **rec,
          "replaces": "savgol_tpu/ops/pallas_conv.py:1547",
@@ -2776,7 +2866,7 @@ def probes_phase(dev, card) -> list:
                     "launches": l3[r["name"]]})
     for r in r2:
         src = ("probe_rowband2d.cu" if r["name"] == "B_alignctl"
-               else "corr2d_valid.cu")
+               else "corr2d_bf16_mma.cu")
         out.append({**r, "name": f"probe_rowband2d {r['name']}",
                     "route": "cuda", "source": f"savgol_tpu_torch/csrc/{src}",
                     "replaces": "benchmarks/probe_rowmxu.py:101",

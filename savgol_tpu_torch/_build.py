@@ -29,10 +29,10 @@ _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "savgol_tpu_torch"
 _SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr1d_bank.cu",
-            "corr2d_valid.cu", "corr2d_sep.cu", "plane_solve.cu",
-            "masked1d.cu", "masked2d.cu", "nonuniform.cu", "resample.cu",
-            "halo_ring.cu", "probe_bf16_1d.cu", "probe_rowband2d.cu",
-            "probe_dma1d.cu")
+            "corr2d_valid.cu", "corr2d_bf16_mma.cu", "corr2d_sep.cu",
+            "plane_solve.cu", "masked1d.cu", "masked2d.cu", "nonuniform.cu",
+            "resample.cu", "halo_ring.cu", "probe_bf16_1d.cu",
+            "probe_rowband2d.cu", "probe_dma1d.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 

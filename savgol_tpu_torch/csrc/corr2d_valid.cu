@@ -34,25 +34,16 @@
 // generalised to 4 output rows measured 9-28% slower in this kernel on an
 // H100 (f32, 11 x 11 to 33 x 33, K = 1 and 3).
 //
-// method="bf16" (corr2d_valid_bf16) is the same kernel with sgt::Bf16Sum
-// (stencil_tile.cuh): it replaces K6a/K6b on bf16 operands at single-pass
-// MXU precision (correlate2d_valid_pallas_rowmxu :1580,
-// savgol2d_same_pallas_rowmxu :1622, correlate2d_valid_pallas_rowmxu_stack
-// :1749 with mxu_precision=DEFAULT). Samples are rounded to bf16 as they are
-// staged, the taps are bf16 values held in f32, the sums f32; f32 storage
-// gets the f32 sum unrounded, bf16 storage the sum rounded to bf16. On these
-// CUDA cores the mode does the same FMAs as f32: at 11 x 11 it stays bound
-// by them (0.242 ms at the 2D headline, derived), so it cannot beat the
-// exact kernel here; the TPU's gain came from its matrix unit. A tensor-core
-// (mma / wgmma bf16) form is later work.
+// method="bf16" (corr2d_valid_bf16, the replacement of K6a/K6b on bf16
+// operands) runs on the tensor cores in corr2d_bf16_mma.cu, with its own
+// tile and staging; the instances here are the exact f32 and f64 ones.
 #include "stencil2d.cuh"
 
 namespace {
 
 using namespace sgt2d;
 
-// IO: sgt::AsStored (In = T: f32 or f64) or sgt::Bf16Sum (In f32 or bf16,
-// T = float: method="bf16").
+// IO: sgt::AsStored (In = T: f32 or f64).
 template <typename IO, typename In, typename T>
 __global__ void __launch_bounds__(kThreads)
 corr2d_valid_kernel(const In* __restrict__ x, const T* __restrict__ w,
@@ -166,19 +157,4 @@ extern "C" int corr2d_valid_f64(const double* x, const double* w,
                                 long long C, long long K, long long H,
                                 long long W, int mode, void* stream) {
   return launch<sgt::AsStored>(x, w, out, B, R, C, K, H, W, mode, stream);
-}
-
-// method="bf16": x and out in f32 (bf16_storage = 0) or bf16 (1) storage,
-// w (K, H, W) bf16 values held in f32.
-extern "C" int corr2d_valid_bf16(const void* x, const float* w, void* out,
-                                 long long B, long long R, long long C,
-                                 long long K, long long H, long long W,
-                                 int mode, int bf16_storage, void* stream) {
-  if (bf16_storage)
-    return launch<sgt::Bf16Sum>(static_cast<const __nv_bfloat16*>(x), w,
-                                static_cast<__nv_bfloat16*>(out), B, R, C, K,
-                                H, W, mode, stream);
-  return launch<sgt::Bf16Sum>(static_cast<const float*>(x), w,
-                              static_cast<float*>(out), B, R, C, K, H, W,
-                              mode, stream);
 }

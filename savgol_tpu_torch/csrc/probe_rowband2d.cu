@@ -1,23 +1,27 @@
-// P2: an attribution probe of the bf16 dense 2D correlation (K2D-dense with
-// sgt::Bf16Sum, corr2d_valid.cu). It replaces the TPU probe
+// P2: an attribution probe of the bf16 dense 2D correlation (K2D-dense's
+// bf16 mode, corr2d_valid_bf16). It replaces the TPU probe
 // benchmarks/probe_rowmxu.py::_variant_kernel [pl.pallas_call :101], whose
-// variants each remove one cost term of the TPU's row-banded kernel. Its
-// terms were the matrix unit's output-side and input-side shifts, which CUDA
-// cores do not have; each variant here keeps its purpose, removing one cost
-// term of K2D-dense-bf16, not its layout:
+// variants each remove one cost term of the TPU's row-banded kernel. Each
+// variant here keeps its purpose:
 //
-//   A_lib       K2D-dense-bf16 itself (corr2d_valid_bf16): no code here.
-//   B_alignctl  this file: K2D-dense-bf16's tiles, staging and FMAs, but
+//   A_lib       K2D-dense-bf16 itself (corr2d_valid_bf16, the row-band
+//               products on the tensor cores, corr2d_bf16_mma.cu): no code
+//               here.
+//   B_alignctl  this file: the CUDA-core tiles, staging (stencil2d.cuh
+//               stage_tile with sgt::Bf16Sum) and FMAs of K2D-dense, but
 //               every stencil row reads the output's own staged row r
 //               instead of row r + y:
 //                 out[r, c] = sum_y sum_x w[y, x] * X[r, c + x]
 //               Wrong values by design; the cost of walking H staged rows
 //               (a thread's loads of kQR + H - 1 rows) is removed: the
 //               kQR rows a thread reads are loaded once a column group.
-//   C_inshift   A_lib on this card: K2D-dense already shifts on the input
-//               side (it reads staged row r + y), so there is no kernel.
+//               The bf16 mode ran on these CUDA-core tiles before its
+//               tensor-core kernel; against A_lib this variant now compares
+//               two designs.
+//   C_inshift   A_lib on this card: the kernel already shifts on the input
+//               side (ldmatrix row addresses), so there is no kernel.
 //   C_wh1       K2D-dense-bf16 on the stencil's first row alone (1 x W):
-//               the same tiles with 1/H of the FMAs, the per-tile fixed
+//               the same tiles with 1/H of the products, the per-tile fixed
 //               cost. No code here.
 //
 // X is the image as it is (VALID) or extended by the pad mode, as in

@@ -193,11 +193,11 @@ class SavgolBank(nn.Module):
         # the sweep's edge fit with one n: edge row e weights x[..., ws-1-t]
         # by ew[e, t] at the lead and x[..., N-ws+t] at the trail
         ew = self.edge_weights.to(x.dtype)
-        head, tail = edge_blocks(
+        head, tail, reach = edge_blocks(
             self.center_weights.to(x.dtype), ew.flip(-1), ew,
             (n,) * wdt.shape[0], N, dt,
             None if reference_edge_sign else self.lead_signs.to(x.dtype))
-        y = fit_edges(y, x, head, tail)
+        y = fit_edges(y, x, head, tail, reach)
         return y.to(restore) if restore is not None else y
 
     def forward(self, x: torch.Tensor, **kw) -> torch.Tensor:

@@ -11,12 +11,13 @@ The kernels map an out-of-range source index themselves while they stage a
 tile, so the same-size route makes no padded copy of the image.
 
 ``correlate2d_valid_bf16_cuda`` / ``_plain`` are ``method="bf16"``: K2D-dense
-in its bf16 mode, the counterpart of the row-banded MXU kernels on bf16
-operands at single-pass precision. Samples and taps are rounded to bf16,
-products are exact and summed in f32; f32 input gets the f32 sums
-unrounded, any other dtype the sums rounded to bf16 (in its own dtype), as
-the JAX package's wrappers emit them. The bf16 kernel counts its launches
-under ``corr2d_valid``.
+in its bf16 mode (``csrc/corr2d_bf16_mma.cu``, on the tensor cores), the
+counterpart of the row-banded MXU kernels on bf16 operands at single-pass
+precision. Samples and taps are rounded to bf16, products are exact and
+summed in f32; f32 input gets the f32 sums unrounded, any other dtype the
+sums rounded to bf16 (in its own dtype), as the JAX package's wrappers emit
+them. :func:`row_bands` states the band matrices that kernel multiplies.
+The bf16 kernel counts its launches under ``corr2d_valid``.
 
 As in 1D, each wrapper dispatches on the device of the tensor it is given:
 a CPU tensor takes the plain version, a CUDA tensor launches the kernel or
@@ -46,6 +47,7 @@ __all__ = [
     "correlate2d_sep_cuda",
     "correlate2d_valid_bf16_plain",
     "correlate2d_valid_bf16_cuda",
+    "row_bands",
 ]
 
 # Kernel launches since the last reset_launches(), one count per wrapper.
@@ -244,14 +246,38 @@ def correlate2d_valid_bf16_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(torch.bfloat16).to(x.dtype)
 
 
+def row_bands(w: torch.Tensor, depth: int) -> torch.Tensor:
+    """The band matrices of the bf16 tensor-core kernel: for stencils ``w``
+    (..., H, W), ``B[..., y, q, p] = w[..., y, q - p]`` where ``0 <= q - p <
+    W``, else 0, for ``q < depth`` and ``p < 16``; shape (..., H, depth, 16).
+    A 16-column block of outputs at (r, c) is then ``sum_y X[r + y : r + y
+    + 16, c : c + depth] @ B[..., y]`` (``csrc/corr2d_bf16_mma.cu``; the
+    first ``depth`` rows and 16 columns of ``savgol_tpu.ops.pallas_conv.
+    _rowband_matrices``)."""
+    W = w.shape[-1]
+    d = (torch.arange(depth, device=w.device)[:, None]
+         - torch.arange(16, device=w.device)[None, :])
+    inside = (d >= 0) & (d < W)
+    bands = w[..., d.clamp(0, W - 1)]
+    return torch.where(inside, bands, torch.zeros((), dtype=w.dtype,
+                                                  device=w.device))
+
+
+def band_depth(W: int) -> int:
+    """The kernel's band depth for a stencil ``W`` wide: whole 16-column
+    chunks holding the 15 + W input columns of 16 outputs."""
+    return 16 * ((W + 30) // 16)
+
+
 def correlate2d_valid_bf16_cuda(x: torch.Tensor, w: torch.Tensor,
                                 pad_mode=None) -> torch.Tensor:
     """``method="bf16"`` dense 2D correlation of ``x`` (..., R, C) with
     ``w`` (K, H, W) or (H, W).
 
-    CUDA tensor: kernel K2D-dense in its bf16 mode (``corr2d_valid_bf16``),
-    one launch that reads f32 or bf16 storage once for all K stencils
-    (other dtypes go through bf16 and come back). CPU tensor:
+    CUDA tensor: kernel K2D-dense in its bf16 mode (``corr2d_valid_bf16``,
+    ``csrc/corr2d_bf16_mma.cu``: ``mma.sync`` on :func:`row_bands`), one
+    launch that reads f32 or bf16 storage once for all K stencils (other
+    dtypes go through bf16 and come back). CPU tensor:
     :func:`correlate2d_valid_bf16_plain`.
     """
     name = "correlate2d_valid_bf16_cuda"

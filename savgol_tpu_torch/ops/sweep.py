@@ -35,7 +35,6 @@ from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import (MAX_HALF_WINDOW, MAX_POLY_ORDER,
                                      PAD_MODE, BoundaryMode)
 from savgol_tpu_torch.ops.apply import _compute_dtype, correlate_bank
-from savgol_tpu_torch.ops.cuda_conv import _edge_sums
 
 __all__ = ["savgol_weights_masked", "savgol_apply_sweep"]
 
@@ -196,8 +195,9 @@ def edge_blocks(center: torch.Tensor, lead: torch.Tensor,
     centred stencil moved to p, with ``dt`` (C,) folded into every row and
     ``lead_sign`` (C,) into the lead rows. Short rows, whose blocks overlap,
     get the same values from both; rows of W samples or more all get the
-    blocks of 2W, where the two cannot meet. :func:`fit_edges` applies
-    them."""
+    blocks of 2W, where the two cannot meet. The third value, ``reach``
+    (C, 2 wp, L) booleans, marks the samples inside each row's window of W
+    taps (head rows, then tail rows). :func:`fit_edges` applies them."""
     C, M, W = lead.shape
     if length >= W:
         length = 2 * W
@@ -210,19 +210,27 @@ def edge_blocks(center: torch.Tensor, lead: torch.Tensor,
     if dt is not None:
         blocks = blocks * dt.reshape(C, 1, 1)
     wp = row.shape[1] // 2
-    return blocks[:, :wp], blocks[:, wp:]
+    return blocks[:, :wp], blocks[:, wp:], inside
 
 
 def fit_edges(y: torch.Tensor, x: torch.Tensor, head: torch.Tensor,
-              tail: torch.Tensor) -> torch.Tensor:
+              tail: torch.Tensor, reach: torch.Tensor) -> torch.Tensor:
     """Overwrite the edge outputs of a bank result ``y`` (C, ..., N) with
-    :func:`edge_blocks`' fit of ``x`` (..., N): two product-sums and two
-    slice copies."""
+    :func:`edge_blocks`' fit of ``x`` (..., N): two product-sums over each
+    row's ``reach`` and two slice copies. A sample outside a row's window
+    adds nothing, not even its product with a zero tap, so a NaN or inf
+    spreads to the outputs whose W-tap window holds it, as the bank pass
+    and the JAX package spread it."""
     C, wp, L = head.shape
     N = x.shape[-1]
     shape = (C,) + (1,) * (x.dim() - 1) + (wp, L)
-    y[..., :wp] = _edge_sums(head.reshape(shape), x[..., :L])
-    y[..., N - wp:] = _edge_sums(tail.reshape(shape), x[..., N - L:])
+
+    def fit(block, inside, win):
+        prod = win.unsqueeze(-2) * block.reshape(shape)
+        return torch.where(inside.reshape(shape), prod, 0).sum(-1)
+
+    y[..., :wp] = fit(head, reach[:, :wp], x[..., :L])
+    y[..., N - wp:] = fit(tail, reach[:, wp:], x[..., N - L:])
     return y
 
 
@@ -231,7 +239,7 @@ def _sweep_weights_cached(hw_key: tuple, po_key: tuple, derivative: int,
                           dtype, device, length: int, dt_inv,
                           flip_lead: bool):
     """The weights of a CONCRETE config tuple, generated on the device
-    once: the centred stencils (C, 65) and :func:`edge_blocks`' two blocks
+    once: the centred stencils (C, 65) and :func:`edge_blocks`' blocks
     for rows of ``length`` samples (any length >= 65 gives the same
     blocks), ``dt_inv`` (a number, or None for 1) folded in and the lead
     rows negated under ``flip_lead``."""
@@ -242,10 +250,11 @@ def _sweep_weights_cached(hw_key: tuple, po_key: tuple, derivative: int,
           torch.full((C,), dt_inv, dtype=dtype, device=device))
     sign = (torch.full((C,), -1.0, dtype=dtype, device=device) if flip_lead
             else None)
-    head, tail = edge_blocks(center, lead, trail, hw_key, length, dt, sign)
+    head, tail, reach = edge_blocks(center, lead, trail, hw_key, length,
+                                    dt, sign)
     if dt is not None:
         center = center * dt[:, None]
-    return center, head, tail
+    return center, head, tail, reach
 
 
 def _configs(v) -> tuple:
@@ -311,7 +320,7 @@ def savgol_apply_sweep(
     x, restore = _compute_dtype(x)
     d = int(derivative)
     number = not isinstance(dt_inv, torch.Tensor)
-    center, head, tail = _sweep_weights_cached(
+    center, head, tail, reach = _sweep_weights_cached(
         hw, po, d, dtype, x.device, min(N, _W),
         float(dt_inv) if number and float(dt_inv) != 1.0 else None,
         reference_edge_sign and d % 2 == 1)
@@ -325,5 +334,5 @@ def savgol_apply_sweep(
         return y.to(restore) if restore is not None else y
     y = correlate_bank(x, center, _M, kernel=kernel)
     # the POLYNOMIAL edges (the batched edge fix of savgol_tpu.ops.sweep)
-    y = fit_edges(y, x, head, tail)
+    y = fit_edges(y, x, head, tail, reach)
     return y.to(restore) if restore is not None else y

@@ -2,18 +2,21 @@
 its bf16 mode), the counterpart of ``benchmarks/probe_rowmxu.py``.
 
 The TPU probe's variants each removed one cost term of its row-banded
-matrix-unit kernel. CUDA cores have no matrix-unit shifts, so each variant
-here keeps its purpose, removing one cost term of K2D-dense-bf16:
+matrix-unit kernel. Each variant here keeps its purpose, removing one cost
+term of K2D-dense-bf16:
 
-  * ``A_lib``: K2D-dense-bf16 itself (``correlate2d_valid_bf16_cuda``);
-  * ``B_alignctl``: its tiles, staging and FMAs with every stencil row
-    reading the output's own staged row, ``out[r, c] = sum_y sum_x
-    w[y, x] * X[r, c + x]`` (``csrc/probe_rowband2d.cu``): wrong values by
-    design, the cost of walking the H staged rows removed;
-  * ``C_inshift``: ``A_lib`` on this card, where K2D-dense already shifts
-    on the input side; no kernel of its own;
+  * ``A_lib``: K2D-dense-bf16 itself (``correlate2d_valid_bf16_cuda``, the
+    row-band products on the tensor cores, ``csrc/corr2d_bf16_mma.cu``);
+  * ``B_alignctl``: the CUDA-core tiles, staging and FMAs that the bf16
+    mode ran on before its tensor-core kernel, with every stencil row
+    reading the output's own staged row, ``out[r, c] = sum_y sum_x w[y, x]
+    * X[r, c + x]`` (``csrc/probe_rowband2d.cu``): wrong values by design,
+    the cost of walking the H staged rows removed. Against ``A_lib`` it now
+    compares two designs, not one kernel with and without a cost;
+  * ``C_inshift``: ``A_lib`` on this card, where the kernel already shifts
+    on the input side (``ldmatrix`` row addresses); no kernel of its own;
   * ``C_wh1``: ``A_lib`` on the stencil's first row alone (1 x W), the same
-    tiles with 1/H of the FMAs: the per-tile fixed cost.
+    tiles with 1/H of the products: the per-tile fixed cost.
 
 X is the image (VALID) or the image extended by the pad mode, as in
 K2D-dense. :func:`variant_cuda` runs one on a CUDA tensor;
@@ -142,7 +145,7 @@ def measure(x: torch.Tensor, w: torch.Tensor, pad_mode="edge") -> list:
     least time as ``library_ms``, the default pick's as
     ``library_default_ms``) beside ``A_lib``. The bound counts the FMAs at
     the bf16 tensor-core peak; ``cuda_core_ms`` is the same FMAs at the
-    f32 peak of the CUDA cores, which these kernels run on. Returns one
+    f32 peak of the CUDA cores, which ``B_alignctl`` runs on. Returns one
     record a variant."""
     from savgol_tpu_torch.utils.timing import (PEAK_FLOPS, bound,
                                                cuda_time_ms, cudnn_ms)

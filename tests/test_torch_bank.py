@@ -127,6 +127,25 @@ def test_bank_matches_jax(jax_side, boundary):
                        tb.apply(torch.from_numpy(x)))
 
 
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+def test_bank_nonfinite_spread_matches_jax(jax_side, boundary):
+    """NaN and inf samples, at the edges too, reach the same outputs as in
+    the JAX bank (the edge fits multiply only their window's samples)."""
+    sg, _, jnp = jax_side
+    jb, tb = _banks(sg, jnp, boundary)
+    x = _data((3, 300), seed=5)
+    x[0, 0], x[0, 150], x[1, 299], x[1, 10], x[2, 20] = (
+        np.nan, np.inf, -np.inf, np.nan, np.inf)
+    want = np.asarray(jb.apply(jnp.asarray(x), method="xla"))
+    for method in ("auto", "xla"):
+        got = tb.apply(torch.from_numpy(x), method=method).numpy()
+        for mask in (np.isnan, np.isposinf, np.isneginf):
+            np.testing.assert_array_equal(mask(got), mask(want))
+        fin = np.isfinite(want)
+        assert 0 < fin.sum() < fin.size
+        _assert_close(got[fin], want[fin])
+
+
 @pytest.mark.parametrize("reference_edge_sign", [False, True])
 def test_bank_edge_sign_and_axis(jax_side, reference_edge_sign):
     """The leading-edge sign rule over odd and even derivatives, and the
@@ -279,6 +298,38 @@ def test_cuda_bank_kernel_matches_plain(cuda, ws, K, dtype):
         cb.correlate_valid_bank_cuda(x.half(), w)
     with pytest.raises(ValueError, match="stencils"):
         cb.correlate_valid_bank_cuda(x, torch.ones(2, 66, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pad,pad_mode", [(0, None), (32, None),
+                                          (32, "symmetric")])
+def test_cuda_bank_kernel_nonfinite_matches_plain(cuda, pad, pad_mode, dtype):
+    """NaN and inf samples at a row's ends, on both sides of a tile border
+    (K4's tiles are 1024 outputs) and mid-tile, through stencils whose
+    leading and trailing taps are zero (the sweep's shape) and a full one:
+    the non-finite outputs sit exactly where the plain version's do, 0 *
+    inf included."""
+    tol = F32_TOL if dtype == torch.float32 else F64_TOL
+    w = _data((5, 65), seed=10)
+    for k, (lead, trail) in enumerate(((0, 0), (20, 20), (32, 0), (3, 40),
+                                       (64, 0))):
+        w[k, :lead] = 0.0
+        w[k, 65 - trail:] = 0.0
+    x = _data((6, 4099), seed=11)
+    for i, (j, v) in enumerate(((0, np.nan), (1023, np.inf),
+                                (1024, -np.inf), (511, np.nan),
+                                (4098, np.inf), (2000, np.nan))):
+        x[i, j] = v
+    x[5, 2005] = np.inf
+    xc, wc = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    got = cb.correlate_valid_bank_cuda(xc, wc, pad, pad_mode).cpu().numpy()
+    want = cb.bank_correlate_plain(xc, wc, pad, pad_mode).cpu().numpy()
+    for mask in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(mask(got), mask(want))
+    fin = np.isfinite(want)
+    assert 0 < fin.sum() < fin.size
+    _assert_close(got[fin], want[fin], tol)
 
 
 @pytest.mark.cuda

@@ -10,13 +10,17 @@ interpret mode, as ``tests/test_2d.py:415-497`` does. Both round the image
 and the stencil to bf16 and sum exact products in f32; for f32 input both
 return the f32 sums, so they differ only by the order of those sums:
 2e-6 * max(1, max|y|). For bf16 input both round the sums to bf16: one bf16
-ulp (``ops.cuda_conv.bf16_ulp_gate``). Against float64 the gate is the JAX
+ulp (``ops.cuda_conv.bf16_ulp_gate``). On the card the tensor-core kernel's
+f32 sums meet 1e-5 scaled against the plain version at random 33 x 33
+stencils (2e-6 at the Savitzky-Golay stencils of ``chip_smoke.py``). Against float64 the gate is the JAX
 tests' 3e-2 of max|y|; gradients go through the exact route (rtol 3e-2,
 atol 1e-3, as ``tests/test_2d.py:457-465``; f64 1e-12).
 
-The JAX references are computed once per module, at small sizes. The tests
-marked ``cuda`` hold K2D-dense's bf16 mode against its plain version on the
-card and count launches.
+The JAX references are computed once per module, at small sizes. The
+tensor-core kernel's band matrices (``row_bands``) are held against the JAX
+kernel's, and their products against the plain version (2e-6 scaled). The
+tests marked ``cuda`` hold K2D-dense's bf16 mode against its plain version
+on the card and count launches.
 """
 
 import functools
@@ -30,6 +34,10 @@ from savgol_tpu_torch.ops import cuda_conv2d as c2
 from savgol_tpu_torch.ops.cuda_conv import bf16_ulp_gate
 
 F32_TOL = 2e-6
+# the tensor-core kernel's f32 sums against the plain version's, f32
+# storage, at random 33 x 33 stencils: the gate of the other 2D kernels
+# (tests/test_hw_parity.py:499-503); the plain versions keep F32_TOL
+F32_TOL_2D = 1e-5
 CONTRACT = 3e-2
 BOUNDARIES = ["valid", "constant", "reflect", "periodic"]
 CFG = dict(half_window_x=3, half_window_y=2, poly_order=3, deriv_x=1,
@@ -181,6 +189,52 @@ def test_plain_matches_rowmxu_pallas_kernels(jx, form):
             _close(got, want)
 
 
+# -- the tensor-core kernel's band matrices ------------------------------------
+
+WINDOWS = [(3, 3), (11, 11), (33, 33)]
+
+
+@pytest.mark.parametrize("H,W", WINDOWS)
+def test_row_bands_match_jax_rowband_matrices(jx, H, W):
+    """``row_bands`` is the first S rows and 16 columns of the JAX row-band
+    kernel's band stack, stencil row by stencil row."""
+    from savgol_tpu.ops import pallas_conv as pc
+    w = _data((H, W), 85 + W)
+    S = c2.band_depth(W)
+    want = np.asarray(pc._rowband_matrices(w))[:, :S, :16]
+    got = c2.row_bands(torch.from_numpy(w), S)
+    assert got.shape == (H, S, 16) and S >= 15 + W and S % 16 == 0
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _band_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The VALID correlation as the tensor-core kernel forms it: each block
+    of 16 output columns at c is sum_y X[r + y, c : c + S] @ B_y, with X
+    zero past its last column."""
+    H, W = w.shape
+    S = c2.band_depth(W)
+    bands = c2.row_bands(w, S)
+    R, C = x.shape
+    Ro, Co = R - H + 1, C - W + 1
+    nb = -(-Co // 16)
+    xp = torch.nn.functional.pad(x, (0, 16 * (nb - 1) + S - C))
+    cols = xp.unfold(-1, S, 16)                       # (R, nb, S)
+    out = sum(torch.einsum("rbq,qp->rbp", cols[y:y + Ro], bands[y])
+              for y in range(H))
+    return out.reshape(Ro, nb * 16)[:, :Co]
+
+
+@pytest.mark.parametrize("H,W", WINDOWS)
+def test_row_band_product_matches_bf16_plain(H, W):
+    """The band products over ``row_bands`` give the bf16 plain version's
+    VALID correlation: the same exact products, summed in another order."""
+    from savgol_tpu_torch.ops.cuda_conv import _bf16_operand, bf16_taps
+    x = torch.from_numpy(_data((H + 20, W + 37), 86 + W))
+    w = torch.from_numpy(_data((H, W), 87 + W))
+    got = _band_product(_bf16_operand(x), bf16_taps(w))
+    _close(got, c2.correlate2d_valid_bf16_plain(x, w))
+
+
 # -- against float64 and the exact route's gradients --------------------------
 
 
@@ -312,9 +366,30 @@ def test_cuda_bf16_dense_matches_plain(cuda, storage, H, W, pad_mode, K):
     want = c2.correlate2d_valid_bf16_plain(x, w, pad_mode)
     assert got.dtype == storage
     if storage == torch.float32:
-        _close(got.cpu(), want.cpu())
+        _close(got.cpu(), want.cpu(), F32_TOL_2D)
     else:
         _within_ulp(got.float().cpu(), want.float().cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad_mode", [None, "edge", "symmetric", "wrap"])
+@pytest.mark.parametrize("K", [1, 3])
+def test_cuda_bf16_dense_rows_not_16_byte_aligned(cuda, storage, pad_mode,
+                                                  K):
+    """W = 33 on images whose rows are no whole number of 16-byte words
+    (C % 8 != 0), so every row starts at another offset of the kernel's
+    16-byte loads."""
+    for C in (101, 2049):
+        x = torch.from_numpy(_data((2, 45, C), C + K)).to(cuda, storage)
+        w = torch.from_numpy(_data((K, 33, 33) if K > 1 else (33, 33),
+                                   88)).to(cuda)
+        got = c2.correlate2d_valid_bf16_cuda(x, w, pad_mode)
+        want = c2.correlate2d_valid_bf16_plain(x, w, pad_mode)
+        if storage == torch.float32:
+            _close(got.cpu(), want.cpu(), F32_TOL_2D)
+        else:
+            _within_ulp(got.float().cpu(), want.float().cpu())
 
 
 @pytest.mark.cuda

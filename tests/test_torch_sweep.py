@@ -9,7 +9,8 @@ tests/test_torch_sweep.py``).
 
 Tolerance: f64 throughout, 1e-12 (the weights' einsums and the center
 correlation sum in other orders on the two sides); the zeros outside each
-window are exact on both.
+window are exact on both. With NaN and inf samples the non-finite outputs
+agree exactly and the rest within the sweep's 2e-5.
 """
 
 import numpy as np
@@ -204,6 +205,40 @@ def test_short_input_above_window(jax_side, boundary):
         _assert_close(got.numpy(), want)
 
 
+def _nonfinite(shape, seed):
+    """Random rows with NaN, +inf and -inf samples at a row's first and last
+    sample, near the edges (inside and past the sweep's pad of 32) and in
+    the middle, and +inf beside -inf (their sum is NaN)."""
+    x = _data(shape, seed)
+    x[0, 0], x[0, 150], x[0, 40] = np.nan, np.inf, -np.inf
+    x[1, -1], x[1, 3], x[1, -60] = -np.inf, np.nan, np.inf
+    x[2, 100], x[2, 110], x[2, 60] = np.inf, -np.inf, np.nan
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+def test_sweep_nonfinite_spread_matches_jax(jax_side, boundary, dtype):
+    """NaN and inf spread as in the JAX sweep: every output whose 65-tap
+    window holds a non-finite sample is NaN or inf, in the same places (0 *
+    inf is NaN), the edge fits' too; the rest agree within the sweep's
+    2e-5. This is the spread the trimmed K4 keeps on the card."""
+    sg, js, jnp = jax_side
+    x = _nonfinite((3, 300), 8).astype(dtype)
+    want = np.asarray(js.savgol_apply_sweep(
+        jnp.asarray(x), jnp.asarray(NS), jnp.asarray(MS),
+        boundary=sg.BoundaryMode(boundary), dtype=getattr(jnp, dtype),
+        method="xla"))
+    got = savgol_apply_sweep(torch.from_numpy(x), NS, MS, boundary=boundary,
+                             dtype=getattr(torch, dtype),
+                             method="xla").numpy()
+    for mask in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(mask(got), mask(want))
+    fin = np.isfinite(want)
+    assert 0 < fin.sum() < fin.size
+    _assert_close(got[fin], want[fin], 2e-5)
+
+
 def test_too_short_input_raises():
     with pytest.raises(ValueError, match="widest window"):
         savgol_apply_sweep(torch.arange(20.0), [12], [3])
@@ -273,3 +308,17 @@ def test_cuda_sweep_matches_plain_route(cuda, boundary, dtype):
                                   dtype=dtype, method="xla")
         assert cb.LAUNCHES["corr1d_bank"] == before + 1
         _assert_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+def test_cuda_sweep_nonfinite_matches_plain_route(cuda, boundary):
+    """The trimmed K4 keeps the plain route's NaN / inf spread."""
+    x = torch.from_numpy(_nonfinite((3, 4099), 9)).to(cuda, torch.float32)
+    got = savgol_apply_sweep(x, NS, MS, boundary=boundary).cpu().numpy()
+    want = savgol_apply_sweep(x, NS, MS, boundary=boundary,
+                              method="xla").cpu().numpy()
+    for mask in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(mask(got), mask(want))
+    fin = np.isfinite(want)
+    _assert_close(got[fin], want[fin], 2e-6)
