@@ -17,7 +17,9 @@ batch against a float64 reference, gradients, and timings. Then the masked
 masks, boundaries, shapes and dtypes; ``savgol_apply_masked`` (normal and
 ``solver="qr"``) on a (64, 131,072) float32 batch and
 ``savgol2d_apply_masked`` on a 1024 x 1024 image, 20% holes, against
-float64, with each entry point's kernel launches counted; gradients; and
+float64, with each entry point's kernel launches counted; K8a bit for bit
+against its plain version on that image's planes (k = 6, 10, 15; f32 and
+f64; NaN and inf Gram entries at some positions); gradients; and
 timings, K9 and K10 also at the headline batches. Then the irregular-sampling
 path: the fused nonuniform fit K11 (and its planes mode K11p) and the
 resample gather-evaluate K12 against their plain versions over grids of
@@ -48,7 +50,10 @@ Then ``method="bf16"``: K1, K2, K3 and K2D-dense in their bf16 mode (in 2D
 on the tensor cores, ``csrc/corr2d_bf16_mma.cu``) against
 their bf16 plain versions over grids of windows (to 129 taps in 1D, 33 x 33
 in 2D), batches, lengths, boundaries, stacks and f32 / bf16 storage (one
-bf16 ulp; 2D f32 sums 2e-6 scaled, 1e-5 at random stencils); the 1D and 2D
+bf16 ulp; 2D f32 sums 2e-6 scaled, 1e-5 at random stencils); every stencil
+kernel (K1-K3 and their bf16 modes, K2D-dense with one stencil and three,
+K7, K2D-dense's bf16 mode) on input holding NaN, +inf and -inf, whose
+pattern must equal the plain version's exactly; the 1D and 2D
 headlines in bf16 through
 ``Savgol1D.apply`` / ``apply_valid`` (all four boundaries), ``Savgol2D.apply``
 and ``savgol2d_hessian``, each one launch, within ``bench.py``'s 5e-3
@@ -94,7 +99,8 @@ IMG_FULL = (16, 2048, 2048)    # bench.py's 2D batch, 11x11 order 3 window
 # the JAX package's exact-2D gate (tests/test_2d.py:387, bench.py:471),
 # scaled by max(1, max|ref|)
 F32_TOL_2D = 1e-5
-WINDOWS_2D = ((3, 3), (5, 3), (11, 11), (7, 13), (23, 23), (33, 33))
+WINDOWS_2D = ((3, 3), (5, 3), (11, 11), (7, 13), (15, 17), (23, 23),
+              (33, 33))
 # the last image is shorter than the pad of every window but 3 x 3
 IMAGES_2D = ((1, 2047, 2049), (3, 37, 29), (2, 3, 5))
 BOUNDARIES_2D = ("valid", "constant", "reflect", "periodic")
@@ -114,7 +120,7 @@ K9_TOL, K9_SLICE_ABS, QR_TOL, K10_TOL = 2e-5, 2e-4, 5e-5, 5e-5
 MASKED_F64_TOL = 1e-9
 WELL = 0.7                     # "well covered": >= 70% of a window valid
 BOUNDARIES_MASKED = ("truncate", "constant", "reflect", "periodic")
-K8_KS = (1, 3, 5, 10, 15, 28, 33)
+K8_KS = (1, 3, 5, 10, 15, 21, 28, 33)
 # (n, m, d): m up to 2n, k past the local arrays at m = 40; k = m + 1 from
 # 1 to 8 on the compile-time instances (n = 12 fixes the window too), k = 9
 # on the runtime one
@@ -608,6 +614,52 @@ def k10_grid(sgt, dev) -> str:
             f"differently by rcond; launches {dict(c10.LAUNCHES)}")
 
 
+# positions (row, col) of the masked 2D slice where K8a's Gram planes are
+# made non-finite: a NaN through every plane, +inf and -inf in one plane
+K8A_BAD_AT = ((100, 100, "nan"), (200, 300, "inf"), (511, 7, "-inf"))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values and NaN in the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0, a),
+                                               torch.where(nb, 0, b))
+
+
+def k8a_planes_bit_equal(mk, cs, lsq, img, valid) -> str:
+    """K8a against ``lsq.cholesky_solve_planes`` bit for bit (coefficients
+    and ok) on the masked 2D slice's own planes: the fused route's 11 x 11
+    order 3 (P = 10) and the staged route's 3 x 11 order 4 (P = 15), in f32
+    and f64, with non-finite Gram entries at ``K8A_BAD_AT``; and at 3 x 11
+    order 2 (P = 6, the runtime instance)."""
+    import torch.nn.functional as F
+    done = []
+    for nx, ny, m in ((5, 5, 3), (1, 5, 4), (1, 5, 2)):
+        Qm, _, pwm, pim, _ = mk._masked_tables_2d(nx, ny, m)
+        P, area = Qm.shape[0], (2 * nx + 1) * (2 * ny + 1)
+        xv = F.pad(torch.where(valid, img, 0.0), (nx, nx, ny, ny))
+        wp = F.pad(valid.float(), (nx, nx, ny, ny))
+        for dtype in (torch.float32, torch.float64):
+            gram = mk._corr2d_bank(wp.to(dtype), pwm, True)
+            rhs = mk._corr2d_bank(xv.to(dtype), Qm, True)
+            quorum = gram[int(pim[0, 0])] * area >= P - 0.5
+            for i, (r, c, v) in enumerate(K8A_BAD_AT):
+                if i == 0:
+                    gram[:, r, c] = float(v)
+                else:
+                    gram[i, r, c] = float(v)
+            got, ok = cs.plane_solve_cuda(gram, pim, rhs, quorum, 1e-6)
+            want, wok = lsq.cholesky_solve_planes(gram, pim, rhs, quorum,
+                                                  1e-6)
+            what = f"K8a {2 * nx + 1}x{2 * ny + 1} order {m} (P = {P}) {dtype}"
+            require(same_bits(got, want), f"{what}: coefficients differ")
+            require(torch.equal(ok, wok), f"{what}: ok differs")
+            require(not bool(torch.isfinite(got[:, 100, 100]).any()),
+                    f"{what}: a NaN Gram gave finite coefficients")
+            done.append(f"P={P} {str(dtype)[6:]}")
+    return ", ".join(done)
+
+
 def masked_slice(sgt, dev, card) -> list:
     """The masked path at the bench sizes through the user's entry points:
     launch counts per entry point, accuracy against f64, gradients, and
@@ -722,6 +774,7 @@ def masked_slice(sgt, dev, card) -> list:
     require(torch.equal(ok8a, ok8ap), "K8a ok at the 2D slice")
     k8a_err, k8a_s = max_err(k8a[:, well2], k8ap[:, well2])
     require(k8a_err <= 1e-5 * k8a_s, f"K8a vs plain: {k8a_err:.3e}")
+    k8a_bits = k8a_planes_bit_equal(mk, cs, lsq, img, valid2)
     # K8b solves in FP64 double-word, its plain version in float32 pairs
     # (eps 2^-48): compare where cond(G) leaves the plain version exact
     xq, wq = xzp[:8], wp[:8]
@@ -749,7 +802,9 @@ def masked_slice(sgt, dev, card) -> list:
           f"abs ({k9_err:.3e} scaled, windows >= 18 of 25); K8a (P=10, "
           f"{MASKED_2D}) {k8a_err:.3e}; K8b (k=5, 8 x {MASKED_1D[1]}) "
           f"{k8b_err:.3e}; K10 {k10_abs:.3e} abs on windows >= {WELL:.0%} "
-          f"valid (f32 basis difference, gate {K10_TOL} scaled)")
+          f"valid (f32 basis difference, gate {K10_TOL} scaled); K8a bit-equal "
+          f"to its plain version, coefficients and ok, with non-finite Gram "
+          f"planes at {len(K8A_BAD_AT)} positions, at {k8a_bits}")
 
     # -- gradients at a small size: each kernel route against the plain one --
     gr = np.random.default_rng(16)
@@ -2412,6 +2467,126 @@ def bf16_grid_2d(dev) -> str:
             + f" (tol {F32_TOL_2D})")
 
 
+# -- NaN / inf patterns of every stencil kernel -------------------------------
+
+NONFINITE_2D_AT = ((0, 150, 200, "nan"), (0, 20, 3, "inf"), (0, 64, 128, "nan"),
+                   (1, 299, 516, "-inf"), (1, 100, 100, "inf"),
+                   (1, 100, 104, "-inf"), (1, 0, 0, "nan"))
+
+
+def nonfinite_image(gen, dev, dtype) -> torch.Tensor:
+    """(2, 300, 517) random samples with NaN, +inf and -inf at
+    ``NONFINITE_2D_AT``: inside a tile, at edges and corners (which the pad
+    modes reflect), on a 64 x 128 tile corner, and +inf and -inf inside one
+    window, whose sum is NaN."""
+    x = torch.randn(2, 300, 517, generator=gen, device=dev, dtype=dtype)
+    for b, r, c, v in NONFINITE_2D_AT:
+        x[b, r, c] = float(v)
+    return x
+
+
+def nonfinite_grid(dev) -> str:
+    """Every stencil kernel on input holding NaN, +inf and -inf against its
+    plain version: the NaN, +inf and -inf outputs exactly where the plain
+    version has them (k4_nonfinite_check), the finite ones within the
+    kernel's own gate. K1, K2 (three pad modes) and K3 and their bf16 modes
+    (f32 and bf16 storage) on K4's rows; the exact K2D-dense with one
+    stencil and three, K7 and K2D-dense's bf16 mode (both storages, one
+    stencil and three) on ``nonfinite_image`` over windows 3 x 3 to 33 x 33
+    and the four boundaries. K4 has its own cases (k4_grid) and K8a its own
+    (masked_slice)."""
+    from savgol_tpu_torch import scipy_compat as tsc
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.ops import cuda_conv2d as c2
+    from savgol_tpu_torch.ops.apply2d import _stencil_stack
+    gen = torch.Generator(device=dev).manual_seed(39)
+    cases = {}
+
+    def check(kernel, case, got, want, gate):
+        what = f"{kernel} non-finite {case}"
+        e, sc = k4_nonfinite_check(got, want, what)
+        if gate == "ulp":
+            fin = torch.isfinite(want)
+            ulp_check(got[fin], want[fin], what)
+        else:
+            require(e <= gate * sc, f"{what}: {e:.3e} (scale {sc:.3e})")
+        cases[kernel] = cases.get(kernel, 0) + 1
+
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        x = k4_nonfinite_input(gen, dev, dtype)
+        for n in (3, 12):
+            cw, ew = (torch.from_numpy(a).to(dev, dtype)
+                      for a in tsc._compat_weights_np(n, 4 if n > 3 else 2, 1))
+            for sign in (1.0, -1.0):
+                check("K1", f"n={n} {dtype} sign={sign}",
+                      cc.savgol_polynomial_cuda(x, cw, ew, n, 2.0, sign),
+                      cc.savgol_polynomial_plain(x, cw, ew, n, 2.0, sign),
+                      tol)
+            for mode in PAD_MODES.values():
+                check("K2", f"n={n} {mode} {dtype}",
+                      cc.savgol_padded_cuda(x, cw, mode, n, 2.0),
+                      cc.savgol_padded_plain(x, cw, mode, n, 2.0), tol)
+            check("K3", f"n={n} {dtype}", cc.correlate_valid_cuda(x, cw),
+                  cc.correlate_valid_plain(x, cw), tol)
+    x = k4_nonfinite_input(gen, dev, torch.float32)
+    for storage in BF16_STORAGE:
+        xs = x.to(storage)
+        for n in (3, 12, 64):
+            cw, ew = (torch.from_numpy(a).to(dev, torch.float32)
+                      for a in tsc._compat_weights_np(n, 4, 1))
+            dt = torch.tensor(2.0, device=dev)
+            where = f"n={n} {storage}"
+            check("K1-bf16", where,
+                  cc.savgol_polynomial_bf16_cuda(xs, cw, ew, n, dt, -1.0),
+                  cc.savgol_polynomial_bf16_plain(xs, cw, ew, n, dt, -1.0),
+                  "ulp")
+            for mode in PAD_MODES.values():
+                check("K2-bf16", f"{where} {mode}",
+                      cc.savgol_padded_bf16_cuda(xs, cw, mode, n, dt),
+                      cc.savgol_padded_bf16_plain(xs, cw, mode, n, dt), "ulp")
+            check("K3-bf16", where, cc.correlate_valid_bf16_cuda(xs, cw),
+                  cc.correlate_valid_bf16_plain(xs, cw), "ulp")
+
+    modes = {"valid": None, **{b: PAD_MODES[b] for b in
+                               ("constant", "reflect", "periodic")}}
+    for dtype, tol in ((torch.float32, F32_TOL_2D), (torch.float64, F64_TOL)):
+        img = nonfinite_image(gen, dev, dtype)
+        for H, W in WINDOWS_2D:
+            order = 2 if min(H, W) == 3 else 3
+            ws, s = _stencil_stack((W - 1) // 2, (H - 1) // 2, order,
+                                   [(2, 0), (1, 1), (0, 2)], 1.0, 1.0)
+            w3 = torch.from_numpy(ws * s[:, None, None]).to(dev, dtype)
+            u, v = (torch.from_numpy(f).to(dev, dtype)
+                    for f in c2._svd_stencil_np(ws[1]))
+            for bnd, pm in modes.items():
+                where = f"{H}x{W} {bnd} {dtype}"
+                for K, w in ((1, w3[1]), (3, w3)):
+                    check("K2D-dense", f"K={K} {where}",
+                          c2.correlate2d_valid_cuda(img, w, pm),
+                          c2.correlate2d_valid_plain(img, w, pm), tol)
+                check("K7", where, c2.correlate2d_sep_cuda(img, u, v, pm),
+                      c2.correlate2d_sep_plain(img, u, v, pm), tol)
+    img = nonfinite_image(gen, dev, torch.float32)
+    for storage in BF16_STORAGE:
+        xs = img.to(storage)
+        for H, W in WINDOWS_2D:
+            order = 2 if min(H, W) == 3 else 3
+            ws, _ = _stencil_stack((W - 1) // 2, (H - 1) // 2, order,
+                                   [(2, 0), (1, 1), (0, 2)], 0.5, 0.25)
+            w3 = torch.from_numpy(ws).to(dev, torch.float32)
+            for bnd, pm in modes.items():
+                for K, w in ((1, w3[1]), (3, w3)):
+                    check("K2D-dense-bf16", f"K={K} {H}x{W} {bnd} {storage}",
+                          c2.correlate2d_valid_bf16_cuda(xs, w, pm),
+                          c2.correlate2d_valid_bf16_plain(xs, w, pm),
+                          F32_TOL if storage == torch.float32 else "ulp")
+    torch.cuda.synchronize()
+    return (f"non-finite grid: NaN / +inf / -inf patterns equal to the plain "
+            f"versions' in " + ", ".join(f"{k} {v}" for k, v in
+                                          cases.items())
+            + " cases; finite outputs within each kernel's gate")
+
+
 def _contract(got, ref, what) -> float:
     """max |got - ref| <= BF16_CONTRACT * max(1, max|ref|); returns the
     scaled error."""
@@ -3498,6 +3673,7 @@ def main() -> int:
     t_bf16 = time.perf_counter()
     print(bf16_grid_1d(dev))
     print(bf16_grid_2d(dev))
+    print(nonfinite_grid(dev))
     t_bf16_slice = time.perf_counter()
     bf16_kernels = (bf16_slice_1d(sgt, dev, card)
                     + bf16_slice_2d(sgt, dev, card))
@@ -3544,7 +3720,10 @@ def main() -> int:
          "replaces": "savgol_tpu/ops/pallas_conv.py:1501",
          "launches": launches2["corr2d_valid"], "max_abs_err": kd_err,
          "ms": t2["K2D-dense"][0], "plain_ms": t2["K2D-dense"][1], **b2d,
-         "library_ms": lib_2d},
+         "library_ms": lib_2d,
+         "stack3_ms": t2["K2D-dense K=3 (Hessian stack)"][0],
+         "stack3_plain_ms": t2["K2D-dense K=3 (Hessian stack)"][1],
+         "stack3_bound_ms": b2d3["bound_ms"], "stack3_library_ms": lib_2d3},
         {"name": "corr2d_sep", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr2d_sep.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1814",

@@ -17,7 +17,8 @@ its plane-stack mode) and the resample gather-evaluate kernel (K12). So are
 the padded-boundary and filter-bank 1D paths: the REFLECT / PERIODIC /
 CONSTANT apply on the fused-pad kernel K2, :class:`SavgolBank` and the
 (n, m) sweep (``savgol_tpu_torch.ops.sweep``) on the K-stencil bank kernel
-K4, and the scipy drop-in ``savgol_tpu_torch.scipy_compat``. So is the
+K4, and the scipy drop-in ``savgol_tpu_torch.scipy_compat``, whose
+``savgol_filter`` and ``savgol_coeffs`` the package also exports. So is the
 multi-rank overlap-save path, ``savgol_tpu_torch.parallel`` on
 ``torch.distributed``: ``apply_sharded``, ``apply2d_sharded`` and the
 masked / nonuniform ``*_apply_sharded``, SPMD over a mesh of ranks, their
@@ -83,6 +84,7 @@ from savgol_tpu_torch.ops.apply2d import (
     savgol2d_hessian,
     savgol2d_laplacian,
 )
+from savgol_tpu_torch.scipy_compat import savgol_coeffs, savgol_filter
 from savgol_tpu_torch.stream import (
     ChunkState,
     StreamState,
@@ -116,6 +118,7 @@ __all__ = [
     "savgol2d_hessian", "savgol2d_laplacian",
     "savgol_apply_masked", "savgol2d_apply_masked",
     "savgol_apply_nonuniform", "savgol_resample",
+    "savgol_filter", "savgol_coeffs",
     "StreamState", "stream_init", "stream_reset", "stream_push",
     "stream_push_full", "stream_flush", "stream_flush_leading",
     "stream_apply", "ChunkState", "chunk_init", "stream_process_chunk",

@@ -58,10 +58,15 @@
 // - Band blocks of zeros (16 input columns that no tap of 8 outputs
 //   reaches, W <= 9 at depth 32) are skipped.
 //
-// A non-finite sample meets the band's zeros: 0 * inf and 0 * NaN are NaN,
-// so it spreads to the outputs of every 16-column block whose S columns
-// hold it, not only to those whose window does. The TPU kernel's band
-// matmul does the same; the plain version spreads it over the window only.
+// A non-finite sample meets the band's zeros (0 * inf and 0 * NaN are NaN)
+// and spreads to the outputs of every 16-column block whose S columns hold
+// it, as the TPU kernel's band matmul does. So staging flags a tile whose
+// samples are not all finite, and after the tensor-core products such a
+// tile writes its outputs again on the CUDA cores, each from its own window
+// only (window_tile): the plain version's NaN / inf pattern and values.
+// The flag rides to the end of the kernel (one __syncthreads_or there):
+// taking the branch before the products instead measured slower on finite
+// tiles, this form as fast as no flag at all (probes/variants.py).
 #include <stdint.h>
 
 #include "stencil2d.cuh"
@@ -176,14 +181,27 @@ __device__ __forceinline__ uint4 load8(const float* p) {
                     pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
 }
 
+// Whether any of the 8 bf16 values of v is an inf or a NaN (exponent all
+// ones): checked on the rounded values, since a finite f32 sample past
+// bf16's range rounds to inf, as the plain version's bf16 operand does.
+__device__ __forceinline__ bool nonfinite8(uint4 v) {
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+  unsigned t = 0;   // bit 15 of a half set by the carry iff its exponent is 0xff
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t |= (u[i] & 0x7f807f80u) + 0x00800080u;
+  return (t & 0x80008000u) != 0;
+}
+
 // Stages rows [row0, row0 + L.SR) x columns [col0, col0 + L.SC) of image b
-// (padded by `mode`) into xs as bf16, 8 columns at a time.
+// (padded by `mode`) into xs as bf16, 8 columns at a time. Returns whether
+// any sample this thread staged is an inf or a NaN.
 template <typename In>
-__device__ __forceinline__ void stage(const In* __restrict__ x, long long b,
+__device__ __forceinline__ bool stage(const In* __restrict__ x, long long b,
                                       int R, int C, int row0, int col0,
                                       int mode, const Layout& L,
                                       __nv_bfloat16* __restrict__ xs) {
   const int groups = L.SC / 8;
+  bool bad = false;
   for (int i = threadIdx.x; i < L.SR * groups; i += kThreadsM) {
     const int row = i / groups, g = i - row * groups;
     const int gr = map_index(row0 + row, R, mode);
@@ -194,18 +212,57 @@ __device__ __forceinline__ void stage(const In* __restrict__ x, long long b,
       continue;
     }
     const In* __restrict__ src = x + (b * R + gr) * C;
+    uint4 v;
     if (gc >= 0 && gc + 8 <= C) {
-      *dst = load8(src + gc);
-      continue;
-    }
-    float f[8];
+      v = load8(src + gc);
+    } else {
+      float f[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = map_index(gc + j, C, mode);
-      f[j] = c >= 0 ? sgt::Bf16::load(src[c]) : 0.0f;
+      for (int j = 0; j < 8; ++j) {
+        const int c = map_index(gc + j, C, mode);
+        f[j] = c >= 0 ? sgt::Bf16::load(src[c]) : 0.0f;
+      }
+      v = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                     pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
     }
-    *dst = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
-                      pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+    *dst = v;
+    bad = bad || nonfinite8(v);
+  }
+  return bad;
+}
+
+__device__ __forceinline__ void put1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The tile's outputs when its staged samples hold an inf or a NaN, on the
+// CUDA cores: each output sums only its own window's products, in the
+// plain version's (y, x) order (every product is exact in f32, so the sums
+// are the plain version's), so a non-finite sample reaches exactly the
+// outputs whose window holds it; no band zero meets a sample. A thread
+// takes one column of the tile and every other row. Out of line, so that
+// the tensor-core path's registers do not see it.
+template <typename In>
+__device__ __noinline__ void window_tile(const __nv_bfloat16* __restrict__ xs,
+                            const float* __restrict__ w, In* __restrict__ out,
+                            long long b, int r0, int c0, int Ro, int Co,
+                            int K, int H, int W, const Layout& L) {
+  const int c = threadIdx.x % kBC;
+  if (c0 + c >= Co) return;
+  for (int k = 0; k < K; ++k) {
+    const float* __restrict__ wk = w + static_cast<long long>(k) * H * W;
+    In* plane = out + (b * K + k) * static_cast<long long>(Ro) * Co;
+    for (int r = threadIdx.x / kBC; r < kBR && r0 + r < Ro;
+         r += kThreadsM / kBC) {
+      float acc = 0.0f;
+      for (int y = 0; y < H; ++y) {
+        const __nv_bfloat16* row = xs + (r + y) * L.SA + c;
+        for (int xx = 0; xx < W; ++xx)
+          acc = fmaf(__ldg(wk + y * W + xx), __bfloat162float(row[xx]), acc);
+      }
+      put1(plane + static_cast<long long>(r0 + r) * Co + c0 + c, acc);
+    }
   }
 }
 
@@ -269,7 +326,7 @@ corr2d_bf16_mma_kernel(const In* __restrict__ x, const float* __restrict__ w,
   const int c0 = static_cast<int>(id % tiles_c) * kBC;
   const int oy = mode == sgt2d::kValid ? 0 : (H - 1) / 2;
   const int ox = mode == sgt2d::kValid ? 0 : (W - 1) / 2;
-  stage(x, b, R, C, r0 - oy, c0 - ox, mode, L, xs);
+  const bool bad = stage(x, b, R, C, r0 - oy, c0 - ox, mode, L, xs);
   for (int i = threadIdx.x; i < H * 16 * L.SB / 8; i += kThreadsM)
     reinterpret_cast<uint4*>(bands)[i] = make_uint4(0u, 0u, 0u, 0u);
 
@@ -324,6 +381,10 @@ corr2d_bf16_mma_kernel(const In* __restrict__ x, const float* __restrict__ w,
         put2(plane, Ro, Co, r + 8, c, acc[m][n][2], acc[m][n][3], pairs);
       }
   }
+  // a tile holding an inf or a NaN: every warp's stores above are done, and
+  // its outputs are written again from their windows
+  if (__syncthreads_or(bad))
+    window_tile(xs, w, out, b, r0, c0, Ro, Co, K, H, W, L);
 }
 
 template <typename In>

@@ -15,9 +15,10 @@
 //          member held as Strided<T, S> is shared memory laid out by thread
 //          (element e of thread t at e * S + t: a warp's lanes touch
 //          consecutive words). K9 keeps its whole workspace in registers;
-//          K10 keeps G in shared memory and the rest in registers.
+//          K10 and K8a keep G in shared memory (at K = 15 L too) and the
+//          rest in registers.
 //   K = 0  the runtime form: k is an argument and the workspace is a Span
-//          (K8a; K9 and K10 past their compile-time sizes): a local array of
+//          (K8a, K9 and K10 past their compile-time sizes): a local array of
 //          a compile-time size (kmax <= kLocalKmax) or, for larger k, a slice
 //          of a scratch buffer in device memory, interleaved across threads
 //          (Span's stride). Its loops do not unroll, so its code is the
@@ -35,7 +36,11 @@
 // cannot contract into an fma), so from the same stored G and r the solve
 // gives the plain version's coefficients bit for bit: on an ill-conditioned
 // window a contracted factor measured 1.7e-4 against K9's 2e-5 gate at
-// k = 9, where the refinement does not make up the difference.
+// k = 9, where the refinement does not make up the difference. That holds
+// for the products that feed a sum only later too (L = t / L_jj, the
+// substitutions' z and c, the refined c + u): once a compile-time instance
+// keeps them in registers, nvcc would contract them with the sum (K8a's
+// first fixed instances differed from the plain version there).
 //
 // dd_chol_solve follows lsq.py::cholesky_solve_planes_dd in double-word
 // arithmetic on FP64 pairs (eps ~ 2^-106). K8b feeds it float32 (hi, lo)
@@ -163,7 +168,7 @@ __device__ __forceinline__ bool factor(int kk, W& w, T shift) {
 #pragma unroll
       for (int p = 0; p < j; ++p)
         t = add_rn(t, -mul_rn(w.L[tri(i, p)], w.L[tri(j, p)]));
-      w.L[tri(i, j)] = t * di;
+      w.L[tri(i, j)] = mul_rn(t, di);
     }
   }
   return finite;
@@ -178,14 +183,14 @@ __device__ __forceinline__ void substitute(int kk, W& w, R& r, C& c) {
     auto s = r[i];
 #pragma unroll
     for (int j = 0; j < i; ++j) s = add_rn(s, -mul_rn(w.L[tri(i, j)], w.z[j]));
-    w.z[i] = s * w.dinv[i];
+    w.z[i] = mul_rn(s, w.dinv[i]);
   }
 #pragma unroll
   for (int i = k - 1; i >= 0; --i) {
     auto s = w.z[i];
 #pragma unroll
     for (int j = i + 1; j < k; ++j) s = add_rn(s, -mul_rn(w.L[tri(j, i)], c[j]));
-    c[i] = s * w.dinv[i];
+    c[i] = mul_rn(s, w.dinv[i]);
   }
 }
 
@@ -241,17 +246,17 @@ __device__ __forceinline__ bool chol_solve(int kk, bool quorum,
       const T g = i >= j ? w.G[tri(i, j)] : w.G[tri(j, i)];
       const T p = mul_rn(g, -w.c[j]);
       const T pe = fma(g, -w.c[j], -p);
-      const T s2 = s + p;
+      const T s2 = add_rn(s, p);
       const T bb = s2 - s;
       const T se = (s - (s2 - bb)) + (p - bb);
       s = s2;
-      comp = comp + (pe + se);
+      comp = add_rn(comp, add_rn(pe, se));
     }
-    w.t[i] = s + comp;
+    w.t[i] = add_rn(s, comp);
   }
   substitute<K>(k, w, w.t, w.u);
 #pragma unroll
-  for (int i = 0; i < k; ++i) w.c[i] = w.c[i] + w.u[i];
+  for (int i = 0; i < k; ++i) w.c[i] = add_rn(w.c[i], w.u[i]);
   return ok;
 }
 

@@ -13,20 +13,120 @@
 // (body _solve_kernel) and ::_plane_solve_call_dd (body _solve_kernel_dd).
 // On the TPU they exist so that the unrolled factorization runs in VMEM
 // instead of spilling every temporary plane to HBM; here one thread owns one
-// position and keeps its whole system in its workspace (registers and local
-// memory, or interleaved device scratch past k = 32).
+// position and keeps its whole system on chip.
 //
-// Bound: arithmetic and the workspace. A position reads Kp + k + 1 values
-// and writes k + 1 (~90 B at k = 5 in f32) against ~k^3/3 multiply-adds
-// twice over (factor, two substitutions, refinement), and at k = 10 the
-// workspace (~150 values) lives in local memory, served by L1. Any position
-// count launches: the grid strides over positions.
+// Bound: device-memory bytes. A position reads Kp + k + 1 values and writes
+// k + 1 (302 B at k = 10 in f32, the masked 2D route's order-3 planes)
+// against ~2.5 k operations of the solve, so at 1024^2 positions the bytes
+// take 0.0945 ms and the operations less (derived, not measured), provided
+// the solve's workspace stays out of device and local memory.
+//
+// K8a comes in two forms, chosen from k before any launch:
+//
+//   plane_solve_fixed<T, K>, for K = 10 and 15, the sizes of the staged
+//     masked 2D route at orders 3 and 4 (K = (m + 1)(m + 2) / 2):
+//     chol_solve<K>, so its loops unroll, every tri(i, j) is a constant,
+//     and no workspace lives in local memory. G lives in shared memory laid
+//     out by thread (Strided: a warp's lanes touch consecutive words, no
+//     bank conflicts); L and the vectors live in registers, but for f64
+//     at K = 15, whose L joins G in shared memory. Each instance's block is as large
+//     as 64 KB of workspace allows (FixedK8::threads), so that several
+//     blocks share an SM. The block stages the pair table's packed lower
+//     triangle once and walks its positions with a stride of the grid
+//     (persistent blocks). The arithmetic is the runtime form's, rounded
+//     as lsq.py rounds (plane_chol.cuh), so it is bit-equal to lsq.py's.
+//     K = 21 and 28 stay on the runtime form: with G, L and the vectors in
+//     shared memory (the register file cannot hold them), a block of 32
+//     threads measured 3.4 and 8.4 times slower than it on an H100
+//     (probes/masked_ab.py; PERF.md).
+//   plane_solve_kernel<T, KMAX>, the runtime form for every other k: the
+//     workspace a local array of KMAX elements' worth or, past k = 32, a
+//     slice of device scratch; its loops do not unroll.
+#include <type_traits>
+
+#include "launch.cuh"
 #include "plane_chol.cuh"
 
 namespace {
 
 using namespace sgtsolve;
+using sgtlaunch::kSmemMax;
 constexpr int kBlock = 128;
+
+template <typename T>
+struct SolveArgs {
+  const T* gram;
+  const T* rhs;
+  const unsigned char* quorum;
+  const int* pi;
+  T* coef;
+  unsigned char* ok;
+  long long pos;
+  int use_rcond;
+  T sqrt_rcond;
+};
+
+// The layout of K8a's compile-time instance at K: whether L joins G in
+// shared memory (f64 at K = 15, whose L in registers spills; f32 at K = 15
+// holds it in registers without a spill and measured a third faster than
+// in shared memory, probes/variants.py), the words of it a thread takes,
+// and the block.
+template <typename T, int K>
+struct FixedK8 {
+  static constexpr bool shared_l = K > 10 && sizeof(T) == 8;
+  static constexpr int words = packed(K) * (shared_l ? 2 : 1);
+  static constexpr int threads =
+      words * sizeof(T) * 128 <= 65536 ? 128
+      : words * sizeof(T) * 64 <= 65536 ? 64 : 32;
+  static constexpr size_t smem =
+      sizeof(T) * words * threads + sizeof(int) * packed(K);
+  static_assert(smem <= kSmemMax, "a block of the instance must fit");
+};
+
+template <typename T, int K>
+__global__ void __launch_bounds__(FixedK8<T, K>::threads)
+plane_solve_fixed(const SolveArgs<T> a) {
+  using F = FixedK8<T, K>;
+  constexpr int NT = F::threads, kp = packed(K);
+  using Slots = Strided<T, NT>;
+  using Workspace = FixedWork<T, K, Slots, std::conditional_t<
+                                              F::shared_l, Slots, Regs<T, kp>>>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* slots = reinterpret_cast<T*>(smem);       // words x NT, by thread
+  int* plane_of = reinterpret_cast<int*>(slots + F::words * NT);
+  for (int e = threadIdx.x; e < kp; e += NT) {  // packed (i, j) -> plane
+    int i = 0;
+    while (tri(i + 1, 0) <= e) ++i;
+    plane_of[e] = a.pi[i * K + (e - tri(i, 0))];
+  }
+  __syncthreads();
+
+  Workspace wk;
+  T* mine = slots + threadIdx.x;
+  wk.G.p = mine;
+  if constexpr (F::shared_l) wk.L.p = mine + kp * NT;
+  const long long stride = static_cast<long long>(gridDim.x) * NT;
+  for (long long p = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
+       p < a.pos; p += stride) {
+#pragma unroll
+    for (int e = 0; e < kp; ++e) wk.G[e] = a.gram[plane_of[e] * a.pos + p];
+#pragma unroll
+    for (int i = 0; i < K; ++i) wk.r[i] = a.rhs[i * a.pos + p];
+    const bool ok = chol_solve<K>(K, a.quorum[p] != 0, a.use_rcond != 0,
+                                  a.sqrt_rcond, wk);
+#pragma unroll
+    for (int i = 0; i < K; ++i) a.coef[i * a.pos + p] = wk.c[i];
+    a.ok[p] = ok;
+  }
+}
+
+template <typename T, int K>
+cudaError_t run_fixed(const SolveArgs<T>& a, cudaStream_t s) {
+  using F = FixedK8<T, K>;
+  const long long blocks = (a.pos + F::threads - 1) / F::threads;
+  return sgtlaunch::launch(plane_solve_fixed<T, K>, blocks, F::threads,
+                           F::smem, true, s, a);
+}
 
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(kBlock)
@@ -100,13 +200,17 @@ int launch(const T* gram, const T* rhs, const unsigned char* quorum,
            int use_rcond, double sqrt_rcond, T* scratch,
            long long scratch_threads, void* stream) {
   if (k < 1 || pos < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T sr = static_cast<T>(sqrt_rcond);
+  // the instance is chosen from k before any launch
+  const SolveArgs<T> a{gram, rhs, quorum, pi, coef, ok, pos, use_rcond, sr};
+  if (k == 10) return run_fixed<T, 10>(a, s);
+  if (k == 15) return run_fixed<T, 15>(a, s);
   const bool local = k <= kLocalKmax;
   if (!local && (scratch == nullptr || scratch_threads < 1 ||
                  scratch_threads % kBlock != 0))
     return cudaErrorInvalidValue;
   const dim3 grid(blocks_for(pos, local ? 0 : scratch_threads));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T sr = static_cast<T>(sqrt_rcond);
   if (k <= 8)
     plane_solve_kernel<T, 8><<<grid, kBlock, 0, s>>>(
         gram, rhs, quorum, pi, coef, ok, k, pos, use_rcond, sr, nullptr);

@@ -74,7 +74,8 @@ def _svd_stencil_np(w, rtol: float = 1e-9):
 
 def _out_size(x: torch.Tensor, H: int, W: int, pad_mode) -> tuple[int, int]:
     """Output (rows, cols) of the correlation; raises for what neither
-    version takes."""
+    version takes. A VALID image smaller than the stencil on an axis has no
+    output along it (0 rows or columns), as in the JAX package."""
     if pad_mode not in MODE_CODE:
         raise ValueError(f"unsupported pad mode {pad_mode!r}")
     if x.dim() < 2:
@@ -85,10 +86,7 @@ def _out_size(x: torch.Tensor, H: int, W: int, pad_mode) -> tuple[int, int]:
         if R < 1 or C < 1:
             raise ValueError(f"cannot pad an empty image of shape {(R, C)}")
         return R, C
-    if R < H or C < W:
-        raise ValueError(f"image ({R}, {C}) is smaller than the stencil "
-                         f"({H}, {W})")
-    return R - H + 1, C - W + 1
+    return max(0, R - H + 1), max(0, C - W + 1)
 
 
 def pad2d_plain(x: torch.Tensor, ny: int, nx: int,
@@ -181,7 +179,7 @@ def _k2d_dense(name: str, x: torch.Tensor, w: torch.Tensor, pad_mode,
     stack = (K,) if w.dim() == 3 else ()
     out = torch.empty(x.shape[:-2] + stack + (Ro, Co), dtype=xs.dtype,
                       device=x.device)
-    if B > 0 and K > 0:
+    if B > 0 and K > 0 and Ro > 0 and Co > 0:
         _launch(name, LAUNCHES, "corr2d_valid", "corr2d_valid", xs, bf16,
                 xs.data_ptr(), wc.data_ptr(), out.data_ptr(), B, R, C, K, H,
                 W, MODE_CODE[pad_mode])
@@ -225,7 +223,7 @@ def correlate2d_sep_cuda(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     _, (uc, vc), _ = _operands(x, (u, v), None, False, name)
     out = torch.empty(x.shape[:-2] + (Ro, Co), dtype=x.dtype,
                       device=x.device)
-    if B > 0:
+    if B > 0 and Ro > 0 and Co > 0:
         _launch(name, LAUNCHES, "corr2d_sep", "corr2d_sep", x, False,
                 x.data_ptr(), uc.data_ptr(), vc.data_ptr(), out.data_ptr(),
                 B, R, C, rank, H, W, MODE_CODE[pad_mode])

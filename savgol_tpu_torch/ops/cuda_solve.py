@@ -9,8 +9,12 @@ CUDA tensors launch the kernel or raise. Each is differentiable in the Gram
 and rhs planes through autograd of its plain version, as the JAX package's
 custom VJPs take the VJP of their jnp twins; ``ok`` has no gradient.
 
-The kernels keep a thread's system in a local array up to k = 32 and past
-that in a scratch buffer in device memory that the wrapper allocates.
+K8a solves k = 10 and 15 (the staged masked 2D route's orders 3 and 4) in
+compile-time instances whose workspace lives in registers and shared
+memory; every other k (21 and 28 among them), and K8b, keep a thread's
+system in a local array up to k = 32 and past that in a scratch buffer in
+device memory that the wrapper allocates. Which instance runs is
+decided in the launch from k and the dtype.
 """
 
 from __future__ import annotations

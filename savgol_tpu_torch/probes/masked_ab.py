@@ -19,7 +19,9 @@ CUDA-event medians in ms (L2 flushed) of
 - ``savgol_apply_masked`` and ``savgol2d_apply_masked`` at the path's shapes;
 - K8a, K8b (``csrc/plane_solve.cu``) and K11 (``csrc/nonuniform.cu``), which
   share the solve routine ``csrc/plane_chol.cuh``, at ``chip_smoke.py``'s
-  shapes.
+  shapes; K8a also on the planes of the staged route's 3 x 11 window at
+  orders 4, 5 and 6 (P = 15, 21, 28) in f32 and at orders 3 and 4 in
+  f64, and ``savgol2d_apply_masked`` on that route (3 x 11, order 3).
 
 It uses only the wrappers' public signatures, which every checkout since the
 masked path was ported shares.
@@ -155,6 +157,28 @@ def main() -> int:
     ms["K8a"] = cuda_time_ms(lambda: cs.plane_solve_cuda(
         gram2, pi2, rhs2, quorum2, 1e-6))
     del gram2, rhs2
+    # K8a on the staged route's planes: a 3 x 11 window, orders 3-6
+    xv3 = F.pad(torch.where(valid2, img, 0.0), (1, 1, 5, 5))
+    wp3 = F.pad(valid2.float(), (1, 1, 5, 5))
+    for m, dts in ((3, (torch.float64,)), (4, (torch.float32, torch.float64)),
+                   (5, (torch.float32,)), (6, (torch.float32,))):
+        Qm, _, pwm, pim, _ = mk._masked_tables_2d(1, 5, m)
+        P = Qm.shape[0]
+        for dt in dts:
+            gm = mk._corr2d_bank(wp3.to(dt), pwm, True)
+            rm = mk._corr2d_bank(xv3.to(dt), Qm, True)
+            qm = gm[int(pim[0, 0])] * 33 >= P - 0.5
+            name = f"K8a 3x11 P={P}" + (" f64" if dt == torch.float64 else "")
+            sums[name] = cs.plane_solve_cuda(gm, pim, rm, qm, 1e-6)[0].double(
+                ).nan_to_num().sum().item()
+            ms[name] = cuda_time_ms(lambda: cs.plane_solve_cuda(
+                gm, pim, rm, qm, 1e-6), warmup=2, reps=7)
+            del gm, rm
+    del xv3, wp3
+    ms["savgol2d_apply_masked 3x11"] = cuda_time_ms(
+        lambda: sgt.savgol2d_apply_masked(img, half_window_x=1,
+                                          half_window_y=5, poly_order=3,
+                                          mask=valid2, fill=0.0))
 
     # -- K11 at (8, 131,072), n = 12, m = 4 --
     gen = torch.Generator(device=dev).manual_seed(1004)

@@ -15,8 +15,14 @@ medians in ms (L2 flushed) of
   on the headline batch;
 - K2D-dense at the 2D headline, (16, 2048, 2048), 11 x 11 order 3,
   CONSTANT: its bf16 mode in bf16 and f32 storage with one stencil and
-  with the Hessian's three, and the exact f32 instance with one and three;
-- K7 (``csrc/corr2d_sep.cu``) on the same image and stencil.
+  with the Hessian's three, and the exact f32 instance with one and three,
+  and with one row of the stencil (1 x 11: the staging and per-tile cost
+  of the same tiles with 1/11 of the FMAs, as P2's ``C_wh1`` splits the
+  bf16 mode), and at 15 x 15 order 3 with one stencil and the Hessian's
+  three (a width that ``Savgol2D.apply(method="auto")`` also sends to this
+  kernel);
+- K7 (``csrc/corr2d_sep.cu``) on the same image and stencil, with the
+  path's rank-2 factors and with the rank-6 factors of the float32 stencil.
 
 It uses only the wrappers' public signatures, which every checkout since
 the bf16 mode was ported shares.
@@ -93,9 +99,27 @@ def main() -> int:
             lambda: c2.correlate2d_valid_bf16_cuda(img, w, "edge"))
         run(f"K2D-dense f32 {k}",
             lambda: c2.correlate2d_valid_cuda(img, w, "edge"))
+    w1row = w1[5:6].contiguous()
+    run("K2D-dense f32 1x11", lambda: c2.correlate2d_valid_cuda(img, w1row,
+                                                                "edge"))
+    w15 = torch.from_numpy(np.stack([savgol2d_weights_np(
+        sgt.Savgol2DConfig(7, 7, 3, deriv_x=dx, deriv_y=dy), np.float64)
+        for dx, dy in ((0, 0), (2, 0), (1, 1), (0, 2))])).to(dev,
+                                                             torch.float32)
+    for k, w in (("K=1", w15[0]), ("K=3", w15[1:])):
+        run(f"K2D-dense f32 15x15 {k}",
+            lambda: c2.correlate2d_valid_cuda(img, w, "edge"))
+    # K7 with the path's factors (rank 2: the f64 stencil, as
+    # Savgol2D.apply(method="sep") factors it), and with the rank 6 that the
+    # float32 stencil's rounding noise gives at _svd_stencil_np's default
+    # cutoff (the factors this probe used to time as "K7")
     u, v = (torch.from_numpy(a).to(dev, torch.float32)
-            for a in c2._svd_stencil_np(w1.double().cpu().numpy()))
+            for a in c2._svd_stencil_np(savgol2d_weights_np(cfg, np.float64)))
     run("K7", lambda: c2.correlate2d_sep_cuda(img, u, v, "edge"))
+    u6, v6 = (torch.from_numpy(a).to(dev, torch.float32)
+              for a in c2._svd_stencil_np(w1.double().cpu().numpy()))
+    run(f"K7 rank {u6.shape[0]}",
+        lambda: c2.correlate2d_sep_cuda(img, u6, v6, "edge"))
 
     print(json.dumps({"card": card(), "root": str(root), "ms": ms,
                       "sums": sums}))

@@ -418,3 +418,36 @@ def test_cuda_bf16_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                    device=cuda))
     with pytest.raises(TypeError):
         cc.correlate_valid_bf16_cuda(x.int(), cw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 12, 64])
+def test_cuda_bf16_nonfinite_pattern_matches_plain(cuda, storage, n):
+    """K1, K2 and K3 in their bf16 mode on rows holding NaN, +inf and -inf
+    at the ends, at tile boundaries and inside (and a finite f32 sample
+    past bf16's range): the same non-finite outputs as the plain versions,
+    the finite ones within one bf16 ulp."""
+    x = torch.from_numpy(_data((6, 4099), n)).to(cuda)
+    for row, (j, v) in enumerate(((0, "nan"), (1023, "inf"), (1024, "-inf"),
+                                  (4098, "nan"), (2000, 3.4e38))):
+        x[row, j] = float(v)
+    x[5, 2000], x[5, 2003] = float("inf"), float("-inf")
+    x = x.to(storage)
+    c, e = tsc._compat_weights_np(n, min(4, 2 * n), 1)
+    cw = torch.from_numpy(c).to(cuda, torch.float32)
+    ew = torch.from_numpy(e).to(cuda, torch.float32)
+    dt = torch.tensor(4.0, device=cuda)
+    pairs = [(cc.savgol_polynomial_bf16_cuda(x, cw, ew, n, dt, -1.0),
+              cc.savgol_polynomial_bf16_plain(x, cw, ew, n, dt, -1.0)),
+             (cc.correlate_valid_bf16_cuda(x, cw),
+              cc.correlate_valid_bf16_plain(x, cw))]
+    pairs += [(cc.savgol_padded_bf16_cuda(x, cw, mode, n, dt),
+               cc.savgol_padded_bf16_plain(x, cw, mode, n, dt))
+              for mode in ("symmetric", "wrap", "edge")]
+    for got, want in pairs:
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(f(got), f(want)), f.__name__
+        fin = torch.isfinite(want)
+        assert not bool(fin.all())
+        _within_ulp(got[fin].cpu(), want[fin].cpu())

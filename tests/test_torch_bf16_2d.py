@@ -407,3 +407,37 @@ def test_cuda_bf16_entry_points_launch_one_dense_kernel(cuda):
         run()
         torch.cuda.synchronize()
         assert cuda_conv2d.LAUNCHES == {"corr2d_valid": 1, "corr2d_sep": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W", [(3, 3), (11, 11), (7, 13), (33, 33)])
+@pytest.mark.parametrize("K", [1, 3])
+def test_cuda_bf16_dense_nonfinite_pattern_matches_plain(cuda, storage, H,
+                                                         W, K):
+    """A NaN or inf reaches exactly the outputs whose window holds it, as
+    in the plain version (a tile holding one runs its window sums on the
+    CUDA cores, not the band product, whose zeros would spread it over
+    16-column blocks); the other outputs stay within the kernel's gate. A
+    finite f32 sample past bf16's range rounds to inf on both sides."""
+    x = torch.from_numpy(_data((2, 150, 300), H * W + K)).to(cuda)
+    for b, r, c, v in ((0, 75, 90, "nan"), (0, 2, 1, "inf"),
+                       (1, 64, 128, "-inf"), (1, 40, 40, "inf"),
+                       (1, 40, 43, "-inf"), (1, 120, 250, 3.4e38)):
+        x[b, r, c] = float(v)
+    x = x.to(storage)
+    from savgol_tpu_torch.ops.apply2d import _stencil_stack
+    ws, _ = _stencil_stack((W - 1) // 2, (H - 1) // 2, 2,
+                           [(2, 0), (1, 1), (0, 2)][:K], 0.5, 0.25)
+    w = torch.from_numpy(ws if K > 1 else ws[0]).to(cuda, torch.float32)
+    for pad_mode in (None, "edge", "symmetric", "wrap"):
+        got = c2.correlate2d_valid_bf16_cuda(x, w, pad_mode)
+        want = c2.correlate2d_valid_bf16_plain(x, w, pad_mode)
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(f(got), f(want)), (pad_mode, f.__name__)
+        fin = torch.isfinite(want)
+        assert not bool(fin.all())
+        if storage == torch.float32:
+            _close(got[fin].cpu(), want[fin].cpu(), F32_TOL)
+        else:
+            _within_ulp(got[fin].float().cpu(), want[fin].float().cpu())

@@ -167,3 +167,38 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cc.savgol_polynomial_cuda(x[:, :8].contiguous(), ct, et, n)
     with pytest.raises(ValueError, match="taps"):
         cc.correlate_valid_cuda(x, torch.ones(cc._MAX_WS + 1, device=cuda))
+
+
+def _same_nonfinite(got, want):
+    """NaN, +inf and -inf in the same outputs; the finite ones returned."""
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(want)), f.__name__
+    fin = torch.isfinite(want)
+    assert not bool(fin.all())
+    return got[fin], want[fin]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [3, 12, 32])
+def test_cuda_nonfinite_pattern_matches_plain(cuda, n, dtype):
+    """K1, K2 (each pad mode) and K3 on rows holding NaN, +inf and -inf at
+    the ends, at tile boundaries and inside: the same non-finite outputs as
+    the plain versions, the finite ones within the kernel gate."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    x = torch.from_numpy(_data(5, 4099, seed=n, dtype=npdt)).to(cuda)
+    for row, (j, v) in enumerate(((0, "nan"), (1023, "inf"), (1024, "-inf"),
+                                  (4098, "nan"))):
+        x[row, j] = float(v)
+    x[4, 2000], x[4, 2003] = float("inf"), float("-inf")
+    cw, ew = (torch.from_numpy(a).to(cuda) for a in savgol_weights_np(
+        SavgolConfig(n, min(4, 2 * n), 1), npdt))
+    tol = F32_TOL if dtype == torch.float32 else 1e-12
+    pairs = [(cc.savgol_polynomial_cuda(x, cw, ew, n, 2.0, -1.0),
+              cc.savgol_polynomial_plain(x, cw, ew, n, 2.0, -1.0)),
+             (cc.correlate_valid_cuda(x, cw), cc.correlate_valid_plain(x, cw))]
+    pairs += [(cc.savgol_padded_cuda(x, cw, mode, n, 2.0),
+               cc.savgol_padded_plain(x, cw, mode, n, 2.0))
+              for mode in ("symmetric", "wrap", "edge")]
+    for got, want in pairs:
+        _assert_close(*(t.cpu() for t in _same_nonfinite(got, want)), tol)

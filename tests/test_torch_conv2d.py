@@ -213,8 +213,10 @@ def test_wrappers_take_plain_version_on_cpu():
 def test_plain_rejects_what_neither_version_takes():
     x = torch.zeros(4, 10)
     w = torch.ones(11, 3)
-    with pytest.raises(ValueError, match="smaller than the stencil"):
-        c2.correlate2d_valid_plain(x, w)
+    # an image smaller than the stencil has no VALID rows (the JAX package's
+    # shape), not an error
+    y = c2.correlate2d_valid_plain(x, w)
+    assert y.shape == (0, 8) and y.dtype == x.dtype
     with pytest.raises(ValueError, match="pad mode"):
         c2.correlate2d_valid_plain(x, w, "reflect")
     with pytest.raises(ValueError, match="two axes"):
@@ -228,8 +230,8 @@ def test_plain_rejects_what_neither_version_takes():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(1, 2047, 2049), (3, 37, 29), (2, 3, 5)])
-@pytest.mark.parametrize("H,W", [(3, 3), (5, 3), (11, 11), (7, 13), (23, 23),
-                                 (33, 33)])
+@pytest.mark.parametrize("H,W", [(3, 3), (5, 3), (11, 11), (7, 13), (17, 15),
+                                 (23, 23), (33, 33)])
 def test_cuda_kernels_match_plain(cuda, H, W, shape, dtype):
     npdt = np.float32 if dtype == torch.float32 else np.float64
     tol = 1e-5 if dtype == torch.float32 else F64_TOL
@@ -270,8 +272,52 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         c2.correlate2d_valid_cuda(x, torch.ones(4, 5, device=cuda))
     with pytest.raises(ValueError, match="odd"):
         c2.correlate2d_valid_cuda(x, torch.ones(35, 5, device=cuda), "edge")
-    with pytest.raises(ValueError, match="smaller"):
-        c2.correlate2d_valid_cuda(x[:, :3].contiguous(), w)
+    # an image smaller than the stencil: an empty result and no launch
+    before = dict(c2.LAUNCHES)
+    y = c2.correlate2d_valid_cuda(x[:, :3].contiguous(), w)
+    assert y.shape == (2, 0, 46) and y.device == x.device
+    assert c2.LAUNCHES == before
     with pytest.raises(ValueError, match="factors"):
         c2.correlate2d_sep_cuda(x, torch.ones(2, 5, device=cuda),
                                 torch.ones(3, 5, device=cuda))
+
+
+def _same_nonfinite(got, want):
+    """NaN, +inf and -inf in the same outputs; the finite ones returned."""
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(want)), f.__name__
+    fin = torch.isfinite(want)
+    assert not bool(fin.all())
+    return got[fin], want[fin]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("H,W", [(3, 3), (11, 11), (7, 13), (5, 3),
+                                 (33, 33)])
+def test_cuda_nonfinite_pattern_matches_plain(cuda, H, W, dtype):
+    """K2D-dense (one stencil and three) and K2D-sep on an image holding
+    NaN, +inf and -inf inside, at an edge, on a tile corner and +inf with
+    -inf in one window: the same non-finite outputs as the plain versions
+    in every boundary, the finite ones within 1e-5 scaled (f32)."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    x = torch.from_numpy(_data((2, 150, 300), seed=H * W, dtype=npdt)).to(
+        cuda)
+    for b, r, c, v in ((0, 75, 90, "nan"), (0, 2, 1, "inf"),
+                       (1, 64, 128, "-inf"), (1, 40, 40, "inf"),
+                       (1, 40, 43, "-inf")):
+        x[b, r, c] = float(v)
+    ws = torch.from_numpy(_stencil_stack(
+        (W - 1) // 2, (H - 1) // 2, 2 if min(H, W) == 3 else 3,
+        [(2, 0), (1, 1), (0, 2)], 1.0, 1.0)[0]).to(cuda, dtype)
+    u, v = (torch.from_numpy(f).to(cuda, dtype)
+            for f in c2._svd_stencil_np(ws[1].double().cpu().numpy()))
+    tol = 1e-5 if dtype == torch.float32 else F64_TOL
+    for mode in (None, *MODES):
+        for w in (ws[1], ws):
+            got, want = _same_nonfinite(c2.correlate2d_valid_cuda(x, w, mode),
+                                        c2.correlate2d_valid_plain(x, w, mode))
+            _assert_close(got.cpu(), want.cpu(), tol)
+        got, want = _same_nonfinite(c2.correlate2d_sep_cuda(x, u, v, mode),
+                                    c2.correlate2d_sep_plain(x, u, v, mode))
+        _assert_close(got.cpu(), want.cpu(), tol)

@@ -176,8 +176,18 @@ def test_tiny_images_shorter_than_the_pad(shape):
                         method="xla")
         got = ft.apply(torch.from_numpy(x), boundary=boundary)
         _assert_close(got.numpy(), want, F64_TOL)
-    with pytest.raises(ValueError, match="smaller than the stencil"):
-        ft.apply_valid(torch.from_numpy(x))
+    # VALID on an image smaller than the stencil: an empty result of shape
+    # (..., max(0, R - H + 1), max(0, C - W + 1)). Every JAX route raises
+    # here (ROADMAP R5: these images are 2 or more samples shorter than the
+    # stencil, and its output shape goes negative), so the shape is the
+    # contract's.
+    with pytest.raises(TypeError):
+        fj.apply_valid(jnp.asarray(x), method="xla")
+    got = ft.apply_valid(torch.from_numpy(x))
+    H, W = ft.weights.shape
+    assert tuple(got.shape) == x.shape[:-2] + (
+        max(0, x.shape[-2] - H + 1), max(0, x.shape[-1] - W + 1))
+    assert got.dtype == torch.float64 and got.numel() == 0
 
 
 # -- gradient, Hessian, Laplacian ----------------------------------------------

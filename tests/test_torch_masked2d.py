@@ -557,3 +557,38 @@ def test_cuda_unsupported_config_takes_the_staged_kernels(cuda):
     well = _coverage(valid, 1, 5) >= 0.7 * 3 * 11
     _compare(got, want, 1e-9, where=well,
              decided=_identifiable(valid, 1, 5, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,ny,m", [(1, 5, 3), (1, 5, 4), (1, 5, 5),
+                                     (1, 5, 6), (1, 5, 2)])
+def test_cuda_k8a_instances_bit_equal_plain(cuda, nx, ny, m, dtype):
+    """K8a on the staged route's planes (3 x 11 window; P = 10 and 15 on the
+    compile-time instances, P = 6, 21 and 28 on the runtime one) against
+    ``lsq.cholesky_solve_planes`` bit for bit, coefficients and ok, with NaN
+    and inf Gram entries at some positions."""
+    import torch.nn.functional as F
+    from savgol_tpu_torch.ops import cuda_solve as cs
+    from savgol_tpu_torch.ops import lsq
+    from savgol_tpu_torch.ops.masked import _corr2d_bank
+    rng = np.random.default_rng(m)
+    valid = torch.from_numpy(rng.random((96, 160)) >= 0.2).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((96, 160))).to(cuda, dtype)
+    Q, _, pw, pi, _ = _masked_tables_2d(nx, ny, m)
+    P, area = Q.shape[0], (2 * nx + 1) * (2 * ny + 1)
+    xv = F.pad(torch.where(valid, x, 0.0), (nx, nx, ny, ny))
+    wp = F.pad(valid.to(dtype), (nx, nx, ny, ny))
+    gram, rhs = _corr2d_bank(wp, pw, True), _corr2d_bank(xv, Q, True)
+    quorum = gram[int(pi[0, 0])] * area >= P - 0.5
+    gram[:, 10, 10] = float("nan")
+    gram[1, 50, 70] = float("inf")
+    gram[2, 90, 3] = float("-inf")
+    cs.reset_launches()
+    got, ok = cs.plane_solve_cuda(gram, pi, rhs, quorum, 1e-6)
+    assert cs.LAUNCHES["plane_solve"] == 1
+    want, wok = lsq.cholesky_solve_planes(gram, pi, rhs, quorum, 1e-6)
+    assert torch.equal(ok, wok)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got, 0.0), torch.nan_to_num(want, 0.0))
+    assert not bool(torch.isfinite(got[:, 10, 10]).any())

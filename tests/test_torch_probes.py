@@ -18,6 +18,7 @@ import torch
 from savgol_tpu_torch.ops.cuda_conv import bf16_ulp_gate
 from savgol_tpu_torch.probes import bf16_1d as p3
 from savgol_tpu_torch.probes import rowband2d as p2
+from savgol_tpu_torch.probes import variants
 
 
 def _bf16(a):
@@ -184,3 +185,19 @@ def test_cuda_p2_matches_plain(cuda, variant, dtype, pad_mode):
                                    atol=2e-6 * max(1, want.abs().max()))
     else:
         _within_ulp(got, want.double())
+
+
+@pytest.mark.parametrize("kernel", sorted(variants.VARIANTS))
+def test_variants_apply_to_this_checkout(kernel, tmp_path):
+    """probes/variants.py writes the as-is source of this checkout's kernel
+    and each design alternative whose lines it still finds as an edited
+    copy beside the headers; the rest it reports as stale, not built."""
+    fname, by_name = variants.VARIANTS[kernel]
+    paths, stale = variants.sources(kernel, tmp_path)
+    assert sorted([*paths, *stale]) == sorted(by_name)
+    assert "as_is" in paths
+    as_is = paths["as_is"].read_text()
+    assert as_is == (variants._CSRC / fname).read_text()
+    for name, path in paths.items():
+        assert (path.read_text() == as_is) == (name == "as_is")
+        assert (path.parent / "plane_chol.cuh").exists()
