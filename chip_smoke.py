@@ -17,7 +17,9 @@ batch against a float64 reference, gradients, and timings. Then the masked
 masks, boundaries, shapes and dtypes; ``savgol_apply_masked`` (normal and
 ``solver="qr"``) on a (64, 131,072) float32 batch and
 ``savgol2d_apply_masked`` on a 1024 x 1024 image, 20% holes, against
-float64, with each entry point's kernel launches counted; K8a bit for bit
+float64, with each entry point's kernel launches counted; K8b's
+compile-time instances (k <= 8) bit for bit against its runtime form on
+the same planes; K8a bit for bit
 against its plain version on that image's planes (k = 6, 10, 15; f32 and
 f64; NaN and inf Gram entries at some positions); gradients; and
 timings, K9 and K10 also at the headline batches. Then the irregular-sampling
@@ -120,7 +122,9 @@ K9_TOL, K9_SLICE_ABS, QR_TOL, K10_TOL = 2e-5, 2e-4, 5e-5, 5e-5
 MASKED_F64_TOL = 1e-9
 WELL = 0.7                     # "well covered": >= 70% of a window valid
 BOUNDARIES_MASKED = ("truncate", "constant", "reflect", "periodic")
-K8_KS = (1, 3, 5, 10, 15, 21, 28, 33)
+# every compile-time instance of K8b (k <= 8) and of K8a (10, 15), then
+# the runtime forms (21 and 28 in local arrays, 33 in device scratch)
+K8_KS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 15, 21, 28, 33)
 # (n, m, d): m up to 2n, k past the local arrays at m = 40; k = m + 1 from
 # 1 to 8 on the compile-time instances (n = 12 fixes the window too), k = 9
 # on the runtime one
@@ -143,10 +147,12 @@ K10_DERIVS = ((0, 0), (1, 0), (0, 1), (1, 1), (2, 0))
 # fill 0, f32; t = cumsum(U(0, 1) + 0.5)), nonuniform also with 20% holes;
 # K11 also timed alone at the 1D headline batch
 NONUNI = (8, 131_072)
-# (n, m, d): up to 2n = 200 (past the TPU kernel's 2n <= 128); and (n, m)
-# with k = m + 1 = 41, past plane_chol.cuh's local arrays (device scratch)
+# (n, m, d): up to 2n = 200 (past the TPU kernel's 2n <= 128), k = m + 1
+# from 1 to 8 (every compile-time instance; 7 and 8 keep L in shared
+# memory); and (n, m) with k = m + 1 = 41, past the compile-time instances
+# (device scratch)
 K11_CONFIGS = ((2, 1, 0), (3, 2, 2), (12, 4, 0), (12, 4, 1), (32, 6, 2),
-               (100, 3, 1))
+               (100, 3, 1), (3, 0, 0), (12, 5, 1), (12, 7, 2))
 K11_SCRATCH = (24, 40)
 # (x dtype, t dtype, offset of t): epoch-scale f64 time stamps included
 K11_TYPES = ((torch.float32, torch.float32, 0.0),
@@ -194,8 +200,9 @@ def chol_flops(k: int) -> int:
     return plain_chol_flops(k) + 2 * k * k + 11 * k * k + k
 
 
-# double-word operations in FP64 flops, as plane_chol.cuh writes them
-DD_ADD, DD_MUL, DD_MUL_D, DD_SQRT, DD_DIV = 11, 10, 8, 13, 51
+# double-word operations in FP64 flops (an fma two), as plane_chol.cuh
+# writes them
+DD_TWO_SUM, DD_ADD, DD_MUL, DD_SQRT, DD_DIV = 6, 11, 10, 13, 51
 
 
 def dd_chol_flops(k: int) -> int:
@@ -220,10 +227,13 @@ def nonuniform_flops(n: int, m: int) -> dict:
 
 def nonuniform_dd_flops(n: int, m: int) -> int:
     """FP64 flops K11 spends on one output (nonuniform.cu, double-word for
-    both dtypes): a tap's 2m+1 moment, m+1 rhs and 2m power products and
-    their 3m+2 sums, then the double-word solve."""
-    tap = (5 * m + 2) * DD_MUL_D + (3 * m + 2) * DD_ADD
-    return (2 * n + 1) * tap + dd_chol_flops(m + 1)
+    both dtypes): a tap's 3m+2 terms gathered (a TwoSum and two adds, the
+    first term of each chain one add) and its 3m chain steps (a product and
+    two fmas, the first step of each chain one fma), the 3m+2 sums
+    renormalized once (a TwoSum each), then the double-word solve."""
+    terms, steps = 3 * m + 2, 3 * m
+    tap = terms * (DD_TWO_SUM + 2) - 2 + steps * 5 - (4 if m else 0)
+    return (2 * n + 1) * tap + terms * DD_TWO_SUM + dd_chol_flops(m + 1)
 
 
 def k10_flops(nx: int, ny: int, m: int) -> float:
@@ -392,6 +402,34 @@ def masked_err(got, want, tol, where, what, decided=None):
     return err, int(differ.sum())
 
 
+def spd_planes(rng, k: int, pos: int):
+    """Random SPD Gram planes for the K8 checks: (gram (Kp, pos), pair
+    table, rhs (k, pos), noise for the lo words, quorum (90%), scaled
+    (5%: one column 1e-5, rejected by rcond), rank-one (5%: a shifted
+    factor))."""
+    A = rng.standard_normal((pos, 3 * k + 2, k))
+    scaled = rng.random(pos) < 0.05
+    A[scaled, :, -1] *= 1e-5
+    G = np.einsum("pwi,pwj->pij", A, A) / (3 * k + 2)
+    v = rng.standard_normal((pos, k))
+    rank_one = (rng.random(pos) < 0.05) & ~scaled
+    G[rank_one] = np.einsum("pi,pj->pij", v, v)[rank_one]
+    pi = np.zeros((k, k), np.int32)
+    iu = [(a, b) for a in range(k) for b in range(a, k)]
+    for e, (a, b) in enumerate(iu):
+        pi[a, b] = pi[b, a] = e
+    gram = np.stack([G[:, a, b] for a, b in iu])
+    rhs = rng.standard_normal((k, pos))
+    lo_noise = rng.standard_normal(gram.shape)
+    quorum = rng.random(pos) < 0.9
+    return gram, pi, rhs, lo_noise, quorum, scaled, rank_one
+
+
+# f32 and f64 pairs: (dtype, tolerance, rcond, lo words' scale)
+K8_TYPES = ((torch.float32, 1e-5, 1e-6, 2.0 ** -30),
+            (torch.float64, 1e-12, 1e-8, 2.0 ** -60))
+
+
 def k8_grid(dev) -> str:
     """K8a and K8b against their plain versions over k, dtype and rcond on
     random SPD planes with under-quorum, badly scaled (rcond-rejected) and
@@ -404,30 +442,16 @@ def k8_grid(dev) -> str:
     cs.reset_launches()
     for k in K8_KS:
         pos = 20_000 if k <= 10 else 3_000
-        A = rng.standard_normal((pos, 3 * k + 2, k))
-        scaled = rng.random(pos) < 0.05
-        A[scaled, :, -1] *= 1e-5
-        G = np.einsum("pwi,pwj->pij", A, A) / (3 * k + 2)
-        v = rng.standard_normal((pos, k))
-        rank_one = (rng.random(pos) < 0.05) & ~scaled
-        G[rank_one] = np.einsum("pi,pj->pij", v, v)[rank_one]
-        pi = np.zeros((k, k), np.int32)
-        iu = [(a, b) for a in range(k) for b in range(a, k)]
-        for e, (a, b) in enumerate(iu):
-            pi[a, b] = pi[b, a] = e
-        gram = np.stack([G[:, a, b] for a, b in iu])
-        rhs = rng.standard_normal((k, pos))
-        lo_noise = rng.standard_normal(gram.shape)
-        quorum = torch.from_numpy(rng.random(pos) < 0.9).to(dev)
+        gram, pi, rhs, lo_noise, quorum, scaled, rank_one = spd_planes(
+            rng, k, pos)
+        quorum = torch.from_numpy(quorum).to(dev)
         good = torch.from_numpy(~scaled & ~rank_one).to(dev)
         # where ok must agree: off the rank-one Grams, whose factor is
         # rounding noise; in f32 also off the scaled ones (cond 1e10, past
         # 1/eps); in f64 rcond 1e-8 rejects those on both sides
         decided = {torch.float32: good,
                    torch.float64: torch.from_numpy(~rank_one).to(dev)}
-        for dtype, tol, rc, ulp in ((torch.float32, 1e-5, 1e-6, 2.0 ** -30),
-                                    (torch.float64, 1e-12, 1e-8,
-                                     2.0 ** -60)):
+        for dtype, tol, rc, ulp in K8_TYPES:
             g = torch.from_numpy(gram).to(dev, dtype)
             r = torch.from_numpy(rhs).to(dev, dtype)
             # lo words below half an ulp of the hi words
@@ -461,6 +485,44 @@ def k8_grid(dev) -> str:
             f"worst scaled error K8a={worst['K8a']:.3e} "
             f"K8b={worst['K8b']:.3e} (tol f32 1e-5, f64 1e-12), ok "
             f"identical where decided, launches {launches}")
+
+
+def k8b_forms(dev) -> str:
+    """K8b's compile-time instances (dd_chol_solve<K>, k <= 8) against its
+    runtime form (``runtime_form=True``) on the same stored planes: the
+    coefficients bit for bit and ok identical at every position, under-
+    quorum, rcond-rejected and rank-one ones included, for f32 and f64
+    pairs, rcond off and on."""
+    from savgol_tpu_torch.ops import cuda_solve as cs
+    rng = np.random.default_rng(12)
+    cases = 0
+    for k in range(1, 9):
+        gram, pi, rhs, lo_noise, quorum, _, _ = spd_planes(rng, k, 20_000)
+        quorum = torch.from_numpy(quorum).to(dev)
+        for dtype, _, rc, ulp in K8_TYPES:
+            g = torch.from_numpy(gram).to(dev, dtype)
+            glo = (g.double() * torch.from_numpy(lo_noise).to(dev) * ulp
+                   ).to(dtype)
+            r = torch.from_numpy(rhs).to(dev, dtype)
+            rlo = (r.double() * ulp / 3).to(dtype)
+            for rcond in (None, rc):
+                got, ok = cs.plane_solve_dd_cuda(g, glo, pi, r, rlo, quorum,
+                                                 rcond)
+                want, wok = cs.plane_solve_dd_cuda(g, glo, pi, r, rlo, quorum,
+                                                   rcond, runtime_form=True)
+                what = f"K8b k={k} {dtype} rcond={rcond}"
+                bits = torch.int32 if dtype == torch.float32 else torch.int64
+                require(torch.equal(got.view(bits), want.view(bits)),
+                        f"{what}: dd_chol_solve<{k}> differs from the "
+                        "runtime form")
+                require(torch.equal(ok, wok), f"{what}: ok differs from the "
+                        "runtime form's")
+                cases += 1
+    torch.cuda.synchronize()
+    return (f"K8b forms: dd_chol_solve<K> bit-equal to the runtime form, ok "
+            f"identical everywhere, {cases} cases (k 1-8, f32/f64 pairs, "
+            "rcond off/on; under-quorum, rcond-rejected and rank-one "
+            "positions)")
 
 
 def k9_cases(n: int, m: int):
@@ -1070,6 +1132,30 @@ def k11_grid(sgt, dev) -> str:
             f"K11 n={n} m={m}: fill pattern against the plain planes' ok")
     cases += 1
     planes += 1
+
+    # the largest n whose staged tile fits a block, m = 4 and 7: the tile
+    # and L pass the limit there, so the K = 0 instance on device scratch
+    # runs; on a 64-sample row every window spans the row, so it must give
+    # the bits of n = 63 (the compile-time instance, held above)
+    big = []
+    for xd in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=xd).element_size()
+        n = (c11.SMEM_LIMIT // 3 // 16 * 16 // size - 128) // 2
+        t = torch.from_numpy(np.cumsum(rng.uniform(0.5, 1.5, (1, 64)),
+                                       -1)).to(dev, xd)
+        x = torch.from_numpy(rng.standard_normal((1, 64))).to(dev, xd)
+        for m in (4, 7):
+            smem, work, _ = c11.nonuniform_layout(n, m, xd, xd)
+            require(smem <= c11.SMEM_LIMIT and work > 0,
+                    f"K11 n={n} m={m}: layout {smem} B, {work} scratch")
+            y, y63 = (sgt.savgol_apply_nonuniform(
+                x, t, half_window=h, poly_order=m, derivative=1)
+                for h in (n, 63))
+            require(torch.equal(y.isnan(), y63.isnan()) and
+                    torch.equal(y.nan_to_num(), y63.nan_to_num()),
+                    f"K11 n={n} m={m} {xd}: differs from n=63")
+            cases += 2
+        big.append(n)
     torch.cuda.synchronize()
     require(c11.LAUNCHES["nonuniform"] == cases + planes,
             f"K11 grid launched {c11.LAUNCHES}, expected {cases + planes}")
@@ -1080,8 +1166,9 @@ def k11_grid(sgt, dev) -> str:
             f"identical; f32 outputs on thinner windows {thin}, largest abs "
             f"difference to plain there {thin_err:.3e}; f32 on every window "
             f"vs the FP64-pair witness {worst_wit:.3e} scaled (tol "
-            f"{NONUNI_F32_TOL}, fill pattern identical); launches "
-            f"{dict(c11.LAUNCHES)}")
+            f"{NONUNI_F32_TOL}, fill pattern identical); n = {big} (the "
+            f"largest tiles, K = 0 on scratch) bit-equal to n = 63 at m = 4 "
+            f"and 7; launches {dict(c11.LAUNCHES)}")
 
 
 def k12_grid(dev) -> str:
@@ -1344,13 +1431,16 @@ def nonuniform_slice(sgt, dev, card) -> list:
     b12 = bound(4 * 7 * B * uniq + 4 * uniq + (8 + 4) * N + 4 * B * N,
                 B * N * 2 * 10)
     b11h = bound(16 * head, per(head))
+    # the FP64 floor of the double-word work K11 chose (not its bound)
     fdd = nonuniform_dd_flops(12, 4)
+    floor11 = fdd * B * N / PEAK_FLOPS["f64"] * 1e3
     print(f"time K11 alone ({B_FULL}, {N_FULL}) f32 n=12 m=4: {k11_head:.4f} "
           f"ms = {head / k11_head / 1e6:.3f} Gs/s, {fdd} FP64 flops a sample "
           f"spent (double-word) = {fdd * head / k11_head / 1e9:.2f} TFLOP/s; "
           f"bounds (the float32 contract: {fl['f64']} FP64 and {fl['f32']} "
           f"f32 operations a sample) K11 {b11['bound_ms']:.4f} ms "
-          f"({b11['bound_by']}), K11p {b11p['bound_ms']:.4f}, K12 "
+          f"({b11['bound_by']}; its double-word work at the FP64 peak "
+          f"{floor11:.4f} ms), K11p {b11p['bound_ms']:.4f}, K12 "
           f"{b12['bound_ms']:.4f} ({b12['bound_by']}), K11 alone "
           f"{b11h['bound_ms']:.3f} ms [{card}]")
     src = "savgol_tpu_torch/csrc/nonuniform.cu"
@@ -3640,6 +3730,7 @@ def main() -> int:
     # -- 12-17. the masked path ---------------------------------------------
     t_masked = time.perf_counter()
     print(k8_grid(dev))
+    print(k8b_forms(dev))
     print(k9_grid(sgt, dev))
     print(k10_grid(sgt, dev))
     masked_kernels = masked_slice(sgt, dev, card)

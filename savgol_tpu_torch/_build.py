@@ -79,11 +79,11 @@ _SIGNATURES = {
     "plane_solve_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _D, _P, _LL, _P],
     "plane_solve_f64": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _D, _P, _LL, _P],
     # gram hi, lo, rhs hi, lo, quorum, pair_index, coef, ok, k, pos,
-    # use_rcond, sqrt_rcond, scratch, scratch_threads, stream
+    # use_rcond, sqrt_rcond, scratch, scratch_threads, force_runtime, stream
     "plane_solve_dd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _D,
-                           _P, _LL, _P],
+                           _P, _LL, _I, _P],
     "plane_solve_dd_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _D,
-                           _P, _LL, _P],
+                           _P, _LL, _I, _P],
     # x, w, out, B, Np, n, k, pairs, qt, extract, kmin, fill, scratch,
     # scratch_threads, stream
     "masked1d_f32": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P, _P, _I, _F, _P,

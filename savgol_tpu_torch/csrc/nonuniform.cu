@@ -24,25 +24,42 @@
 //
 // Design: a block of 128 threads stages t, x and w for 128 outputs of one
 // row and their 2n halo in shared memory, then each thread owns one output:
-// the normalizer pass, the moment pass, the Hankel expansion into the
-// solve's workspace, the solve and the output. For k = m + 1 <= 8 the moment
-// loop is unrolled to its compile-time bound (5 or 8) with a uniform guard,
-// so the moments stay in registers (ptxas: 128 and 168 registers) and the
-// solve's workspace is a local array (0.8 and 1.7 KB of stack). Past k = 8
-// the moments and the workspace take the thread's interleaved slice of a
-// device scratch buffer (96 registers, no stack): a local-array variant for
-// k <= 32 spilled 2 KB and held 20 KB of stack, and doubled the build time.
-// Any n that shared memory holds is taken. Bound: FP64 arithmetic, ~(5m+2)
-// double-word products and (3m+2) double-word sums a tap (~330 FP64
-// operations at m = 4, ~8.3 k a sample at n = 12) plus the k x k
+// the normalizer pass, the moment pass, the solve and the output. For
+// k = m + 1 <= 8 each k has its own instance (nonuniform_kernel<T, TT, K>):
+// the moment pass unrolls over the 2K - 1 moments, which stay in registers
+// and are the solve's Hankel G (plane_chol.cuh's DdFixedWork, G(i, j) =
+// S[i + j]), and the solve is dd_chol_solve<K>, with L in registers up to
+// K = kNonuniRegsK and past it in shared memory by thread: at K = 6 L in
+// registers spilled 16 B at 168 registers, at 7 and 8 it measured 2-8%
+// slower, and at K = 5 (the path's m = 4) shared memory measured 2% faster
+// in f32 and 1% slower in f64 (probes/variants.py). No instance keeps a
+// local array. Past k = 8, and where the tile and L would pass a block's
+// shared memory (n past ~4,000-8,000 at k = 5..8), the moments and the
+// runtime solve's workspace take the thread's interleaved slice of a device
+// scratch buffer (K = 0), so every n whose tile fits is taken.
+//
+// The moment pass is most of the work. A tap's 2m + 1 moment and m + 1 rhs
+// terms come from two chains, w u^q and w x u^q, each step one exact
+// product and one fma for the low word, left unrenormalized; each term's
+// high word joins its sum by TwoSum while the low words gather apart, and
+// every pair is renormalized once, after the window. That keeps the
+// moments at double-word accuracy (~2^-100 relative, against ~2^-104 fully
+// renormalized: far inside the float32 contract and the float64 gate) for
+// 11 FP64 instructions a term and step where a renormalized product, sum
+// and power step took 23. Any n that shared memory holds is taken. Bound:
+// FP64 issue, (3m + 2) TwoSums and 3m chain steps a tap plus the k x k
 // double-word solve, against 16-20 B of device memory a sample.
+#include <type_traits>
+
 #include "plane_chol.cuh"
 
 namespace {
 
 using namespace sgtsolve;
 constexpr int kTile = 128;                   // outputs and threads per block
-constexpr int kNonuniLocalKmax = 8;          // larger k takes device scratch
+constexpr int kNonuniFixedKmax = 8;          // larger k takes device scratch
+constexpr int kNonuniRegsK = 4;              // larger K keeps L in shared memory
+constexpr size_t kSmemLimit = 232448;        // shared memory a block may use
 
 // Doubles of one thread's scratch: moments and rhs (hi, lo), then the
 // double-word solve workspace.
@@ -57,21 +74,144 @@ __host__ __device__ constexpr size_t align16(size_t b) {
   return (b + 15) / 16 * 16;
 }
 
+// whether the instance for k keeps L in shared memory
+__host__ __device__ constexpr bool shared_l(int k) {
+  return k > kNonuniRegsK && k <= kNonuniFixedKmax;
+}
+
 // Shared memory of one block: t, x and w of the tile and its 2n halo, each
-// array 16-byte aligned, in the kernel's order.
-constexpr size_t smem_bytes(int n, size_t x_size, size_t t_size) {
+// array 16-byte aligned, in the kernel's order; then, for an instance that
+// keeps L in shared memory, L's hi and lo words by thread.
+__host__ __device__ constexpr size_t tile_bytes(int n, size_t x_size,
+                                               size_t t_size) {
   return align16(t_size * (kTile + 2 * static_cast<size_t>(n))) +
          2 * align16(x_size * (kTile + 2 * static_cast<size_t>(n)));
 }
-
-// dd * double, the plain version's _dd_mul(x, (y, 0)) with its cross term
-// in one fma
-__device__ __forceinline__ dd dd_mul_d(dd x, double y) {
-  const dd p = two_prod(x.hi, y);
-  return quick_two_sum(p.hi, fma(x.lo, y, p.lo));
+__host__ __device__ constexpr size_t l_bytes(int k) {
+  return shared_l(k) ? sizeof(double) * 2 * packed(k) * kTile : 0;
+}
+// whether k's compile-time instance runs at this n: k <= 8, with its L in
+// the block's shared memory beside the tile (else K = 0, on device scratch)
+__host__ __device__ constexpr bool fixed_at(int n, size_t x_size,
+                                           size_t t_size, int k) {
+  return k <= kNonuniFixedKmax &&
+         tile_bytes(n, x_size, t_size) + l_bytes(k) <= kSmemLimit;
+}
+__host__ __device__ constexpr size_t smem_bytes(int n, size_t x_size,
+                                               size_t t_size, int k) {
+  return tile_bytes(n, x_size, t_size) +
+         (fixed_at(n, x_size, t_size, k) ? l_bytes(k) : 0);
 }
 
-template <typename T, typename TT, int KMAX>
+// (h, l) += (xh, xl): the high words summed exactly (TwoSum), its error and
+// xl gathered in l, which stays unrenormalized; xh alone where xl is 0
+__device__ __forceinline__ void gather(double& h, double& l, double xh,
+                                       double xl) {
+  const dd s = two_sum(h, xh);
+  h = s.hi;
+  l = add_rn(l, add_rn(s.lo, xl));
+}
+__device__ __forceinline__ void gather(double& h, double& l, double xh) {
+  const dd s = two_sum(h, xh);
+  h = s.hi;
+  l = add_rn(l, s.lo);
+}
+// (h, l) *= u: h's product exact (its error by an fma), l's share by one
+// more fma; l is 0 before the first step
+__device__ __forceinline__ void scale(double& h, double& l, double u,
+                                      bool first) {
+  const double p = mul_rn(h, u);
+  const double e = fma(h, u, -p);
+  l = first ? e : fma(l, u, e);
+  h = p;
+}
+__device__ __forceinline__ void renorm(double& h, double& l) {
+  const dd v = two_sum(h, l);
+  h = v.hi;
+  l = v.lo;
+}
+
+// The window's double-word moments S_q = sum_j w_j (u_j/s)^q, q < 2k - 1,
+// and rhs r_q = sum_j w_j x_j (u_j/s)^q, q < k, into Sh/Sl and Rh/Rl
+// (registers for KC > 0, the scratch slice for KC = 0). Each chain starts
+// at the exact (w, 0) or (w x, 0).
+template <int KC, typename T, typename TT, typename S, typename R>
+__device__ __forceinline__ void window_moments(int kk, int ws, const TT* tt,
+                                               const T* xt, const T* wt,
+                                               TT tc, T sinv, S& Sh, S& Sl,
+                                               R& Rh, R& Rl) {
+  const int k = KC > 0 ? KC : kk, n_mom = 2 * k - 1;
+#pragma unroll
+  for (int q = 0; q < n_mom; ++q) {
+    Sh[q] = 0.0;
+    Sl[q] = 0.0;
+    if (q < k) {
+      Rh[q] = 0.0;
+      Rl[q] = 0.0;
+    }
+  }
+  for (int j = 0; j < ws; ++j) {
+    const T wj = wt[j];
+    const TT u = wj > T(0) ? tt[j] - tc : TT(0);
+    const double und = mul_rn(static_cast<T>(u), sinv);
+    double ah = wj, al = 0.0, bh = mul_rn(wj, xt[j]), bl = 0.0;
+#pragma unroll
+    for (int q = 0; q < n_mom; ++q) {
+      if (q == 0) {
+        gather(Sh[0], Sl[0], ah);
+        gather(Rh[0], Rl[0], bh);
+      } else {
+        gather(Sh[q], Sl[q], ah, al);
+        if (q < k) gather(Rh[q], Rl[q], bh, bl);
+      }
+      if (q + 1 < n_mom) scale(ah, al, und, q == 0);
+      if (q + 1 < k) scale(bh, bl, und, q == 0);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < n_mom; ++q) {
+    renorm(Sh[q], Sl[q]);
+    if (q < k) renorm(Rh[q], Rl[q]);
+  }
+}
+
+// One position's output from the solution w.c(i) of its solve: the plane
+// stack (emit_planes) or the d-th derivative, fill where not ok. KC > 0
+// unrolls over the coefficients, so that a register workspace is read at
+// constant indices only. c_d is picked by selects over words read
+// unconditionally: a read made only at i == d (a conditional read, a store
+// at i == d, or a lambda over the workspace) became one read at the
+// dynamic index d and put the whole workspace in local memory, 320-544 B a
+// thread at K = 5 (probes/variants.py census).
+template <int KC, typename T, typename W>
+__device__ __forceinline__ void emit(W& w, int kk, bool ok, T s, int m,
+                                     int d, double fact_d, T fill,
+                                     int emit_planes, T* __restrict__ out,
+                                     long long o, long long ps) {
+  const int k = KC > 0 ? KC : kk;
+  if (emit_planes) {
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      const dd ci = w.c(i);
+      out[i * ps + o] = static_cast<T>(ci.hi + ci.lo);
+    }
+    out[(m + 1) * ps + o] = s;
+    out[(m + 2) * ps + o] = ok ? T(1) : T(0);
+  } else {
+    T sd = T(1);
+    for (int i = 0; i < d; ++i) sd = sd * s;
+    dd cd = {0.0, 0.0};
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      const dd ci = w.c(i);    // read unconditionally, then selected
+      cd = i == d ? ci : cd;
+    }
+    out[o] = ok ? static_cast<T>(cd.hi + cd.lo) * (static_cast<T>(fact_d) / sd)
+                : fill;
+  }
+}
+
+template <typename T, typename TT, int K>
 __global__ void __launch_bounds__(kTile)
 nonuniform_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const TT* __restrict__ t, T* __restrict__ out, long long N,
@@ -80,26 +220,11 @@ nonuniform_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   T fill, double sqrt_rcond, int emit_planes,
                   double* scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ws = 2 * n + 1, span = kTile + 2 * n, k = m + 1;
-  const int n_mom = 2 * m + 1;
+  const int ws = 2 * n + 1, span = kTile + 2 * n, k = K > 0 ? K : m + 1;
   TT* st = reinterpret_cast<TT*>(smem);
   T* sx = reinterpret_cast<T*>(smem + align16(sizeof(TT) * span));
   T* sw = reinterpret_cast<T*>(smem + align16(sizeof(TT) * span) +
                                align16(sizeof(T) * span));
-
-  // moments: compile-time layout for KMAX > 0 (registers after unrolling),
-  // the scratch slice's head for KMAX == 0
-  constexpr int PM = KMAX > 0 ? 2 * KMAX - 1 : 1;
-  double mloc[KMAX > 0 ? mom_size(KMAX) : 1];
-  double wloc[KMAX > 0 ? dd_work_size(KMAX) : 1];
-  const Span<double> base = thread_span(wloc, KMAX > 0 ? nullptr : scratch);
-  const Span<double> mom = KMAX > 0 ? Span<double>{mloc, 1} : base;
-  const int nm_x = KMAX > 0 ? PM : 2 * k - 1;      // slots of each moment word
-  const int k_x = KMAX > 0 ? KMAX : k;
-  const Span<double> Sh = mom, Sl = mom.at(nm_x), Rh = mom.at(2 * nm_x),
-                     Rl = mom.at(2 * nm_x + k_x);
-  const DdWork wk = dd_carve(KMAX > 0 ? base : base.at(mom_size(k)), k);
-  const int pmax = KMAX > 0 ? PM : n_mom;
 
   double fact_d = 1.0;
   for (int i = 2; i <= d; ++i) fact_d *= i;
@@ -136,76 +261,52 @@ nonuniform_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
       const T s = static_cast<T>(smax > TT(0) ? smax : TT(1));
       const T sinv = T(1) / s;
-
-      // pass 2: double-word Hankel moments and rhs
-#pragma unroll
-      for (int q = 0; q < pmax; ++q) {
-        if (q < n_mom) {
-          Sh[q] = 0.0;
-          Sl[q] = 0.0;
-        }
-        if (q < k) {
-          Rh[q] = 0.0;
-          Rl[q] = 0.0;
-        }
-      }
-      for (int j = 0; j < ws; ++j) {
-        const T wj = wt[j];
-        const bool valid = wj > T(0);
-        const double wd = wj;
-        const double wxd = mul_rn(wj, xt[j]);
-        const TT u = valid ? tt[j] - tc : TT(0);
-        const double und = mul_rn(static_cast<T>(u), sinv);
-        dd pw = {1.0, 0.0};
-#pragma unroll
-        for (int q = 0; q < pmax; ++q) {
-          if (q < n_mom) {
-            const dd a = dd_add({Sh[q], Sl[q]}, dd_mul_d(pw, wd));
-            Sh[q] = a.hi;
-            Sl[q] = a.lo;
-            if (q < k) {
-              const dd c = dd_add({Rh[q], Rl[q]}, dd_mul_d(pw, wxd));
-              Rh[q] = c.hi;
-              Rl[q] = c.lo;
-            }
-            if (q + 1 < n_mom) pw = dd_mul_d(pw, und);
-          }
-        }
-      }
-      // the Hankel G[i, j] = S[i + j] into the solve's workspace, moment by
-      // moment (a static index keeps the moments in registers)
-#pragma unroll
-      for (int q = 0; q < pmax; ++q) {
-        if (q < n_mom) {
-          for (int i = (q + 1) / 2; i <= q && i < k; ++i) {
-            wk.gh[tri(i, q - i)] = Sh[q];
-            wk.gl[tri(i, q - i)] = Sl[q];
-          }
-          if (q < k) {
-            wk.rh[q] = Rh[q];
-            wk.rl[q] = Rl[q];
-          }
-        }
-      }
-      const bool ok = dd_chol_solve(k, count >= kmin, true, sqrt_rcond, wk);
+      const bool quorum = count >= kmin;
       const long long o = b * N + p;
-      if (emit_planes) {
-        for (int i = 0; i < k; ++i)
-          out[i * plane_stride + o] = static_cast<T>(wk.ch[i] + wk.cl[i]);
-        out[(m + 1) * plane_stride + o] = s;
-        out[(m + 2) * plane_stride + o] = ok ? T(1) : T(0);
+
+      if constexpr (K > 0) {
+        using LS = std::conditional_t<shared_l(K), Strided<double, kTile>,
+                                      Regs<double, packed(K)>>;
+        DdFixedWork<K, LS, true> wk;
+        if constexpr (shared_l(K)) {        // L by thread past the tile
+          double* sl = reinterpret_cast<double*>(
+              smem + tile_bytes(n, sizeof(T), sizeof(TT))) + threadIdx.x;
+          wk.lh.p = sl;
+          wk.ll.p = sl + packed(K) * kTile;
+        }
+        window_moments<K>(K, ws, tt, xt, wt, tc, sinv, wk.sh, wk.sl, wk.vh,
+                          wk.vl);
+        const bool ok = dd_chol_solve<K>(K, quorum, true, sqrt_rcond, wk);
+        emit<K>(wk, K, ok, s, m, d, fact_d, fill, emit_planes, out, o,
+                plane_stride);
       } else {
-        T sd = T(1);
-        for (int i = 0; i < d; ++i) sd = sd * s;
-        const T cd = static_cast<T>(wk.ch[d] + wk.cl[d]);
-        out[o] = ok ? cd * (static_cast<T>(fact_d) / sd) : fill;
+        const Span<double> base =
+            thread_span(static_cast<double*>(nullptr), scratch);
+        const int n_mom = 2 * k - 1;
+        const Span<double> Sh = base, Sl = base.at(n_mom),
+                           Rh = base.at(2 * n_mom),
+                           Rl = base.at(2 * n_mom + k);
+        const DdWork wk = dd_carve(base.at(mom_size(k)), k);
+        window_moments<0>(k, ws, tt, xt, wt, tc, sinv, Sh, Sl, Rh, Rl);
+        // the Hankel G[i, j] = S[i + j] and the rhs into the workspace
+        for (int i = 0; i < k; ++i) {
+          for (int j = 0; j <= i; ++j) {
+            wk.gh[tri(i, j)] = Sh[i + j];
+            wk.gl[tri(i, j)] = Sl[i + j];
+          }
+          wk.rh[i] = Rh[i];
+          wk.rl[i] = Rl[i];
+        }
+        const bool ok = dd_chol_solve<0>(k, quorum, true, sqrt_rcond, wk);
+        emit<0>(wk, k, ok, s, m, d, fact_d, fill, emit_planes, out, o,
+                plane_stride);
       }
     }
     __syncthreads();
   }
 }
 
-template <typename T, typename TT, int KMAX>
+template <typename T, typename TT, int K>
 cudaError_t run(dim3 grid, size_t smem, cudaStream_t s, const T* x,
                 const T* w, const TT* t, T* out, long long N,
                 long long t_stride, long long tiles, long long total,
@@ -213,11 +314,11 @@ cudaError_t run(dim3 grid, size_t smem, cudaStream_t s, const T* x,
                 T fill, double sqrt_rcond, int emit_planes, double* scratch) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nonuniform_kernel<T, TT, KMAX>,
+        nonuniform_kernel<T, TT, K>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  nonuniform_kernel<T, TT, KMAX><<<grid, kTile, smem, s>>>(
+  nonuniform_kernel<T, TT, K><<<grid, kTile, smem, s>>>(
       x, w, t, out, N, t_stride, tiles, total, plane_stride, n, m, d, kmin,
       fill, sqrt_rcond, emit_planes, scratch);
   return cudaGetLastError();
@@ -231,42 +332,47 @@ int launch(const T* x, const T* w, const TT* t, T* out, long long B,
   if (n < 1 || m < 0 || m > 2 * n || d < 0 || d > m || B < 1 || N < 1)
     return cudaErrorInvalidValue;
   const int k = m + 1;
-  const bool local = k <= kNonuniLocalKmax;
-  if (!local && (scratch == nullptr || scratch_threads < kTile ||
+  const bool fixed = fixed_at(n, sizeof(T), sizeof(TT), k);
+  if (!fixed && (scratch == nullptr || scratch_threads < kTile ||
                  scratch_threads % kTile != 0))
     return cudaErrorInvalidValue;
   const long long tiles = (N + kTile - 1) / kTile;
   const long long total = B * tiles;
-  long long blocks = local ? total : scratch_threads / kTile;
+  long long blocks = fixed ? total : scratch_threads / kTile;
   if (blocks > 0x7fffffffLL) blocks = 0x7fffffffLL;
   const dim3 grid(static_cast<unsigned>(blocks));
-  const size_t smem = smem_bytes(n, sizeof(T), sizeof(TT));
+  const size_t smem = smem_bytes(n, sizeof(T), sizeof(TT), k);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T f = static_cast<T>(fill);
   const long long ps = B * N;
-  if (k <= 5)
-    return run<T, TT, 5>(grid, smem, s, x, w, t, out, N, t_stride, tiles,
-                         total, ps, n, m, d, kmin, f, sqrt_rcond, emit_planes,
-                         nullptr);
-  if (k <= 8)
-    return run<T, TT, 8>(grid, smem, s, x, w, t, out, N, t_stride, tiles,
-                         total, ps, n, m, d, kmin, f, sqrt_rcond, emit_planes,
-                         nullptr);
-  return run<T, TT, 0>(grid, smem, s, x, w, t, out, N, t_stride, tiles, total,
-                       ps, n, m, d, kmin, f, sqrt_rcond, emit_planes, scratch);
+#define SGT_NONUNI_RUN(K, SCRATCH)                                           \
+  run<T, TT, K>(grid, smem, s, x, w, t, out, N, t_stride, tiles, total, ps, \
+                n, m, d, kmin, f, sqrt_rcond, emit_planes, SCRATCH)
+  switch (fixed ? k : 0) {
+    case 1: return SGT_NONUNI_RUN(1, nullptr);
+    case 2: return SGT_NONUNI_RUN(2, nullptr);
+    case 3: return SGT_NONUNI_RUN(3, nullptr);
+    case 4: return SGT_NONUNI_RUN(4, nullptr);
+    case 5: return SGT_NONUNI_RUN(5, nullptr);
+    case 6: return SGT_NONUNI_RUN(6, nullptr);
+    case 7: return SGT_NONUNI_RUN(7, nullptr);
+    case 8: return SGT_NONUNI_RUN(8, nullptr);
+    default: return SGT_NONUNI_RUN(0, scratch);
+  }
+#undef SGT_NONUNI_RUN
 }
 
 }  // namespace
 
 // The launch's layout for the wrapper, so that it lives here alone: out[0]
 // the shared memory of a block in bytes, out[1] the doubles of device
-// scratch a thread (0 when k = m + 1 fits the unrolled local arrays), out[2]
-// the outputs (and threads) of a block.
+// scratch a thread (0 when the compile-time instance for k = m + 1 runs at
+// this n), out[2] the outputs (and threads) of a block.
 extern "C" int nonuniform_layout(int n, int m, int x_size, int t_size,
                                  long long* out) {
   if (n < 0 || m < 0 || x_size < 1 || t_size < 1) return cudaErrorInvalidValue;
-  out[0] = static_cast<long long>(smem_bytes(n, x_size, t_size));
-  out[1] = m + 1 <= kNonuniLocalKmax ? 0 : nonuni_work(m + 1);
+  out[0] = static_cast<long long>(smem_bytes(n, x_size, t_size, m + 1));
+  out[1] = fixed_at(n, x_size, t_size, m + 1) ? 0 : nonuni_work(m + 1);
   out[2] = kTile;
   return cudaSuccess;
 }

@@ -46,7 +46,14 @@
 // arithmetic on FP64 pairs (eps ~ 2^-106). K8b feeds it float32 (hi, lo)
 // pairs exactly, as doubles, and returns hi + lo rounded to float32: the
 // H100 has native FP64, so the float32 double-word contract (eps ~ 2^-48)
-// is met with room to spare.
+// is met with room to spare. It is templated on K as chol_solve is: K > 0
+// on a DdFixedWork (K8b and K11 at k <= 8: L in registers or shared memory
+// by thread, G read from L's slots or, for K11's Hankel, from its moments,
+// the vectors in registers), K = 0 on a DdWork (the runtime form, past k =
+// 8 and wherever a caller forces it). Both run the same operations in the
+// same order, and dd_mul's cross term is rounded explicitly, so from the
+// same stored G and r the two forms give the same coefficients and ok bit
+// for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -286,9 +293,13 @@ __device__ __forceinline__ dd dd_add(dd x, dd y) {
 __device__ __forceinline__ dd dd_sub(dd x, dd y) {
   return dd_add(x, {-y.hi, -y.lo});
 }
+// The cross term's rounding is written out (one fma over one rounded
+// product), so that no form of the solve depends on which product nvcc
+// would contract.
 __device__ __forceinline__ dd dd_mul(dd x, dd y) {
   const dd p = two_prod(x.hi, y.hi);
-  return quick_two_sum(p.hi, p.lo + (x.hi * y.lo + x.lo * y.hi));
+  return quick_two_sum(p.hi,
+                       add_rn(p.lo, fma(x.hi, y.lo, mul_rn(x.lo, y.hi))));
 }
 __device__ __forceinline__ dd dd_div(dd x, dd y) {
   const double q1 = x.hi / y.hi;
@@ -306,11 +317,22 @@ __device__ __forceinline__ dd dd_sqrt(dd x) {
   return quick_two_sum(t, d);
 }
 
+// The runtime form's workspace: G, L (hi and lo, packed), r, 1/diag(L), z
+// and c (hi and lo, k each), each a Span (a local array or device scratch).
 struct DdWork {
   Span<double> gh, gl, lh, ll, rh, rl, dh, dl, zh, zl, ch, cl;
-  __device__ __forceinline__ dd G(int e) const { return {gh[e], gl[e]}; }
+  __device__ __forceinline__ dd G(int i, int j) const {
+    return {gh[tri(i, j)], gl[tri(i, j)]};
+  }
   __device__ __forceinline__ dd L(int e) const { return {lh[e], ll[e]}; }
   __device__ __forceinline__ void setL(int e, dd v) const { lh[e] = v.hi; ll[e] = v.lo; }
+  __device__ __forceinline__ dd dinv(int i) const { return {dh[i], dl[i]}; }
+  __device__ __forceinline__ void setdinv(int i, dd v) const { dh[i] = v.hi; dl[i] = v.lo; }
+  __device__ __forceinline__ dd r(int i) const { return {rh[i], rl[i]}; }
+  __device__ __forceinline__ dd z(int i) const { return {zh[i], zl[i]}; }
+  __device__ __forceinline__ void setz(int i, dd v) const { zh[i] = v.hi; zl[i] = v.lo; }
+  __device__ __forceinline__ dd c(int i) const { return {ch[i], cl[i]}; }
+  __device__ __forceinline__ void setc(int i, dd v) const { ch[i] = v.hi; cl[i] = v.lo; }
 };
 
 __device__ __forceinline__ DdWork dd_carve(Span<double> b, int k) {
@@ -321,28 +343,63 @@ __device__ __forceinline__ DdWork dd_carve(Span<double> b, int k) {
           b.at(4 * kp + 6 * k), b.at(4 * kp + 7 * k)};
 }
 
+// The workspace of a double-word system of compile-time size K. L (hi and
+// lo, packed) is LS: registers (Regs) or shared memory by thread (Strided).
+// G is read from L's own slots, where the caller wrote it and where L
+// overwrites it in place (the factor reads G(i, j) once, before it writes
+// L(i, j), and nothing reads G after the factor), or, with kHankel, from
+// 2K - 1 moments in registers, G(i, j) = S[i + j]. r, z and c are one
+// vector in registers (each substitution reads an entry before it writes
+// it), 1/diag(L) another.
+template <int K, typename LS, bool kHankel>
+struct DdFixedWork {
+  LS lh, ll;
+  Regs<double, kHankel ? 2 * K - 1 : 1> sh, sl;
+  Regs<double, K> vh, vl, dh, dl;
+  __device__ __forceinline__ dd G(int i, int j) {
+    if constexpr (kHankel)
+      return {sh[i + j], sl[i + j]};
+    else
+      return {lh[tri(i, j)], ll[tri(i, j)]};
+  }
+  __device__ __forceinline__ dd L(int e) { return {lh[e], ll[e]}; }
+  __device__ __forceinline__ void setL(int e, dd v) { lh[e] = v.hi; ll[e] = v.lo; }
+  __device__ __forceinline__ dd dinv(int i) { return {dh[i], dl[i]}; }
+  __device__ __forceinline__ void setdinv(int i, dd v) { dh[i] = v.hi; dl[i] = v.lo; }
+  __device__ __forceinline__ dd r(int i) { return {vh[i], vl[i]}; }
+  __device__ __forceinline__ dd z(int i) { return {vh[i], vl[i]}; }
+  __device__ __forceinline__ void setz(int i, dd v) { vh[i] = v.hi; vl[i] = v.lo; }
+  __device__ __forceinline__ dd c(int i) { return {vh[i], vl[i]}; }
+  __device__ __forceinline__ void setc(int i, dd v) { vh[i] = v.hi; vl[i] = v.lo; }
+};
+
 // Solves G c = r in double-word arithmetic for the (hi, lo) G and r the
-// caller wrote into w; the solution (hi, lo) is left in w.ch, w.cl.
-__device__ inline bool dd_chol_solve(int k, bool quorum, bool use_rcond,
-                              double sqrt_rcond, const DdWork& w) {
-  if (!quorum)
-    for (int i = 0; i < k; ++i)
-      for (int j = 0; j <= i; ++j) {
-        w.gh[tri(i, j)] = i == j ? 1.0 : 0.0;
-        w.gl[tri(i, j)] = 0.0;
-      }
+// caller wrote into w; the solution is left in w.c. Positions under quorum
+// are solved against the identity. Returns ok: quorate, every diagonal of
+// L finite and, with use_rcond, min diag > sqrt_rcond * max |diag|; where
+// not ok the substitutions run on the identity factor. K > 0 fixes k = K at
+// compile time (every loop unrolls, every tri(i, j) is a constant); K = 0
+// is the runtime form on a DdWork, the same operations in the same order.
+template <int K, typename W>
+__device__ __forceinline__ bool dd_chol_solve(int kk, bool quorum,
+                                              bool use_rcond,
+                                              double sqrt_rcond, W& w) {
+  const int k = K > 0 ? K : kk;
   bool finite = true;
   double dmin = 0.0, dmax = 0.0;
+#pragma unroll
   for (int j = 0; j < k; ++j) {
-    dd s = w.G(tri(j, j));
+    dd s = quorum ? w.G(j, j) : dd{1.0, 0.0};
+#pragma unroll
     for (int p = 0; p < j; ++p) s = dd_sub(s, dd_mul(w.L(tri(j, p)), w.L(tri(j, p))));
     const dd d = dd_sqrt(s);
     w.setL(tri(j, j), d);
     const dd di = dd_div({1.0, 0.0}, d);
-    w.dh[j] = di.hi;
-    w.dl[j] = di.lo;
+    w.setdinv(j, di);
+#pragma unroll
     for (int i = j + 1; i < k; ++i) {
-      dd t = w.G(tri(i, j));
+      dd t = quorum ? w.G(i, j) : dd{0.0, 0.0};
+#pragma unroll
       for (int p = 0; p < j; ++p) t = dd_sub(t, dd_mul(w.L(tri(i, p)), w.L(tri(j, p))));
       w.setL(tri(i, j), dd_mul(t, di));
     }
@@ -353,25 +410,26 @@ __device__ inline bool dd_chol_solve(int k, bool quorum, bool use_rcond,
   bool ok = quorum && finite;
   if (use_rcond) ok = ok && dmin > sqrt_rcond * fmax(dmax, 1e-30);
   if (!ok) {
+#pragma unroll
     for (int j = 0; j < k; ++j) {
+#pragma unroll
       for (int i = j + 1; i < k; ++i) w.setL(tri(i, j), {0.0, 0.0});
-      w.dh[j] = 1.0;
-      w.dl[j] = 0.0;
+      w.setdinv(j, {1.0, 0.0});
     }
   }
+#pragma unroll
   for (int i = 0; i < k; ++i) {
-    dd s = {w.rh[i], w.rl[i]};
-    for (int j = 0; j < i; ++j) s = dd_sub(s, dd_mul(w.L(tri(i, j)), {w.zh[j], w.zl[j]}));
-    const dd z = dd_mul(s, {w.dh[i], w.dl[i]});
-    w.zh[i] = z.hi;
-    w.zl[i] = z.lo;
+    dd s = w.r(i);
+#pragma unroll
+    for (int j = 0; j < i; ++j) s = dd_sub(s, dd_mul(w.L(tri(i, j)), w.z(j)));
+    w.setz(i, dd_mul(s, w.dinv(i)));
   }
+#pragma unroll
   for (int i = k - 1; i >= 0; --i) {
-    dd s = {w.zh[i], w.zl[i]};
-    for (int j = i + 1; j < k; ++j) s = dd_sub(s, dd_mul(w.L(tri(j, i)), {w.ch[j], w.cl[j]}));
-    const dd c = dd_mul(s, {w.dh[i], w.dl[i]});
-    w.ch[i] = c.hi;
-    w.cl[i] = c.lo;
+    dd s = w.z(i);
+#pragma unroll
+    for (int j = i + 1; j < k; ++j) s = dd_sub(s, dd_mul(w.L(tri(j, i)), w.c(j)));
+    w.setc(i, dd_mul(s, w.dinv(i)));
   }
   return ok;
 }

@@ -42,6 +42,20 @@
 //   plane_solve_kernel<T, KMAX>, the runtime form for every other k: the
 //     workspace a local array of KMAX elements' worth or, past k = 32, a
 //     slice of device scratch; its loops do not unroll.
+//
+// K8b likewise:
+//
+//   plane_solve_dd_fixed<T, K>, for K = 1..8 (the qr route's k = m + 1 and
+//     the direct resample route's Hankel at m <= 7): dd_chol_solve<K>, the
+//     (hi, lo) Gram entries read straight into L's slots (L overwrites G
+//     in place), in registers (for f64 pairs at K = 8 in shared memory by
+//     thread), the vectors in registers; the pair table's packed
+//     lower triangle staged once a block; persistent blocks. No local
+//     array: the runtime form's 1.7 KB a thread (k <= 8) took 0.51 of its
+//     0.62 ms at k = 5 in its solve alone (probes/variants.py, PERF.md).
+//   plane_solve_dd_kernel<T, KMAX>, the runtime form past k = 8, or at any
+//     k when the caller forces it (force_runtime, for the check that the
+//     two forms give the same bits).
 #include <type_traits>
 
 #include "launch.cuh"
@@ -153,6 +167,93 @@ plane_solve_kernel(const T* __restrict__ gram, const T* __restrict__ rhs,
   }
 }
 
+template <typename T>
+struct DdSolveArgs {
+  const T* ghi;
+  const T* glo;
+  const T* rhi;
+  const T* rlo;
+  const unsigned char* quorum;
+  const int* pi;
+  T* coef;
+  unsigned char* ok;
+  long long pos;
+  int use_rcond;
+  double sqrt_rcond;
+};
+
+// The largest K8b instance.
+constexpr int kDdFixedKmax = 8;
+
+// The layout of K8b's compile-time instance at K: L in registers, but for
+// f64 pairs at K = 8 in shared memory by thread (in registers it spilled 76
+// B at 255 registers, where f32 pairs take 246 and none; L in shared
+// memory measured 1.27x (K = 5) and 1.66x (f32, K = 8) the registers' time,
+// probes/variants.py), the doubles of it a thread keeps there, and the
+// block (128 threads, or 64 where a block's L would pass 64 KB).
+template <typename T, int K>
+struct FixedK8b {
+  static constexpr bool shared_l = sizeof(T) == 8 && K > 7;
+  static constexpr int words = shared_l ? 2 * packed(K) : 0;
+  static constexpr int threads = words * 8 * 128 <= 65536 ? 128 : 64;
+  static constexpr size_t smem =
+      sizeof(double) * words * threads + sizeof(int) * packed(K);
+  static_assert(smem <= kSmemMax, "a block of the instance must fit");
+};
+
+template <typename T, int K>
+__global__ void __launch_bounds__(FixedK8b<T, K>::threads)
+plane_solve_dd_fixed(const DdSolveArgs<T> a) {
+  using F = FixedK8b<T, K>;
+  constexpr int NT = F::threads, kp = packed(K);
+  using LS = std::conditional_t<F::shared_l, Strided<double, NT>,
+                                Regs<double, kp>>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* slots = reinterpret_cast<double*>(smem);   // words x NT, by thread
+  int* plane_of = reinterpret_cast<int*>(slots + F::words * NT);
+  for (int e = threadIdx.x; e < kp; e += NT) {        // packed (i, j) -> plane
+    int i = 0;
+    while (tri(i + 1, 0) <= e) ++i;
+    plane_of[e] = a.pi[i * K + (e - tri(i, 0))];
+  }
+  __syncthreads();
+
+  DdFixedWork<K, LS, false> wk;
+  if constexpr (F::shared_l) {
+    wk.lh.p = slots + threadIdx.x;
+    wk.ll.p = slots + kp * NT + threadIdx.x;
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * NT;
+  for (long long p = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
+       p < a.pos; p += stride) {
+#pragma unroll
+    for (int e = 0; e < kp; ++e) {
+      const long long src = plane_of[e] * a.pos + p;
+      wk.lh[e] = a.ghi[src];
+      wk.ll[e] = a.glo[src];
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      wk.vh[i] = a.rhi[i * a.pos + p];
+      wk.vl[i] = a.rlo[i * a.pos + p];
+    }
+    const bool ok = dd_chol_solve<K>(K, a.quorum[p] != 0, a.use_rcond != 0,
+                                     a.sqrt_rcond, wk);
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      a.coef[i * a.pos + p] = static_cast<T>(wk.vh[i] + wk.vl[i]);
+    a.ok[p] = ok;
+  }
+}
+
+template <typename T, int K>
+cudaError_t run_dd_fixed(const DdSolveArgs<T>& a, cudaStream_t s) {
+  using F = FixedK8b<T, K>;
+  const long long blocks = (a.pos + F::threads - 1) / F::threads;
+  return sgtlaunch::launch(plane_solve_dd_fixed<T, K>, blocks, F::threads,
+                           F::smem, true, s, a);
+}
+
 template <typename T, int KMAX>
 __global__ void __launch_bounds__(kBlock)
 plane_solve_dd_kernel(const T* __restrict__ ghi, const T* __restrict__ glo,
@@ -178,8 +279,8 @@ plane_solve_dd_kernel(const T* __restrict__ ghi, const T* __restrict__ glo,
       w.rh[i] = rhi[i * pos + p];
       w.rl[i] = rlo[i * pos + p];
     }
-    const bool ok = dd_chol_solve(k, quorum[p] != 0, use_rcond != 0,
-                                  sqrt_rcond, w);
+    const bool ok = dd_chol_solve<0>(k, quorum[p] != 0, use_rcond != 0,
+                                     sqrt_rcond, w);
     for (int i = 0; i < k; ++i) coef[i * pos + p] = static_cast<T>(w.ch[i] + w.cl[i]);
     ok_out[p] = ok;
   }
@@ -231,14 +332,28 @@ int launch_dd(const T* ghi, const T* glo, const T* rhi, const T* rlo,
               const unsigned char* quorum, const int* pi, T* coef,
               unsigned char* ok, int k, long long pos, int use_rcond,
               double sqrt_rcond, double* scratch, long long scratch_threads,
-              void* stream) {
+              int force_runtime, void* stream) {
   if (k < 1 || pos < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the instance is chosen from k (and force_runtime) before any launch
+  const DdSolveArgs<T> a{ghi, glo, rhi, rlo, quorum, pi, coef, ok, pos,
+                         use_rcond, sqrt_rcond};
+  switch (force_runtime || k > kDdFixedKmax ? 0 : k) {
+    case 1: return run_dd_fixed<T, 1>(a, s);
+    case 2: return run_dd_fixed<T, 2>(a, s);
+    case 3: return run_dd_fixed<T, 3>(a, s);
+    case 4: return run_dd_fixed<T, 4>(a, s);
+    case 5: return run_dd_fixed<T, 5>(a, s);
+    case 6: return run_dd_fixed<T, 6>(a, s);
+    case 7: return run_dd_fixed<T, 7>(a, s);
+    case 8: return run_dd_fixed<T, 8>(a, s);
+    default: break;
+  }
   const bool local = k <= kLocalKmax;
   if (!local && (scratch == nullptr || scratch_threads < 1 ||
                  scratch_threads % kBlock != 0))
     return cudaErrorInvalidValue;
   const dim3 grid(blocks_for(pos, local ? 0 : scratch_threads));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k <= 8)
     plane_solve_dd_kernel<T, 8><<<grid, kBlock, 0, s>>>(
         ghi, glo, rhi, rlo, quorum, pi, coef, ok, k, pos, use_rcond,
@@ -286,10 +401,11 @@ extern "C" int plane_solve_dd_f32(const float* ghi, const float* glo,
                                   float* coef, unsigned char* ok, int k,
                                   long long pos, int use_rcond,
                                   double sqrt_rcond, double* scratch,
-                                  long long scratch_threads, void* stream) {
+                                  long long scratch_threads,
+                                  int force_runtime, void* stream) {
   return launch_dd<float>(ghi, glo, rhi, rlo, quorum, pi, coef, ok, k, pos,
                           use_rcond, sqrt_rcond, scratch, scratch_threads,
-                          stream);
+                          force_runtime, stream);
 }
 
 extern "C" int plane_solve_dd_f64(const double* ghi, const double* glo,
@@ -298,8 +414,9 @@ extern "C" int plane_solve_dd_f64(const double* ghi, const double* glo,
                                   double* coef, unsigned char* ok, int k,
                                   long long pos, int use_rcond,
                                   double sqrt_rcond, double* scratch,
-                                  long long scratch_threads, void* stream) {
+                                  long long scratch_threads,
+                                  int force_runtime, void* stream) {
   return launch_dd<double>(ghi, glo, rhi, rlo, quorum, pi, coef, ok, k, pos,
                            use_rcond, sqrt_rcond, scratch, scratch_threads,
-                           stream);
+                           force_runtime, stream);
 }

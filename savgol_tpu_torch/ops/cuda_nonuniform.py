@@ -177,9 +177,10 @@ def nonuniform_planes_plain(xz, wts, tl, *, half_window: int,
 def nonuniform_layout(n: int, m: int, x_dtype, t_dtype) -> tuple[int, int,
                                                                    int]:
     """(shared memory bytes of a block, doubles of device scratch a thread
-    (0 when the kernel keeps its workspace in local arrays), outputs a
-    block) of K11 for half window n and order m, as ``nonuniform.cu``
-    states them. Builds the kernel library."""
+    (0 when the compile-time instance for k = m + 1 runs at this n), outputs
+    a block) of K11
+    for half window n and order m, as ``nonuniform.cu`` states them. Builds
+    the kernel library."""
     out = (ctypes.c_longlong * 3)()
     err = library().nonuniform_layout(
         int(n), int(m), torch.empty((), dtype=x_dtype).element_size(),

@@ -9,16 +9,18 @@ CUDA tensors launch the kernel or raise. Each is differentiable in the Gram
 and rhs planes through autograd of its plain version, as the JAX package's
 custom VJPs take the VJP of their jnp twins; ``ok`` has no gradient.
 
-K8a solves k = 10 and 15 (the staged masked 2D route's orders 3 and 4) in
-compile-time instances whose workspace lives in registers and shared
-memory; every other k (21 and 28 among them), and K8b, keep a thread's
-system in a local array up to k = 32 and past that in a scratch buffer in
-device memory that the wrapper allocates. Which instance runs is
-decided in the launch from k and the dtype.
+K8a solves k = 10 and 15 (the staged masked 2D route's orders 3 and 4), and
+K8b every k <= 8, in compile-time instances whose workspace lives in
+registers and shared memory; every other k (K8a's 21 and 28 among them)
+keeps a thread's system in a local array up to k = 32 and past that in a
+scratch buffer in device memory that the wrapper allocates. Which instance
+runs is decided in the launch from k and the dtype. A pair table is
+uploaded to the card once, keyed by its bytes, k and the device.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -74,17 +76,25 @@ def _dd_work_size(k: int) -> int:
     return 2 * k * (k + 1) + 8 * k      # plane_chol.cuh dd_work_size
 
 
+@functools.lru_cache(maxsize=64)
+def _device_table(raw: bytes, k: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(raw, dtype=np.int32).reshape(
+        k, k).copy()).to(device)
+
+
 def _pair_table(pair_index, k: int, planes: int, device) -> torch.Tensor:
     """pair_index as an int32 table on the device; each entry names one of
     the ``planes`` Gram planes (k(k+1)/2 for a full Gram, 2k-1 for a
-    Hankel)."""
+    Hankel). The device copy is made once for each table's bytes, k and
+    device, so a caller who edits their array gets a new one."""
     pi = np.asarray(pair_index, dtype=np.int32)
     if pi.shape != (k, k):
         raise ValueError(f"pair_index must be ({k}, {k}), got {pi.shape}")
     if pi.min() < 0 or pi.max() >= planes:
         raise ValueError(f"pair_index names planes {pi.min()}..{pi.max()} "
                          f"of a gram stack of {planes}")
-    return torch.from_numpy(np.ascontiguousarray(pi)).to(device)
+    return _device_table(np.ascontiguousarray(pi).tobytes(), k,
+                         str(torch.device(device)))
 
 
 def _geometry(gram: torch.Tensor, rhs: torch.Tensor, quorum: torch.Tensor,
@@ -143,11 +153,14 @@ def plane_solve_cuda(gram: torch.Tensor, pair_index, rhs: torch.Tensor,
 
 
 def plane_solve_dd_cuda(gram_hi, gram_lo, pair_index, rhs_hi, rhs_lo,
-                        quorum, rcond: float | None = None):
+                        quorum, rcond: float | None = None, *,
+                        runtime_form: bool = False):
     """``(coef, ok)`` of ``G c = r`` from (hi, lo) Gram and rhs planes.
 
     CUDA tensors: kernel K8b (double-word arithmetic on FP64 pairs; float32
-    pairs enter exactly as doubles) on the current stream. CPU tensors:
+    pairs enter exactly as doubles) on the current stream; ``runtime_form``
+    runs its runtime instance at every k (the compile-time ones take k <=
+    8), which must give the same bits. CPU tensors:
     :func:`ops.lsq.cholesky_solve_planes_dd`.
     """
     name = "plane_solve_dd_cuda"
@@ -179,7 +192,8 @@ def plane_solve_dd_cuda(gram_hi, gram_lo, pair_index, rhs_hi, rhs_lo,
                  int(rcond is not None),
                  math.sqrt(rcond) if rcond is not None else 0.0,
                  scratch.data_ptr() if scratch is not None else None,
-                 threads, torch.cuda.current_stream().cuda_stream)
+                 threads, int(runtime_form),
+                 torch.cuda.current_stream().cuda_stream)
     _raise_on_error(err, name)
     LAUNCHES["plane_solve_dd"] += 1
     return coef, ok

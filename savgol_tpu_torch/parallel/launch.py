@@ -21,6 +21,9 @@ rank. A spawned rank imports only this package, never a test module.
 With ``device="cuda"`` every rank takes the card ``rank % device_count``
 (so P ranks may share one card) and keeps the ``gloo`` group: NCCL refuses
 two ranks on one card, and kernel K13 needs no backend to move its halos.
+A pool's device defaults to the card (:func:`_device.card_unless_named`:
+with no card it raises and names ``device="cpu"``); the bodies' device
+defaults to their pool's.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from savgol_tpu_torch._device import card_unless_named
+
 __all__ = ["Pool", "Sharded", "Full", "mesh", "run_sharded", "run_error",
            "run_halo"]
 
@@ -49,10 +54,23 @@ __all__ = ["Pool", "Sharded", "Full", "mesh", "run_sharded", "run_error",
 _GROUP_TIMEOUT_S = 120
 _RUN_TIMEOUT_S = 600
 
+# the device of the pool this process serves as a rank (None elsewhere)
+_POOL_DEVICE: Optional[str] = None
+
+
+def _rank_device(device: Optional[str], what: str) -> str:
+    """``device`` as given, else the device of this rank's pool, else the
+    card (:func:`card_unless_named`)."""
+    if device is not None:
+        return device
+    return _POOL_DEVICE or card_unless_named(None, what)
+
 
 def _serve(rank: int, world: int, init: str, device: str, conn) -> None:
     """A rank's loop: run each (fn, args, kwargs) it is sent and send back
     (True, result) or (False, traceback), until it is sent None."""
+    global _POOL_DEVICE
+    _POOL_DEVICE = device
     torch.set_num_threads(1)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     if device == "cuda":
@@ -73,7 +91,7 @@ def _serve(rank: int, world: int, init: str, device: str, conn) -> None:
     # every rank drops its neighbours' K13 buffers before any rank exits and
     # frees its own (CUDA IPC: the exporting process must outlive the maps)
     cuda_halo.release()
-    mesh.cache_clear()
+    _mesh.cache_clear()
     dist.barrier()
     if torch.cuda.is_initialized():
         torch.cuda.ipc_collect()
@@ -83,7 +101,8 @@ def _serve(rank: int, world: int, init: str, device: str, conn) -> None:
 class Pool:
     """P ranks of one ``gloo`` process group in spawned processes."""
 
-    def __init__(self, world: int, device: str = "cpu"):
+    def __init__(self, world: int, device: Optional[str] = None):
+        device = card_unless_named(device, "Pool")
         ctx = multiprocessing.get_context("spawn")
         self.world = world
         self._dir = tempfile.mkdtemp(prefix="savgol_pool_")
@@ -163,10 +182,16 @@ class Pool:
         self.close(kill=exc[0] is not None)
 
 
+def mesh(axis_names: tuple, shape: tuple, device_type: Optional[str] = None):
+    """A rank's mesh, made once per (names, shape, device type): its ring
+    groups, and the K13 buffers keyed by them, last for the pool. The
+    device type defaults to the pool's (:func:`_rank_device`)."""
+    return _mesh(tuple(axis_names), tuple(shape),
+                 _rank_device(device_type, "mesh"))
+
+
 @functools.lru_cache(maxsize=None)
-def mesh(axis_names: tuple, shape: tuple, device_type: str = "cpu"):
-    """A rank's mesh, made once per (names, shape): its ring groups, and the
-    K13 buffers keyed by them, last for the pool."""
+def _mesh(axis_names: tuple, shape: tuple, device_type: str):
     from savgol_tpu_torch.parallel.sharded import make_mesh
     return make_mesh(axis_names, shape, device_type=device_type)
 
@@ -205,17 +230,18 @@ def _tensor(item, m, device, wanted: list):
 
 def run_sharded(entry: str, axis_names: tuple, shape: tuple, args: list,
                 kwargs: dict, out_spec: Sequence[Optional[str]],
-                device: str = "cpu"):
+                device: Optional[str] = None):
     """SPMD body: ``savgol_tpu_torch.parallel.<entry>`` on this rank's
     blocks of ``args`` / ``kwargs`` (:class:`Sharded` and :class:`Full`
     become tensors on ``device``; anything else passes as is), with
     ``mesh=`` added. Returns ``(y, grads)`` as numpy arrays gathered from
     every rank: ``y`` by ``out_spec``, ``grads`` the gradients of
     ``sum(y ** 2)`` with respect to each input marked ``grad``, in order
-    (an empty list when none is)."""
+    (an empty list when none is). ``device`` defaults to the pool's."""
     from savgol_tpu_torch import parallel
     from savgol_tpu_torch.parallel.sharded import gather
 
+    device = _rank_device(device, "run_sharded")
     m = mesh(tuple(axis_names), tuple(shape), device)
     wanted: list = []
     call_args = [_tensor(a, m, device, wanted) for a in args]
@@ -231,7 +257,7 @@ def run_sharded(entry: str, axis_names: tuple, shape: tuple, args: list,
 
 
 def run_error(entry: str, axis_names: tuple, shape: tuple, args: list,
-              kwargs: dict, device: str = "cpu"):
+              kwargs: dict, device: Optional[str] = None):
     """SPMD body: ``(type name, message)`` of the exception the call of
     :func:`run_sharded` raises on this rank (None if it returns), so that a
     test can check an error without ending the pool. Only for errors
@@ -244,7 +270,8 @@ def run_error(entry: str, axis_names: tuple, shape: tuple, args: list,
 
 
 def run_halo(axis_names: tuple, shape: tuple, x, spec, n: int, rows: bool,
-             cotangents=None, seq_axis: str = "seq", device: str = "cpu"):
+             cotangents=None, seq_axis: str = "seq",
+             device: Optional[str] = None):
     """SPMD body: ``halo_exchange_rdma`` (``rows=False``, last axis) or
     ``halo_exchange_rdma_rows`` of this rank's block of the global numpy
     ``x`` over the ring of mesh axis ``seq_axis``. Returns the gathered
@@ -258,6 +285,7 @@ def run_halo(axis_names: tuple, shape: tuple, x, spec, n: int, rows: bool,
                                                     halo_exchange_rdma_rows)
     from savgol_tpu_torch.parallel.sharded import gather, mesh_axis, shard
 
+    device = _rank_device(device, "run_halo")
     m = mesh(tuple(axis_names), tuple(shape), device)
     group = mesh_axis(m, seq_axis)[0]
     xl = shard(torch.as_tensor(np.asarray(x), device=device), m, spec)

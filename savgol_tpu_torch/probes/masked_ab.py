@@ -2,7 +2,7 @@
 that two checkouts can be compared in one call, in turns (parent, change,
 change, parent):
 
-    python savgol_tpu_torch/probes/masked_ab.py [--root DIR]
+    python savgol_tpu_torch/probes/masked_ab.py [--root DIR] [--k8a]
 
 imports ``savgol_tpu_torch`` from DIR (default: the checkout this file is
 in), builds its kernels and prints one JSON record: the card's name and
@@ -21,7 +21,20 @@ CUDA-event medians in ms (L2 flushed) of
   share the solve routine ``csrc/plane_chol.cuh``, at ``chip_smoke.py``'s
   shapes; K8a also on the planes of the staged route's 3 x 11 window at
   orders 4, 5 and 6 (P = 15, 21, 28) in f32 and at orders 3 and 4 in
-  f64, and ``savgol2d_apply_masked`` on that route (3 x 11, order 3).
+  f64, and ``savgol2d_apply_masked`` on that route (3 x 11, order 3);
+- K8b on the qr route's planes (8 x 131,072 positions) at k = 5 and 3 in
+  f32 pairs and k = 5 in f64 pairs, and at k = 10 (its runtime form in
+  every checkout since the masked path was ported);
+- K11 at the nonuniform path's (8, 131,072), n = 12, m = 4, f32 and f64,
+  its planes mode K11p, and the entry points ``savgol_apply_nonuniform``
+  and ``savgol_resample`` there.
+
+``--k8a`` times K8a through its wrapper alone on the 2D path's planes, 31
+reps, and the host time of a call (``utils.timing.host_ms``): the quick
+A/B of the wrapper's own work, run many times in alternating order.
+
+Beside the checksums, a digest of each K8b and K11 output's bytes shows
+whether two checkouts give the same bits.
 
 It uses only the wrappers' public signatures, which every checkout since the
 masked path was ported shares.
@@ -30,6 +43,7 @@ masked path was ported shares.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -71,6 +85,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = pathlib.Path(__file__).resolve().parents[2]
     ap.add_argument("--root", default=str(here))
+    ap.add_argument("--k8a", action="store_true")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -86,7 +101,7 @@ def main() -> int:
     from savgol_tpu_torch.ops import cuda_solve as cs
     from savgol_tpu_torch.ops import lsq
     from savgol_tpu_torch.ops import masked as mk
-    from savgol_tpu_torch.utils.timing import cuda_time_ms
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, host_ms
 
     if not torch.cuda.is_available():
         raise SystemExit("masked_ab needs a CUDA device")
@@ -100,7 +115,29 @@ def main() -> int:
         valid = rng.random(shape) >= 0.2
         return (torch.from_numpy(x).to(dev), torch.from_numpy(valid).to(dev))
 
-    ms, sums = {}, {}
+    ms, sums, digests = {}, {}, {}
+
+    def k8a_planes(img, valid2):
+        """K8a's arguments on the 2D path's planes (11 x 11, order 3,
+        P = 10)."""
+        xv2 = F.pad(torch.where(valid2, img, 0.0), (5,) * 4)
+        wp2 = F.pad(valid2.float(), (5,) * 4)
+        Q3, _, pw2, pi2, _ = mk._masked_tables_2d(5, 5, 3)
+        gram2 = mk._corr2d_bank(wp2, pw2, True)
+        return (gram2, pi2, mk._corr2d_bank(xv2, Q3, True),
+                gram2[int(pi2[0, 0])] * 121 >= 9.5, 1e-6)
+
+    if args.k8a:
+        a = k8a_planes(*holed((1024, 1024)))
+        ms["K8a"] = cuda_time_ms(lambda: cs.plane_solve_cuda(*a), reps=31)
+        ms["K8a host"] = host_ms(lambda: cs.plane_solve_cuda(*a))
+        print(json.dumps({"card": card(), "root": str(root), "ms": ms}))
+        return 0
+
+    def digest(name, out):
+        digests[name] = hashlib.sha1(
+            out.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
     # -- K9 and the masked 1D entry point --
     x, valid = holed((64, 131_072))
     Q, Rinv, pair_w, pair_index = mk._masked_tables(12, 4)
@@ -114,13 +151,23 @@ def main() -> int:
         xzp, wp, *tabs, **k9))
     ms["savgol_apply_masked"] = cuda_time_ms(lambda: sgt.savgol_apply_masked(
         x, half_window=12, poly_order=4, mask=valid, fill=0.0))
-    # K8b on the qr route's planes (8 rows)
-    ghi, glo = lsq.correlate_valid_dd(wp[:8], pair_w)
-    rhi, rlo = lsq.correlate_valid_dd(xzp[:8], Q.T)
-    quorum_q = ghi[int(pair_index[0, 0])] * 25 >= 4.5
-    ms["K8b"] = cuda_time_ms(lambda: cs.plane_solve_dd_cuda(
-        ghi, glo, pair_index, rhi, rlo, quorum_q))
-    del ghi, glo, rhi, rlo
+    # K8b on the qr route's planes (8 rows): k = 5 f32 and f64 pairs, k = 3,
+    # and k = 10 (the runtime form)
+    for m, dt, tag in ((4, torch.float32, "K8b"), (4, torch.float64,
+                                                   "K8b f64 pairs"),
+                       (2, torch.float32, "K8b k=3"),
+                       (9, torch.float32, "K8b k=10 (runtime form)")):
+        Qm, _, pwm, pim = mk._masked_tables(12, m)
+        ghi, glo = lsq.correlate_valid_dd(wp[:8].to(dt), pwm)
+        rhi, rlo = lsq.correlate_valid_dd(xzp[:8].to(dt), Qm.T)
+        quorum_q = ghi[int(pim[0, 0])] * 25 >= m + 0.5
+        coef, ok = cs.plane_solve_dd_cuda(ghi, glo, pim, rhi, rlo, quorum_q)
+        sums[tag] = coef.double().nan_to_num().sum().item()
+        digest(tag, coef)
+        digest(tag + " ok", ok)
+        ms[tag] = cuda_time_ms(lambda: cs.plane_solve_dd_cuda(
+            ghi, glo, pim, rhi, rlo, quorum_q))
+        del ghi, glo, rhi, rlo
 
     # -- K10 and the masked 2D entry point --
     img, valid2 = holed((1024, 1024))
@@ -150,13 +197,9 @@ def main() -> int:
                                           half_window_y=5, poly_order=3,
                                           mask=valid2, fill=0.0))
     # K8a on the 2D path's planes (P = 10)
-    Q3, _, pw2, pi2, _ = mk._masked_tables_2d(5, 5, 3)
-    gram2 = mk._corr2d_bank(wp2, pw2, True)
-    rhs2 = mk._corr2d_bank(xv2, Q3, True)
-    quorum2 = gram2[int(pi2[0, 0])] * 121 >= 9.5
-    ms["K8a"] = cuda_time_ms(lambda: cs.plane_solve_cuda(
-        gram2, pi2, rhs2, quorum2, 1e-6))
-    del gram2, rhs2
+    a8 = k8a_planes(img, valid2)
+    ms["K8a"] = cuda_time_ms(lambda: cs.plane_solve_cuda(*a8))
+    del a8
     # K8a on the staged route's planes: a 3 x 11 window, orders 3-6
     xv3 = F.pad(torch.where(valid2, img, 0.0), (1, 1, 5, 5))
     wp3 = F.pad(valid2.float(), (1, 1, 5, 5))
@@ -187,8 +230,31 @@ def main() -> int:
     xn = torch.randn((8, 131_072), generator=gen, device=dev)
     ku = dict(half_window=12, poly_order=4, kmin=5, rcond=1e-6,
               derivative=0, fill=0.0)
-    ms["K11"] = cuda_time_ms(lambda: c11.savgol_nonuniform_fused_cuda(
-        xn, torch.ones_like(xn), tn, **ku))
+    kp = dict(half_window=12, poly_order=4, kmin=5, rcond=1e-6)
+    for dt, tag in ((torch.float32, "K11"), (torch.float64, "K11 f64")):
+        x_, t_ = xn.to(dt), tn.to(dt)
+        w_ = torch.ones_like(x_)
+        y = c11.savgol_nonuniform_fused_cuda(x_, w_, t_, **ku)
+        sums[tag] = y.double().sum().item()
+        digest(tag, y)
+        ms[tag] = cuda_time_ms(lambda: c11.savgol_nonuniform_fused_cuda(
+            x_, w_, t_, **ku))
+    wn = torch.ones_like(xn)
+    yp = c11.savgol_nonuniform_planes_cuda(xn, wn, tn, **kp)
+    sums["K11p"] = yp.double().sum().item()
+    digest("K11p", yp)
+    ms["K11p"] = cuda_time_ms(lambda: c11.savgol_nonuniform_planes_cuda(
+        xn, wn, tn, **kp))
+    ms["savgol_apply_nonuniform"] = cuda_time_ms(
+        lambda: sgt.savgol_apply_nonuniform(xn, tn, half_window=12,
+                                            poly_order=4))
+    # resample as chip_smoke.py drives it: a shared t row, N queries
+    t1 = tn[0].contiguous()
+    tq1 = torch.linspace(t1[0].item(), t1[-1].item(), t1.numel(), device=dev)
+    ms["savgol_resample"] = cuda_time_ms(
+        lambda: sgt.savgol_resample(xn, t1, tq1, half_window=12,
+                                    poly_order=4, fill=0.0))
+    del yp
 
     # -- K9 and K10 alone at the headline shapes --
     xh, vh = holed((128, 1_048_576))
@@ -214,7 +280,8 @@ def main() -> int:
                  for nx, ny, m in ((5, 5, 3), (5, 5, 4), (11, 11, 4),
                                    (16, 16, 6))} if root == here else None
     print(json.dumps({"card": card(), "root": str(root), "ms": ms,
-                      "sums": sums, "K10 instances": instances}))
+                      "sums": sums, "digests": digests,
+                      "K10 instances": instances}))
     return 0
 
 

@@ -277,7 +277,7 @@ def test_bf16_input_gradient_is_bf16():
 
 @pytest.fixture(scope="module")
 def pool():
-    with Pool(4) as p:
+    with Pool(4, device="cpu") as p:
         yield p
 
 

@@ -31,7 +31,7 @@ RINGS = {1: (4, 1), 2: (2, 2), 4: (1, 4)}
 
 @pytest.fixture(scope="module")
 def pool():
-    with Pool(P4) as p:
+    with Pool(P4, device="cpu") as p:
         yield p
 
 

@@ -206,14 +206,36 @@ def test_cpu_wrappers_take_the_plain_versions():
                                              torch.zeros_like(args[2]),
                                              args[3])
     assert torch.equal(got, want) and torch.equal(ok, wok)
+    got, ok = cs.plane_solve_dd_cuda(args[0], z, pi, args[2],
+                                     torch.zeros_like(args[2]), args[3],
+                                     runtime_form=True)
+    assert torch.equal(got, want) and torch.equal(ok, wok)
     assert cs.LAUNCHES == {"plane_solve": 0, "plane_solve_dd": 0}
+
+
+def test_pair_table_is_uploaded_once_per_table():
+    """The kernels' pair table is copied to the device once for each
+    table's bytes, k and device: an equal table (another array) gets the
+    cached tensor, an edited one its own."""
+    _, _, _, pi, _ = _planes(4, 8, seed=3)
+    kp = 4 * 5 // 2
+    first = cs._pair_table(pi, 4, kp, "cpu")
+    assert cs._pair_table(pi.copy(), 4, kp, torch.device("cpu")) is first
+    edited = pi.copy()
+    edited[0, 0] = edited[1, 1]
+    other = cs._pair_table(edited, 4, kp, "cpu")
+    assert other is not first
+    assert np.array_equal(other.numpy(), edited)
+    assert np.array_equal(first.numpy(), pi)
+    with pytest.raises(ValueError):
+        cs._pair_table(pi, 4, kp - 1, "cpu")
 
 
 # -- the kernels on the card ---------------------------------------------------
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 3, 5, 10, 15, 28, 33])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 10, 15, 28, 33])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_kernels_match_plain(cuda, k, dtype):
     gram, rhs, quorum, pi, _ = _planes(k, 5000, seed=k)
@@ -233,3 +255,27 @@ def test_cuda_kernels_match_plain(cuda, k, dtype):
         torch.cuda.synchronize()
         assert torch.equal(ok, wok)
         _close(got.cpu(), want.cpu(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_dd_compile_time_solve_is_the_runtime_form(cuda, k, dtype):
+    """K8b's compile-time instance (dd_chol_solve<K>) gives its runtime
+    form's coefficients bit for bit and the same ok, under-quorum
+    positions included, on the same stored (hi, lo) planes."""
+    gram, rhs, quorum, pi, _ = _planes(k, 5000, seed=100 + k, singular=0.05)
+    g = torch.from_numpy(gram).to(cuda, dtype)
+    glo = (g.double() * 2.0 ** (-30 if dtype == torch.float32 else -60)
+           / 3).to(dtype)
+    r = torch.from_numpy(rhs).to(cuda, dtype)
+    q = torch.from_numpy(quorum).to(cuda)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    for rcond in (None, 1e-6):
+        got, ok = cs.plane_solve_dd_cuda(g, glo, pi, r, torch.zeros_like(r),
+                                         q, rcond)
+        want, wok = cs.plane_solve_dd_cuda(g, glo, pi, r, torch.zeros_like(r),
+                                           q, rcond, runtime_form=True)
+        torch.cuda.synchronize()
+        assert torch.equal(ok, wok)
+        assert torch.equal(got.view(bits), want.view(bits))

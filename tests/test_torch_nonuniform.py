@@ -375,12 +375,65 @@ def test_fit_in_float64_keeps_the_float32_design():
 @pytest.mark.cuda
 def test_smem_bytes_and_refusal_rule(cuda):
     # the layout nonuniform.cu reports: t, x and w of the 128 outputs and
-    # their 2n halo, 16-byte aligned; device scratch only past k = 8
+    # their 2n halo, 16-byte aligned, then from k = 5 to 8 L (hi and lo,
+    # packed) by thread; device scratch only past k = 8
+    tile = 3 * 16 * -(-(152 * 4) // 16)
+    assert c11.nonuniform_layout(12, 3, torch.float32, torch.float32) == \
+        (tile, 0, 128)
     assert c11.nonuniform_layout(12, 4, torch.float32, torch.float32) == \
-        (3 * 16 * -(-(152 * 4) // 16), 0, 128)
+        (tile + 8 * 2 * 15 * 128, 0, 128)
+    assert c11.nonuniform_layout(12, 7, torch.float32, torch.float32) == \
+        (tile + 8 * 2 * 36 * 128, 0, 128)
     assert c11.nonuniform_layout(24, 40, torch.float32, torch.float64)[1] > 0
     assert c11.nonuniform_layout(5000, 1, torch.float64,
                                  torch.float64)[0] > c11.SMEM_LIMIT
+    # where L would not fit beside the tile, the tile alone and scratch
+    assert c11.nonuniform_layout(9620, 4, torch.float32, torch.float32) == \
+        (3 * 16 * -(-(19368 * 4) // 16), 128, 128)
+
+
+def _largest_tiled_n(size: int) -> int:
+    """The largest n whose staged tile (t, x and w of 128 outputs and the
+    2n halo, each 16-byte aligned) fits a block's shared memory."""
+    return (c11.SMEM_LIMIT // 3 // 16 * 16 // size - 128) // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 7])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_k11_takes_every_n_whose_tile_fits(cuda, m, dtype):
+    # at the largest such n the tile and L pass the limit, so the K = 0
+    # instance on device scratch runs; on a 64-sample row every window
+    # spans the row, so it must give the bits of n = 63 (the compile-time
+    # instance), which hold to the plain version (the FP64-pair witness
+    # for float32)
+    n = _largest_tiled_n(np.dtype(dtype).itemsize)
+    xt = torch.float32 if dtype == np.float32 else torch.float64
+    smem, work, _ = c11.nonuniform_layout(n, m, xt, xt)
+    assert smem <= c11.SMEM_LIMIT and work > 0
+    assert c11.nonuniform_layout(n + 1, m, xt, xt)[0] > c11.SMEM_LIMIT
+    x, t = _data(70 + m, shape=(2, 64), dtype=dtype)
+    mask = np.isfinite(x)
+    xz, w, tl = (torch.from_numpy(a).to(cuda) for a in
+                 (np.where(mask, x, 0).astype(dtype), mask.astype(dtype), t))
+    kw = dict(poly_order=m, derivative=1, kmin=m + 1, fill=float("nan"),
+              rcond=1e-6)
+    c11.reset_launches()
+    big = c11.savgol_nonuniform_fused_cuda(xz, w, tl, half_window=n, **kw)
+    small = c11.savgol_nonuniform_fused_cuda(xz, w, tl, half_window=63, **kw)
+    assert c11.LAUNCHES["nonuniform"] == 2
+    planes = [c11.savgol_nonuniform_planes_cuda(
+        xz, w, tl, half_window=h, poly_order=m, kmin=m + 1, rcond=1e-6)
+        for h in (n, 63)]
+    want = c11.nonuniform_plain(
+        xz, w, tl, half_window=63, **kw,
+        acc=torch.float64 if dtype == np.float32 else None)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(big.cpu().numpy(), small.cpu().numpy())
+    np.testing.assert_array_equal(planes[0].cpu().numpy(),
+                                  planes[1].cpu().numpy())
+    _compare(small.cpu().numpy(), want.cpu().numpy(),
+             1e-5 if dtype == np.float32 else 1e-12)
 
 
 def _card(dev, x, t, mask=None, **kw):
@@ -395,7 +448,8 @@ def _card(dev, x, t, mask=None, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,d", [(2, 1, 0), (3, 2, 2), (12, 4, 1),
-                                   (32, 6, 2), (100, 3, 1)])
+                                   (32, 6, 2), (100, 3, 1), (3, 0, 0),
+                                   (12, 5, 1), (12, 7, 2)])
 @pytest.mark.parametrize("dtype,tdtype", [(np.float32, np.float32),
                                           (np.float32, np.float64),
                                           (np.float64, np.float64)])
@@ -427,9 +481,11 @@ def test_cuda_k11_weighted_epoch_shared_and_unsorted_t(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(12, 4), (24, 40)])
+@pytest.mark.parametrize("n,m", [(12, 4), (24, 40), (3, 0), (2, 1), (3, 2),
+                                 (5, 3), (12, 5), (32, 6), (12, 7)])
 def test_cuda_k11_planes_match_plain(cuda, n, m):
-    # m = 40: k past the local arrays (device scratch); the degree-40
+    # every compile-time instance, k = m + 1 = 1..8 (7 and 8 keep L in
+    # shared memory); m = 40: k past them (device scratch); the degree-40
     # monomial fit is never identified, so the rows compared there are the
     # raw rhs moments the solve returns for a window that is not ok
     x, t = _data(n + m, shape=(2, 500))

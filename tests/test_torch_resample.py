@@ -332,3 +332,22 @@ def test_cuda_auto_route_and_launches(cuda):
     assert (c11.LAUNCHES, c12.LAUNCHES, cs.LAUNCHES["plane_solve_dd"]) == (
         {"nonuniform": 1}, {"resample": 1}, 1)
     _compare(ya.cpu().numpy(), yd.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", range(8))
+def test_cuda_routes_at_every_compile_time_k(cuda, m):
+    """Both routes at k = m + 1 = 1..8, each a compile-time instance: the
+    auto route's K11p (L in shared memory at 7 and 8) and the direct
+    route's K8b, against each other in float64."""
+    x, t, tq = _data(14 + m, B=2, n_data=3000, frac=0.0, dtype=np.float64)
+    args = [torch.from_numpy(a).to(cuda) for a in (x, t, tq)]
+    kw = dict(half_window=12, poly_order=m, fill=0.0)
+    for mod in (c11, c12, cs):
+        mod.reset_launches()
+    ya = sgt.savgol_resample(*args, **kw)
+    yd = sgt.savgol_resample(*args, method="direct", **kw)
+    torch.cuda.synchronize()
+    assert (c11.LAUNCHES, c12.LAUNCHES, cs.LAUNCHES["plane_solve_dd"]) == (
+        {"nonuniform": 1}, {"resample": 1}, 1)
+    _compare(ya.cpu().numpy(), yd.cpu().numpy(), 1e-4)

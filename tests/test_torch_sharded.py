@@ -38,7 +38,7 @@ BOUNDARIES_2D = ["constant", "reflect", "periodic", "valid"]
 
 @pytest.fixture(scope="module")
 def pool():
-    with Pool(8) as p:
+    with Pool(8, device="cpu") as p:
         yield p
 
 
@@ -305,6 +305,15 @@ def test_make_mesh_default_needs_a_card(tmp_path):
         assert tuple(m.mesh.shape) == (1, 1)
     finally:
         dist.destroy_process_group()
+
+
+def test_pool_default_needs_a_card():
+    """``Pool(P)`` starts its ranks on the card unless told otherwise: with
+    no card it raises before it spawns a rank and names ``device="cpu"``."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so Pool(2) would start on it")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Pool(2)
 
 
 @pytest.mark.parametrize("case,kind,match", [

@@ -40,7 +40,7 @@ ROWS4 = (("rows",), (4,))
 
 @pytest.fixture(scope="module")
 def pool():
-    with Pool(4) as p:
+    with Pool(4, device="cpu") as p:
         yield p
 
 
