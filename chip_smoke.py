@@ -102,7 +102,11 @@ IMG_FULL = (16, 2048, 2048)    # bench.py's 2D batch, 11x11 order 3 window
 # scaled by max(1, max|ref|)
 F32_TOL_2D = 1e-5
 WINDOWS_2D = ((3, 3), (5, 3), (11, 11), (7, 13), (15, 17), (23, 23),
-              (33, 33))
+              (33, 33), (17, 25))
+# wide windows at the orders whose f32 smoothing stencils factor to ranks 3
+# and 4 (Savgol2D's auto route sends them to K2D-sep; 17 x 25 runs its
+# runtime-width sweep): (H, W, order)
+RANKED_2D = ((21, 21, 4), (33, 33, 6), (17, 25, 4))
 # the last image is shorter than the pad of every window but 3 x 3
 IMAGES_2D = ((1, 2047, 2049), (3, 37, 29), (2, 3, 5))
 BOUNDARIES_2D = ("valid", "constant", "reflect", "periodic")
@@ -267,20 +271,23 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 def grid_2d(sgt, c2, dev) -> str:
     """Every window x boundary x stack x image x dtype through "auto" and
     "sep", each against the plain dense version (method="xla")."""
-    from savgol_tpu_torch.ops.apply2d import _stencil_stack
+    from savgol_tpu_torch.ops.apply2d import _factors, _stencil_stack
     rng = np.random.default_rng(3)
     worst = {"corr2d_valid": 0.0, "corr2d_sep": 0.0}
-    cases = 0
+    cases, ranks = 0, set()
     c2.reset_launches()
+    windows = [(H, W, 2 if min(H, W) == 3 else 3) for H, W in WINDOWS_2D]
     for dtype, tol in ((torch.float32, F32_TOL_2D), (torch.float64, F64_TOL)):
         for shape in IMAGES_2D:
             x = torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
-            for H, W in WINDOWS_2D:
-                order = 2 if min(H, W) == 3 else 3
-                for derivs in DERIVS_2D:
+            for H, W, order in windows + list(RANKED_2D):
+                smooth = ([(0, 0)],) if (H, W, order) in RANKED_2D else ()
+                for derivs in DERIVS_2D + smooth:
                     ws, s = (torch.from_numpy(a).to(dev) for a in
                              _stencil_stack((W - 1) // 2, (H - 1) // 2,
                                             order, derivs, 0.5, 0.25))
+                    ranks.update(u.shape[0] for u, _ in
+                                 _factors(ws, dtype, dev))
                     for bnd in BOUNDARIES_2D:
                         if bnd == "valid" and (shape[1] < H or shape[2] < W):
                             continue
@@ -308,7 +315,9 @@ def grid_2d(sgt, c2, dev) -> str:
     launches = dict(c2.LAUNCHES)
     require(all(v > 0 for v in launches.values()),
             f"2D grid did not reach every kernel: {launches}")
-    return (f"2D grid: {cases} cases, worst scaled error "
+    require({1, 2, 3, 4} <= ranks, f"2D grid reached ranks {sorted(ranks)}")
+    return (f"2D grid: {cases} cases (K2D-sep ranks {sorted(ranks)}), "
+            f"worst scaled error "
             f"dense={worst['corr2d_valid']:.3e} sep={worst['corr2d_sep']:.3e}"
             f" (tol f32 {F32_TOL_2D}, f64 {F64_TOL}), launches {launches}")
 
@@ -732,7 +741,7 @@ def masked_slice(sgt, dev, card) -> list:
     from savgol_tpu_torch.ops import cuda_solve as cs
     from savgol_tpu_torch.ops import lsq
     from savgol_tpu_torch.ops import masked as mk
-    from savgol_tpu_torch.utils.timing import cuda_time_ms
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, device_ms
 
     rng = np.random.default_rng(1002)
     x_np, valid_np = holed(rng, MASKED_1D, MASK_FRAC)
@@ -905,23 +914,23 @@ def masked_slice(sgt, dev, card) -> list:
 
     # -- timings: each kernel and its plain version, then the entry points --
     t = {
-        "K9": (cuda_time_ms(lambda: c9.savgol_masked1d_fused_cuda(
+        "K9": (device_ms(lambda: c9.savgol_masked1d_fused_cuda(
             xzp, wp, *tabs, half_window=12, kmin=5, fill=0.0)),
-               cuda_time_ms(lambda: c9.masked1d_plain(
+               device_ms(lambda: c9.masked1d_plain(
                    xzp, wp, *tabs, half_window=12, kmin=5, fill=0.0),
                    warmup=1, reps=5)),
-        "K8a": (cuda_time_ms(lambda: cs.plane_solve_cuda(
+        "K8a": (device_ms(lambda: cs.plane_solve_cuda(
             gram2, pi2, rhs2, quorum2, 1e-6)),
-                cuda_time_ms(lambda: lsq.cholesky_solve_planes(
+                device_ms(lambda: lsq.cholesky_solve_planes(
                     gram2, pi2, rhs2, quorum2, 1e-6), warmup=1, reps=5)),
-        "K8b": (cuda_time_ms(lambda: cs.plane_solve_dd_cuda(
+        "K8b": (device_ms(lambda: cs.plane_solve_dd_cuda(
             ghi, glo, pair_index, rhi, rlo, quorum_q)),
-                cuda_time_ms(lambda: lsq.cholesky_solve_planes_dd(
+                device_ms(lambda: lsq.cholesky_solve_planes_dd(
                     ghi, glo, pair_index, rhi, rlo, quorum_q), warmup=1,
                     reps=5)),
-        "K10": (cuda_time_ms(lambda: c10.savgol_masked2d_fused_cuda(
+        "K10": (device_ms(lambda: c10.savgol_masked2d_fused_cuda(
             xv2, wp2, **k10_args)),
-                cuda_time_ms(lambda: mk._masked2d_staged(
+                device_ms(lambda: mk._masked2d_staged(
                     xv2, wp2, nx=5, ny=5, m=3, dx=0, dy=0, delta_x=1.0,
                     delta_y=1.0, kmin=10, fill=0.0, rcond=1e-6,
                     weighted=False, kernels=False), warmup=1, reps=5)),
@@ -955,14 +964,14 @@ def masked_slice(sgt, dev, card) -> list:
     wh = (torch.rand(MASKED_1D_HEAD, generator=gen, device=dev)
           >= MASK_FRAC).float()
     xh, wh = (torch.nn.functional.pad(a, (12, 12)) for a in (xh * wh, wh))
-    k9_head = cuda_time_ms(lambda: c9.savgol_masked1d_fused_cuda(
+    k9_head = device_ms(lambda: c9.savgol_masked1d_fused_cuda(
         xh, wh, *tabs, half_window=12, kmin=5, fill=0.0), warmup=1, reps=5)
     del xh, wh
     ih = torch.randn(IMG_FULL, generator=gen, device=dev)
     iwh = (torch.rand(IMG_FULL, generator=gen, device=dev) >= MASK_FRAC
            ).float()
     ih, iwh = (torch.nn.functional.pad(a, (5,) * 4) for a in (ih * iwh, iwh))
-    k10_head = cuda_time_ms(lambda: c10.savgol_masked2d_fused_cuda(
+    k10_head = device_ms(lambda: c10.savgol_masked2d_fused_cuda(
         ih, iwh, **k10_args), warmup=1, reps=5)
     del ih, iwh
     n1, n2 = MASKED_1D_HEAD[0] * MASKED_1D_HEAD[1], int(np.prod(IMG_FULL))
@@ -975,13 +984,13 @@ def masked_slice(sgt, dev, card) -> list:
     G2 = gram2[torch.as_tensor(pi2.reshape(-1).astype(np.int64), device=dev)]
     G2 = G2.reshape(10, 10, -1).permute(2, 0, 1).contiguous()
     r2 = rhs2.reshape(10, -1).t().unsqueeze(-1).contiguous()
-    lib_k8a = cuda_time_ms(lambda: torch.linalg.solve_ex(G2, r2))
+    lib_k8a = device_ms(lambda: torch.linalg.solve_ex(G2, r2))
     del G2, r2
     Gq = (ghi.double() + glo.double())[torch.as_tensor(
         pair_index.reshape(-1).astype(np.int64), device=dev)]
     Gq = Gq.reshape(5, 5, -1).permute(2, 0, 1).contiguous()
     rq = (rhi.double() + rlo.double()).reshape(5, -1).t().unsqueeze(-1)
-    lib_k8b = cuda_time_ms(lambda: torch.linalg.solve_ex(Gq, rq.contiguous()))
+    lib_k8b = device_ms(lambda: torch.linalg.solve_ex(Gq, rq.contiguous()))
     del Gq, rq
     pos_a, pos_b = img.numel(), 8 * MASKED_1D[1]
     b8a = bound(pos_a * (4 * (55 + 10 + 10) + 2), pos_a * chol_flops(10))
@@ -1240,7 +1249,7 @@ def nonuniform_slice(sgt, dev, card) -> list:
     from savgol_tpu_torch.ops import cuda_solve as cs
     from savgol_tpu_torch.ops import lsq
     from savgol_tpu_torch.ops import nonuniform as nu
-    from savgol_tpu_torch.utils.timing import cuda_time_ms
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, device_ms
 
     B, N = NONUNI
     gen = torch.Generator(device=dev).manual_seed(1004)
@@ -1380,22 +1389,22 @@ def nonuniform_slice(sgt, dev, card) -> list:
     ku = dict(derivative=0, fill=0.0, **kf)
     won = torch.ones_like(xn)
     t = {
-        "K11": (cuda_time_ms(lambda: c11.savgol_nonuniform_fused_cuda(
+        "K11": (device_ms(lambda: c11.savgol_nonuniform_fused_cuda(
             xn, won, tn, **ku)),
-                cuda_time_ms(lambda: c11.nonuniform_plain(xn, won, tn, **ku),
+                device_ms(lambda: c11.nonuniform_plain(xn, won, tn, **ku),
                              warmup=1, reps=3)),
         "K11 20% holes": (
-            cuda_time_ms(lambda: c11.savgol_nonuniform_fused_cuda(
+            device_ms(lambda: c11.savgol_nonuniform_fused_cuda(
                 xz, w, tn, **ku)),
-            cuda_time_ms(lambda: c11.nonuniform_plain(xz, w, tn, **ku),
+            device_ms(lambda: c11.nonuniform_plain(xz, w, tn, **ku),
                          warmup=1, reps=3)),
-        "K11p": (cuda_time_ms(lambda: c11.savgol_nonuniform_planes_cuda(
+        "K11p": (device_ms(lambda: c11.savgol_nonuniform_planes_cuda(
             xr, ones, t1, **kf)),
-                 cuda_time_ms(lambda: c11.nonuniform_planes_plain(
+                 device_ms(lambda: c11.nonuniform_planes_plain(
                      xr, ones, t1, **kf), warmup=1, reps=3)),
-        "K12": (cuda_time_ms(lambda: c12.resample_eval_cuda(
+        "K12": (device_ms(lambda: c12.resample_eval_cuda(
             pk, t1, ctr, tq1, **ke)),
-                cuda_time_ms(lambda: c12.resample_eval_plain(
+                device_ms(lambda: c12.resample_eval_plain(
                     pk, t1, ctr, tq1, **ke), warmup=1, reps=5)),
         "savgol_apply_nonuniform": (
             cuda_time_ms(lambda: sgt.savgol_apply_nonuniform(xn, tn, **kw)),
@@ -1417,7 +1426,7 @@ def nonuniform_slice(sgt, dev, card) -> list:
     th1 = torch.cumsum(torch.rand(B_FULL, N_FULL, generator=gen, device=dev)
                        + 0.5, -1)
     wh1 = torch.ones_like(xh1)
-    k11_head = cuda_time_ms(lambda: c11.savgol_nonuniform_fused_cuda(
+    k11_head = device_ms(lambda: c11.savgol_nonuniform_fused_cuda(
         xh1, wh1, th1, **ku), warmup=1, reps=3)
     del xh1, th1, wh1
     head = B_FULL * N_FULL
@@ -1653,7 +1662,7 @@ def bank_slice(sgt, dev, card) -> list:
     from savgol_tpu_torch.ops.sweep import (savgol_apply_sweep,
                                             savgol_weights_masked)
     from savgol_tpu_torch.ops.weights import savgol_weights_np
-    from savgol_tpu_torch.utils.timing import cuda_time_ms, host_ms
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, device_ms, host_ms
 
     cfg = sgt.SavgolConfig(12, 4)
     f = sgt.Savgol1D.create(cfg, device=dev)
@@ -1822,8 +1831,8 @@ def bank_slice(sgt, dev, card) -> list:
     t = {}
     for bnd, mode in PAD_MODES.items():
         t[f"K2 {mode}"] = (
-            cuda_time_ms(lambda: cc.savgol_padded_cuda(x, w, mode, 12)),
-            cuda_time_ms(lambda: cc.savgol_padded_plain(x, w, mode, 12),
+            device_ms(lambda: cc.savgol_padded_cuda(x, w, mode, 12)),
+            device_ms(lambda: cc.savgol_padded_plain(x, w, mode, 12),
                          warmup=1, reps=5))
         t[f"Savgol1D.apply {bnd}"] = (
             cuda_time_ms(lambda: f.apply(x, boundary=bnd)),
@@ -1831,18 +1840,18 @@ def bank_slice(sgt, dev, card) -> list:
             cuda_time_ms(lambda: cc.correlate_valid_cuda(
                 cat_pad(x, 12, mode), w) * one))
     t["K1 (same run)"] = (
-        cuda_time_ms(lambda: cc.savgol_polynomial_cuda(x, w,
+        device_ms(lambda: cc.savgol_polynomial_cuda(x, w,
                                                        f.edge_weights, 12)),
         float("nan"))
     t["K4 bank K=3"] = (
-        cuda_time_ms(lambda: cb.correlate_valid_bank_cuda(x, wdt, 12)),
-        cuda_time_ms(lambda: cb.bank_correlate_plain(x, wdt, 12), warmup=1,
+        device_ms(lambda: cb.correlate_valid_bank_cuda(x, wdt, 12)),
+        device_ms(lambda: cb.bank_correlate_plain(x, wdt, 12), warmup=1,
                      reps=3))
     # f64: the instance with its own launch bounds (bytes double, so the
     # bound does too); no plain time at this size
     xd, wdt64 = x.double(), wdt.double()
     t["K4 bank K=3 f64"] = (
-        cuda_time_ms(lambda: cb.correlate_valid_bank_cuda(xd, wdt64, 12)),
+        device_ms(lambda: cb.correlate_valid_bank_cuda(xd, wdt64, 12)),
         float("nan"))
     del xd
     fs = [sgt.Savgol1D.create(sgt.SavgolConfig(12, 4, d), device=dev)
@@ -1854,9 +1863,9 @@ def bank_slice(sgt, dev, card) -> list:
                                    device=dev)[0]
     for name, xv in (("4M", xs), ("128x1M", x)):
         t[f"K4 sweep {name}"] = (
-            cuda_time_ms(lambda: cb.correlate_valid_bank_cuda(xv, center,
+            device_ms(lambda: cb.correlate_valid_bank_cuda(xv, center,
                                                               32)),
-            cuda_time_ms(lambda: cb.bank_correlate_plain(xv, center, 32),
+            device_ms(lambda: cb.bank_correlate_plain(xv, center, 32),
                          warmup=1, reps=3) if name == "4M" else float("nan"))
         t[f"savgol_apply_sweep {name}"] = (
             cuda_time_ms(lambda: savgol_apply_sweep(xv, SWEEP_NS, SWEEP_MS)),
@@ -1900,13 +1909,13 @@ def bank_slice(sgt, dev, card) -> list:
                                bias=False).to(dev)
         with torch.no_grad():
             conv.weight.copy_(w.view(1, 1, 25))
-            lib[mode] = cuda_time_ms(lambda: conv(x3))
+            lib[mode] = device_ms(lambda: conv(x3))
     with torch.no_grad():
-        lib["bank"] = cuda_time_ms(lambda: F.conv1d(
+        lib["bank"] = device_ms(lambda: F.conv1d(
             x3, wdt.view(3, 1, 25), padding=12))
-        lib["sweep"] = cuda_time_ms(lambda: F.conv1d(
+        lib["sweep"] = device_ms(lambda: F.conv1d(
             xs.view(1, 1, -1), center.view(6, 1, 65), padding=32))
-        lib["sweep 128x1M"] = cuda_time_ms(lambda: F.conv1d(
+        lib["sweep 128x1M"] = device_ms(lambda: F.conv1d(
             x3, center.view(6, 1, 65), padding=32), warmup=1, reps=5)
     torch.backends.cudnn.allow_tf32 = tf32
     samples = B_FULL * N_FULL
@@ -1970,7 +1979,7 @@ def wide_window(dev, card) -> dict:
 
     from savgol_tpu_torch import scipy_compat as tsc
     from savgol_tpu_torch.ops import cuda_conv as cc
-    from savgol_tpu_torch.utils.timing import cuda_time_ms
+    from savgol_tpu_torch.utils.timing import device_ms
 
     n, ws = WIDE_N, 2 * WIDE_N + 1
     cw, ew = (torch.from_numpy(a).to(dev, torch.float32)
@@ -2005,10 +2014,10 @@ def wide_window(dev, card) -> dict:
         sp_err = max(sp_err, err)
     c25, e25 = (torch.from_numpy(a).to(dev, torch.float32)
                 for a in tsc._compat_weights_np(12, 4, 0))
-    t = {name: (cuda_time_ms(kernel),
-                cuda_time_ms(plain, warmup=1, reps=3))
+    t = {name: (device_ms(kernel),
+                device_ms(plain, warmup=1, reps=3))
          for name, (kernel, plain) in routes.items()}
-    t["K1 ws=25"] = (cuda_time_ms(
+    t["K1 ws=25"] = (device_ms(
         lambda: cc.savgol_polynomial_cuda(x, c25, e25, 12)), float("nan"))
     samples = B_FULL * N_FULL
     b101 = bound(8 * samples, 2 * ws * samples)
@@ -2411,7 +2420,7 @@ def sharded_phases(card, dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
 # bench.py:439 and :566: the bf16 mode's contract, max abs error against the
 # exact result <= 5e-3 * max(1, max|y|); here against float64
 BF16_CONTRACT = 5e-3
-BF16_HALVES = (1, 12, 50, 64)            # windows 3, 25, 101, 129
+BF16_HALVES = (1, 12, 32, 50, 64)        # windows 3, 25, 65, 101, 129
 BF16_BATCHES = (1, 16, 24, 128)
 BF16_STORAGE = (torch.float32, torch.bfloat16)
 
@@ -2437,9 +2446,11 @@ def f32_check(got: torch.Tensor, want: torch.Tensor, what: str,
 
 def bf16_grid_1d(dev) -> str:
     """K1, K2 (three pad modes) and K3 in their bf16 mode against their
-    plain versions: windows 3 / 25 / 101 / 129, B 1 / 16 / 24 / 128, N ws /
-    ws + 1 / 4099 / 262,147, f32 and bf16 storage, derivatives 0-2 (dt_inv
-    100^d folded into the taps), both edge signs."""
+    plain versions: windows 3 / 25 / 65 / 101 / 129, B 1 / 16 / 24 / 128, N
+    ws / ws + 1 / 4099 / 262,147, f32 and bf16 storage, derivatives 0-2
+    (dt_inv 100^d folded into the taps), both edge signs; the first
+    derivative on rows that start 1-7 samples past a 16-byte boundary (a
+    view into a larger buffer)."""
     from savgol_tpu_torch import scipy_compat as tsc
     from savgol_tpu_torch.ops import cuda_conv as cc
     rng = np.random.default_rng(11)
@@ -2451,14 +2462,20 @@ def bf16_grid_1d(dev) -> str:
             ws = 2 * n + 1
             for B in BF16_BATCHES:
                 for N in (ws, ws + 1, 4099, 262_147):
-                    x = torch.from_numpy(rng.standard_normal(
+                    x0 = torch.from_numpy(rng.standard_normal(
                         (B, N), dtype=np.float32)).to(dev, storage)
+                    off = 1 + (B + N) % 7
+                    xm = torch.empty(B * N + 8, dtype=storage, device=dev)
+                    xm = xm[off:off + B * N].view(B, N)
+                    xm.copy_(x0)
                     for d in (0, 1, 2):
+                        x = xm if d == 1 else x0
                         cw, ew = (torch.from_numpy(a).to(dev, torch.float32)
                                   for a in tsc._compat_weights_np(
                                       n, min(4, 2 * n), d))
                         dt = torch.tensor(100.0 ** d, device=dev)
-                        where = f"n={n} B={B} N={N} d={d} {storage}"
+                        where = (f"n={n} B={B} N={N} d={d} {storage}"
+                                 + (f" offset {off}" if d == 1 else ""))
                         for sign in (1.0, -1.0):
                             e = ulp_check(
                                 cc.savgol_polynomial_bf16_cuda(x, cw, ew, n,
@@ -2483,8 +2500,9 @@ def bf16_grid_1d(dev) -> str:
     launches = dict(cc.LAUNCHES)
     require(all(v > 0 for v in launches.values()),
             f"bf16 1D grid did not reach every kernel: {launches}")
-    return (f"bf16 1D grid: {cases} cases (windows 3/25/101/129, f32 and "
-            f"bf16 storage), each within one bf16 ulp of its plain version; "
+    return (f"bf16 1D grid: {cases} cases (windows 3/25/65/101/129, f32 "
+            f"and bf16 storage, misaligned rows), each within one bf16 ulp "
+            f"of its plain version; "
             f"max abs error " + ", ".join(f"{k} {v:.3e}"
                                           for k, v in worst.items())
             + f"; launches {launches}")
@@ -2583,12 +2601,12 @@ def nonfinite_grid(dev) -> str:
     (f32 and bf16 storage) on K4's rows; the exact K2D-dense with one
     stencil and three, K7 and K2D-dense's bf16 mode (both storages, one
     stencil and three) on ``nonfinite_image`` over windows 3 x 3 to 33 x 33
-    and the four boundaries. K4 has its own cases (k4_grid) and K8a its own
-    (masked_slice)."""
+    and the four boundaries, K7 also at ranks 3 and 4 (``RANKED_2D``). K4
+    has its own cases (k4_grid) and K8a its own (masked_slice)."""
     from savgol_tpu_torch import scipy_compat as tsc
     from savgol_tpu_torch.ops import cuda_conv as cc
     from savgol_tpu_torch.ops import cuda_conv2d as c2
-    from savgol_tpu_torch.ops.apply2d import _stencil_stack
+    from savgol_tpu_torch.ops.apply2d import _factors, _stencil_stack
     gen = torch.Generator(device=dev).manual_seed(39)
     cases = {}
 
@@ -2656,6 +2674,15 @@ def nonfinite_grid(dev) -> str:
                           c2.correlate2d_valid_plain(img, w, pm), tol)
                 check("K7", where, c2.correlate2d_sep_cuda(img, u, v, pm),
                       c2.correlate2d_sep_plain(img, u, v, pm), tol)
+        # K7 at the ranks of the wide smoothing stencils (its sweep)
+        for H, W, order in RANKED_2D:
+            w0 = torch.from_numpy(_stencil_stack(
+                (W - 1) // 2, (H - 1) // 2, order, [(0, 0)], 1.0, 1.0)[0][0])
+            (u, v), = _factors(w0, dtype, dev)
+            for bnd, pm in modes.items():
+                check("K7", f"{H}x{W} rank {u.shape[0]} {bnd} {dtype}",
+                      c2.correlate2d_sep_cuda(img, u, v, pm),
+                      c2.correlate2d_sep_plain(img, u, v, pm), tol)
     img = nonfinite_image(gen, dev, torch.float32)
     for storage in BF16_STORAGE:
         xs = img.to(storage)
@@ -2695,7 +2722,7 @@ def bf16_slice_1d(sgt, dev, card) -> list:
     bf16 modes' records."""
     from savgol_tpu_torch.ops import cuda_conv as cc
     from savgol_tpu_torch.ops.weights import savgol_weights_np
-    from savgol_tpu_torch.utils.timing import cuda_time_ms, cudnn_ms
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, cudnn_ms, device_ms
 
     cfg = sgt.SavgolConfig(12, 4)
     f = sgt.Savgol1D.create(cfg, device=dev)
@@ -2773,7 +2800,7 @@ def bf16_slice_1d(sgt, dev, card) -> list:
     require(grad_err <= F64_TOL, f"bf16 backward vs exact: {grad_err:.3e}")
 
     samples = B_FULL * N_FULL
-    t = {k: (cuda_time_ms(a), cuda_time_ms(b, warmup=1, reps=3))
+    t = {k: (device_ms(a), device_ms(b, warmup=1, reps=3))
          for k, (a, b) in kern.items()}
     t["Savgol1D.apply bf16"] = (cuda_time_ms(lambda: f.apply(
         xb, method="bf16")), float("nan"))
@@ -2792,7 +2819,7 @@ def bf16_slice_1d(sgt, dev, card) -> list:
                                bias=False, device=dev, dtype=torch.bfloat16)
         with torch.no_grad():
             conv.weight.copy_(w3)
-            lib_pad[mode] = cuda_time_ms(lambda: conv(x3))
+            lib_pad[mode] = device_ms(lambda: conv(x3))
     b_bf = bound(4 * samples, 2 * 25 * samples, "bf16")
     b_f32 = bound(8 * samples, 2 * 25 * samples, "bf16")
     b3 = bound(2 * samples + 2 * B_FULL * (N_FULL - 24),
@@ -2857,7 +2884,7 @@ def bf16_slice_2d(sgt, dev, card) -> list:
     from savgol_tpu_torch.ops import cuda_conv as cc
     from savgol_tpu_torch.ops import cuda_conv2d as c2
     from savgol_tpu_torch.ops.weights import savgol2d_weights_np
-    from savgol_tpu_torch.utils.timing import cuda_time_ms, cudnn_ms
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, cudnn_ms, device_ms
 
     cfg2 = sgt.Savgol2DConfig(5, 5, 3)
     f2 = sgt.Savgol2D.create(cfg2, device=dev)
@@ -2924,7 +2951,7 @@ def bf16_slice_2d(sgt, dev, card) -> list:
     require(grad_err <= F64_TOL, f"2D bf16 backward vs exact: {grad_err:.3e}")
 
     pix = img32.numel()
-    t = {k: (cuda_time_ms(a), cuda_time_ms(b, warmup=1, reps=3))
+    t = {k: (device_ms(a), device_ms(b, warmup=1, reps=3))
          for k, (a, b) in kern.items()}
     t["Savgol2D.apply bf16"] = (cuda_time_ms(lambda: f2.apply(
         imgb, method="bf16")), float("nan"))
@@ -3391,7 +3418,7 @@ def main() -> int:
     from savgol_tpu_torch import _build
     from savgol_tpu_torch.ops import cuda_conv as cc
     from savgol_tpu_torch.ops.weights import savgol_weights_np
-    from savgol_tpu_torch.utils.timing import cuda_time_ms
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, device_ms
 
     dev = torch.device("cuda")
 
@@ -3535,12 +3562,12 @@ def main() -> int:
     timings = {}
     for B in (128, 16, 1):
         xb = x[:B].contiguous()
-        k = cuda_time_ms(lambda: cc.savgol_polynomial_cuda(xb, w, ew, 12))
-        p = cuda_time_ms(lambda: cc.savgol_polynomial_plain(xb, w, ew, 12),
+        k = device_ms(lambda: cc.savgol_polynomial_cuda(xb, w, ew, 12))
+        p = device_ms(lambda: cc.savgol_polynomial_plain(xb, w, ew, 12),
                          warmup=1, reps=5)
         timings[("K1", B)] = (k, p)
-    k = cuda_time_ms(lambda: cc.correlate_valid_cuda(x, w))
-    p = cuda_time_ms(lambda: cc.correlate_valid_plain(x, w), warmup=1,
+    k = device_ms(lambda: cc.correlate_valid_cuda(x, w))
+    p = device_ms(lambda: cc.correlate_valid_plain(x, w), warmup=1,
                      reps=5)
     timings[("K3", B_FULL)] = (k, p)
     # yardstick: one cuDNN correlation of the same rows, TF32 off (timed
@@ -3548,7 +3575,7 @@ def main() -> int:
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     x3, w3d = x.view(B_FULL, 1, N_FULL), w.view(1, 1, -1)
-    lib_k3 = cuda_time_ms(lambda: torch.nn.functional.conv1d(x3, w3d))
+    lib_k3 = device_ms(lambda: torch.nn.functional.conv1d(x3, w3d))
     torch.backends.cudnn.allow_tf32 = tf32
     samples = B_FULL * N_FULL
     b1 = bound(8 * samples, 2 * 25 * samples)
@@ -3573,6 +3600,7 @@ def main() -> int:
 
     # -- 8. 2D kernels vs plain over the grid -------------------------------
     from savgol_tpu_torch.ops import cuda_conv2d as c2
+    from savgol_tpu_torch.ops.apply2d import _factors
     from savgol_tpu_torch.ops.weights import savgol2d_weights_np
     print(grid_2d(sgt, c2, dev))
 
@@ -3679,17 +3707,17 @@ def main() -> int:
         for dx, dy in ((2, 0), (1, 1), (0, 2))])).to(dev, torch.float32)
     t2 = {
         "K2D-dense": (
-            cuda_time_ms(lambda: c2.correlate2d_valid_cuda(img, w2, "edge")),
-            cuda_time_ms(lambda: c2.correlate2d_valid_plain(img, w2, "edge"),
+            device_ms(lambda: c2.correlate2d_valid_cuda(img, w2, "edge")),
+            device_ms(lambda: c2.correlate2d_valid_plain(img, w2, "edge"),
                          warmup=1, reps=5)),
         "K2D-dense K=3 (Hessian stack)": (
-            cuda_time_ms(lambda: c2.correlate2d_valid_cuda(img, w3, "edge")),
-            cuda_time_ms(lambda: c2.correlate2d_valid_plain(img, w3, "edge"),
+            device_ms(lambda: c2.correlate2d_valid_cuda(img, w3, "edge")),
+            device_ms(lambda: c2.correlate2d_valid_plain(img, w3, "edge"),
                          warmup=1, reps=3)),
         "K2D-sep": (
-            cuda_time_ms(lambda: c2.correlate2d_sep_cuda(img, u2, v2,
+            device_ms(lambda: c2.correlate2d_sep_cuda(img, u2, v2,
                                                          "edge")),
-            cuda_time_ms(lambda: c2.correlate2d_sep_plain(img, u2, v2,
+            device_ms(lambda: c2.correlate2d_sep_plain(img, u2, v2,
                                                           "edge"),
                          warmup=1, reps=5)),
         "Savgol2D.apply": (
@@ -3707,12 +3735,45 @@ def main() -> int:
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     img4, w4 = img.unsqueeze(1), w2.reshape(1, 1, 11, 11)
-    lib_2d = cuda_time_ms(lambda: torch.nn.functional.conv2d(img4, w4,
+    lib_2d = device_ms(lambda: torch.nn.functional.conv2d(img4, w4,
                                                              padding=5))
     w34 = w3.reshape(3, 1, 11, 11)
-    lib_2d3 = cuda_time_ms(lambda: torch.nn.functional.conv2d(img4, w34,
+    lib_2d3 = device_ms(lambda: torch.nn.functional.conv2d(img4, w34,
                                                               padding=5))
-    torch.backends.cudnn.allow_tf32 = tf32
+    # K2D-sep at the wide windows method="auto" sends it (ranks 3 and 4 of
+    # the f32 stencils, square and 17 x 25) and at the rank 6 of the f32
+    # 11 x 11 stencil, with
+    # the instance each runs, its plain version and one F.conv2d of the
+    # same stencil
+    sep_wide = {}
+    for H, W, order in ((11, 11, 0),) + RANKED_2D:
+        if order:
+            fw = sgt.Savgol2D.create(sgt.Savgol2DConfig(
+                (W - 1) // 2, (H - 1) // 2, order), device=dev)
+            (uw, vw), = _factors(fw.weights, torch.float32, dev)
+            ww = fw.weights
+        else:
+            uw, vw = (torch.from_numpy(a).to(dev, torch.float32) for a in
+                      c2._svd_stencil_np(w2.double().cpu().numpy()))
+            ww = w2
+        r = uw.shape[0]
+        e, sc = max_err(c2.correlate2d_sep_cuda(img, uw, vw, "edge"),
+                        c2.correlate2d_sep_plain(img, uw, vw, "edge"))
+        require(e <= F32_TOL_2D * sc, f"K2D-sep {H}x{W} rank {r} vs plain: "
+                f"{e:.3e}")
+        torch.backends.cudnn.allow_tf32 = False
+        lib_w = device_ms(lambda: torch.nn.functional.conv2d(
+            img4, ww.reshape(1, 1, H, W), padding=(H // 2, W // 2)),
+            warmup=1, reps=3)
+        torch.backends.cudnn.allow_tf32 = tf32
+        sep_wide[f"{H}x{W} rank {r}"] = {
+            "instance": c2.sep_instance(H, W, r),
+            "ms": device_ms(lambda: c2.correlate2d_sep_cuda(
+                img, uw, vw, "edge")),
+            "plain_ms": device_ms(lambda: c2.correlate2d_sep_plain(
+                img, uw, vw, "edge"), warmup=1, reps=3),
+            "max_abs_err": e, **bound(8 * pix, 2 * r * (H + W) * pix),
+            "library_ms": lib_w}
     b2d = bound(8 * pix, 2 * 121 * pix)
     b2d3 = bound(4 * pix + 3 * 4 * pix, 3 * 2 * 121 * pix)
     b2s = bound(8 * pix, 2 * u2.shape[0] * 22 * pix)
@@ -3721,6 +3782,12 @@ def main() -> int:
           f"K2D-dense {b2d['bound_ms']:.4f} ms ({b2d['bound_by']}), K=3 "
           f"{b2d3['bound_ms']:.4f} ms ({b2d3['bound_by']}), K2D-sep "
           f"{b2s['bound_ms']:.4f} ms ({b2s['bound_by']}) [{card}]")
+    for name, rec in sep_wide.items():
+        print(f"time K2D-sep {name} {IMG_FULL} ({rec['instance']}): kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), F.conv2d "
+              f"{rec['library_ms']:.4f} ms; vs plain {rec['max_abs_err']:.3e}"
+              f" [{card}]")
     for name, (k, p) in t2.items():
         print(f"time {name} {IMG_FULL} f32 11x11: kernel {k:.4f} ms = "
               f"{pix / k / 1e6:.2f} Gpix/s; plain {p:.4f} ms = "
@@ -3820,7 +3887,9 @@ def main() -> int:
          "replaces": "savgol_tpu/ops/pallas_conv.py:1814",
          "launches": launches_sep["corr2d_sep"], "max_abs_err": ks_err,
          "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1], **b2s,
-         "library_ms": lib_2d},
+         "library_ms": lib_2d,
+         "instance": c2.sep_instance(11, 11, u2.shape[0]),
+         "wide": sep_wide},
     ] + (masked_kernels + nonuniform_kernels + bank_kernels + [halo_kernel]
          + bf16_kernels + probe_kernels + [p1_kernel])
     for rec in kernels:

@@ -74,6 +74,8 @@ _SIGNATURES = {
     # x, u, v, out, B, R, C, rank, H, W, mode, stream
     "corr2d_sep_f32": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
     "corr2d_sep_f64": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
+    # H, W, rank, element size -> the instance a launch runs
+    "corr2d_sep_instance": [_LL, _LL, _LL, _I],
     # gram, rhs, quorum, pair_index, coef, ok, k, pos, use_rcond,
     # sqrt_rcond, scratch, scratch_threads, stream
     "plane_solve_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _D, _P, _LL, _P],

@@ -51,18 +51,19 @@
 //   5 x 5 17% (probes/variants.py, runtime_width). The staged rows split
 //   into the first and last, whose output rows test the stencil row, and
 //   the rest, which do not.
-// - Staging moves 4 samples a thread at a time: 16-byte loads of the
-//   caller's rows at their aligned addresses (any row length), shifted
-//   into place in registers, one 16-byte shared store; only a group of 4
-//   that leaves the image goes through the pad mode's index map. One
+// - Staging moves 4 samples a thread at a time (stencil2d.cuh stage4):
+//   16-byte loads of the caller's rows at their aligned addresses (any row
+//   length), shifted into place in registers, one 16-byte shared store;
+//   only a group of 4 that leaves the image goes through the pad mode's
+//   index map. One
 //   stencil row (1 x 11) on the same tiles, which is staging, stores and
 //   per-tile cost, took more than half of the 11 x 11 time of the kernel
 //   this one replaces (probes/stencil_ab.py); with the four blocks an SM
 //   holds now, one block's staging overlaps the others' taps.
 // - A stack runs all K stencils over the one staged tile, each stencil's
 //   taps staged in turn.
-// The 64 x 64 tiles and the staging of stencil2d.cuh stay K2D-sep's
-// (corr2d_sep.cu).
+// The 64 x 64 tiles and stage_tile of stencil2d.cuh stay K2D-sep's tile
+// instance (corr2d_sep.cu).
 //
 // method="bf16" (corr2d_valid_bf16, the replacement of K6a/K6b on bf16
 // operands) runs on the tensor cores in corr2d_bf16_mma.cu, with its own
@@ -89,66 +90,6 @@ constexpr int kDC = 2 * kHalf;                          // tile columns, 128
 // multiple of 4.
 __host__ __device__ inline int stage_cols(int W) { return kDC + (W & ~3) + 4; }
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
-
-// 4 samples p[0, 4) of a row, from 16-byte loads at the aligned addresses
-// around them, shifted into place.
-__device__ __forceinline__ void load4(const float* p, float r[4]) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const int m = static_cast<int>((a >> 2) & 3);    // samples past alignment
-  const float4* v = reinterpret_cast<const float4*>(a & ~uintptr_t(15));
-  const float4 v0 = __ldg(v);
-  const float4 v1 = m ? __ldg(v + 1) : v0;
-  float f[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-  if (m & 2) {
-#pragma unroll
-    for (int i = 0; i < 6; ++i) f[i] = f[i + 2];
-  }
-  if (m & 1) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = f[i + 1];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r[i] = f[i];
-}
-
-__device__ __forceinline__ void load4(const double* p, double r[4]) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const int m = static_cast<int>((a >> 3) & 1);
-  const double2* v = reinterpret_cast<const double2*>(a & ~uintptr_t(15));
-  const double2 v0 = __ldg(v), v1 = __ldg(v + 1);
-  const double2 v2 = m ? __ldg(v + 2) : v1;
-  const double f[6] = {v0.x, v0.y, v1.x, v1.y, v2.x, v2.y};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) r[i] = m ? f[i + 1] : f[i];
-}
-
-// Stages rows [row0, row0 + SR) x columns [col0, col0 + SW) of the padded
-// image into xs (row stride SW), 4 samples a thread at a time.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ img, int R, int C,
-                                      int row0, int col0, int SR, int SW,
-                                      int mode, T* __restrict__ xs) {
-  const int groups = SW / 4;
-  for (int e = threadIdx.x; e < SR * groups; e += kThreadsD) {
-    const int i = e / groups, g = e - i * groups;
-    const int gr = map_index(row0 + i, R, mode);
-    const int gc = col0 + 4 * g;
-    T v[4] = {T(0), T(0), T(0), T(0)};
-    if (gr >= 0) {
-      const T* __restrict__ src = img + static_cast<long long>(gr) * C;
-      if (gc >= 0 && gc + 4 <= C) {
-        load4(src + gc, v);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = map_index(gc + j, C, mode);
-          if (c >= 0) v[j] = src[c];
-        }
-      }
-    }
-    Vec4<T>::store(xs + i * SW + 4 * g, v);
-  }
-}
 
 // One staged row through the thread's kQR output rows: staged row rb + i
 // feeds output row rb + q through stencil row i - q. CHECK: test that the
@@ -249,7 +190,8 @@ corr2d_valid_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int c0 = static_cast<int>(id % tiles_c) * kDC;
   const int oy = mode == sgt2d::kValid ? 0 : (H - 1) / 2;
   const int ox = mode == sgt2d::kValid ? 0 : (W - 1) / 2;
-  stage(x + b * R * C, R, C, r0 - oy, c0 - ox, SR, SW, mode, xs);
+  sgt2d::stage4<kThreadsD>(x + b * R * C, R, C, r0 - oy, c0 - ox, SR, SW,
+                           mode, xs);
 
   const int cb = (threadIdx.x % kColThreads) * 4;
   const int rb = (threadIdx.x / kColThreads) * kQR;

@@ -34,17 +34,21 @@
 // tile and the leading window sits at x[0, ws) whatever the tile, so neither
 // is reliably inside the staged span.
 //
-// method="bf16" (sg1d_poly_bf16, sg1d_pad_bf16) is the same kernel with
-// sgt::Bf16 (stencil_tile.cuh): it replaces the TPU kernels above on bf16
-// operands at single-pass MXU precision (savgol_polynomial_pallas_mxu :689
-// and savgol_padded_pallas_mxu :872 with mxu_precision=DEFAULT). Each sample
-// is rounded to bf16 as it is staged, the taps are bf16(bf16(w) * bf16(dt))
-// (rounded on the host), the sums are f32 and each output is rounded to
-// bf16. A bf16 product is exact in f32, so the kernel and its plain version
-// differ only in the order of the f32 sums of the edge rows. With the casts
-// fused, an f32 caller moves 8 B a sample and a bf16 caller 4 B: at the 1D
-// headline the bytes bound a bf16 caller at 0.160 ms, over the 0.100 ms of
-// its FMAs at the f32 peak (derived). Samples are staged with 2-byte loads.
+// method="bf16" (sg1d_poly_bf16, sg1d_pad_bf16, sg1d_bf16_kernel below)
+// replaces the TPU kernels above on bf16 operands at single-pass MXU
+// precision (savgol_polynomial_pallas_mxu :689 and savgol_padded_pallas_mxu
+// :872 with mxu_precision=DEFAULT), as they run: the products on the tensor
+// cores, mma.sync on the band of the taps (sg1d_bf16.cuh). Each sample is
+// rounded to bf16 as it is staged, the taps are bf16(bf16(w) * bf16(dt))
+// (rounded on the host), every product is exact in f32, the sums are f32
+// and each output is rounded to bf16; the kernel and its plain version
+// differ only in the order of the f32 sums. With the casts fused, an f32
+// caller moves 8 B a sample and a bf16 caller 4 B: at the 1D headline the
+// bytes bound a bf16 caller at 0.160 ms (0.321 f32), over the 0.100 ms its
+// 25 FMAs a sample would take on the CUDA cores at the f32 peak and the
+// 0.03 ms of the band products at the tensor cores' (derived). Samples are
+// staged by 16-byte loads.
+#include "sg1d_bf16.cuh"
 #include "stencil_tile.cuh"
 
 namespace {
@@ -119,18 +123,179 @@ int launch(const In* x, const T* w, const T* ew, In* out, long long B,
   return cudaGetLastError();
 }
 
-// method="bf16": storage f32 (bf16_storage = 0) or bf16 (1); taps are bf16
-// values held in f32.
+// method="bf16" on f32 storage (sg1d_bf16.cuh): a tile of sg1b::kTile
+// outputs a block on the tensor cores, KC band chunks deep. A tile with a
+// K1 edge output writes it from ew after the band products, as the exact
+// kernel does. Registers capped for 5 blocks an SM (48): at the headline a
+// cap for 4 (64) measured 1-4% slower (8-9% in bf16 storage, which ran this
+// kernel before the cp.async one below), one for 6 spilled and gained
+// nothing (probes/variants.py). KC = 9 keeps 4: its 36 registers of B
+// fragments spilled 8 B under 48.
+template <typename In, int KC>
+__global__ void __launch_bounds__(sg1b::kThreads, KC < 9 ? 5 : 4)
+sg1d_bf16_kernel(const In* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ ew, In* __restrict__ out,
+                 long long N, long long tiles, int n, float lead_sign,
+                 int mode) {
+  __shared__ sg1b::Smem<KC> s;
+  const long long b = blockIdx.x / tiles;
+  const long long t0 = (blockIdx.x % tiles) * sg1b::kTile;
+  const int ws = 2 * n + 1;
+  const In* __restrict__ xrow = x + b * N;
+  In* __restrict__ orow = out + b * N;
+
+  sg1b::stage_taps<KC>(w, ws, s.taps);
+  const bool bad = sg1b::stage(xrow, N, t0 - n, sg1b::Smem<KC>::kStaged / 8,
+                               mode, s.xs);
+  if (__syncthreads_or(bad))
+    sg1b::window_tile(s.xs, w, ws, s.ys);
+  else
+    sg1b::mma_tile<KC>(s.xs, s.taps, ws, s.ys);
+  if (mode == sgt::kZero && !(t0 >= n && t0 + sg1b::kTile <= N - n)) {
+    __syncthreads();   // the edge rows replace the band's outputs
+    sg1b::edge_rows(xrow, ew, N, n, lead_sign, t0, s.ys);
+  }
+  __syncthreads();
+  sg1b::store_tile(orow, N, t0, s.ys);
+}
+
+template <typename In, int KC>
+cudaError_t run_bf16(const In* x, const float* w, const float* ew, In* out,
+                     long long blocks, long long N, long long tiles, int n,
+                     float lead_sign, int mode, cudaStream_t stream) {
+  sg1d_bf16_kernel<In, KC><<<dim3(static_cast<unsigned>(blocks)),
+                             sg1b::kThreads, 0, stream>>>(
+      x, w, ew, out, N, tiles, n, lead_sign, mode);
+  return cudaGetLastError();
+}
+
+// method="bf16" on bf16 storage: the same tiles, each block walking over
+// them with the next tile's copies in flight (cp.async into the second
+// staging buffer) while it computes and stores this one.
+template <int KC>
+__global__ void __launch_bounds__(sg1b::kThreads, 3)
+sg1d_bf16_async_kernel(const __nv_bfloat16* __restrict__ x,
+                       const float* __restrict__ w,
+                       const float* __restrict__ ew,
+                       __nv_bfloat16* __restrict__ out, long long N,
+                       long long tiles, long long total, int n,
+                       float lead_sign, int mode) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& s = *reinterpret_cast<sg1b::AsyncSmem<KC>*>(smem);
+  constexpr int kUnits = sg1b::AsyncSmem<KC>::kStaged / 8;
+  const int ws = 2 * n + 1;
+  sg1b::stage_taps<KC>(w, ws, s.taps);
+  long long id = blockIdx.x;
+  if (id < total) {
+    const __nv_bfloat16* xrow = x + id / tiles * N;
+    sg1b::start_copies(xrow, N,
+                       sg1b::first_output(xrow, n, id % tiles) - n, kUnits,
+                       mode, s.xs[0]);
+  }
+  for (int buf = 0; id < total; id += gridDim.x, buf ^= 1) {
+    const long long next = id + gridDim.x;
+    if (next < total) {   // buffer buf ^ 1 was last read before the last sync
+      const __nv_bfloat16* nrow = x + next / tiles * N;
+      sg1b::start_copies(nrow, N,
+                         sg1b::first_output(nrow, n, next % tiles) - n,
+                         kUnits, mode, s.xs[buf ^ 1]);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    const bool bad = sg1b::landed(s.xs[buf], kUnits);
+    const long long b = id / tiles;
+    const __nv_bfloat16* __restrict__ xrow = x + b * N;
+    __nv_bfloat16* __restrict__ orow = out + b * N;
+    const long long t0 = sg1b::first_output(xrow, n, id % tiles);
+    const bool any_bad = __syncthreads_or(bad);   // every copy landed
+    if (t0 >= N) continue;   // a row's last tile, past its end (uniform)
+    if (any_bad)
+      sg1b::window_tile(s.xs[buf], w, ws, s.ys);
+    else
+      sg1b::mma_tile<KC>(s.xs[buf], s.taps, ws, s.ys);
+    if (mode == sgt::kZero && !(t0 >= n && t0 + sg1b::kTile <= N - n)) {
+      __syncthreads();   // the edge rows replace the band's outputs
+      sg1b::edge_rows(xrow, ew, N, n, lead_sign, t0, s.ys);
+    }
+    __syncthreads();
+    sg1b::store_tile(orow, N, t0, s.ys);
+  }
+}
+
+template <int KC>
+cudaError_t run_bf16_async(const __nv_bfloat16* x, const float* w,
+                           const float* ew, __nv_bfloat16* out, long long B,
+                           long long N, int n, float lead_sign, int mode,
+                           cudaStream_t stream) {
+  const auto kernel = sg1d_bf16_async_kernel<KC>;
+  const int smem = static_cast<int>(sizeof(sg1b::AsyncSmem<KC>));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, sg1b::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (N + 7 + sg1b::kTile - 1) / sg1b::kTile;
+  const long long total = B * tiles;
+  const long long blocks =
+      min(total, static_cast<long long>(max(sms * per_sm, 1)));
+  kernel<<<dim3(static_cast<unsigned>(blocks)), sg1b::kThreads, smem,
+           stream>>>(x, w, ew, out, N, tiles, total, n, lead_sign, mode);
+  return cudaGetLastError();
+}
+
+// method="bf16": In is float (f32 storage) or __nv_bfloat16; taps are bf16
+// values held in f32. One instance for each band depth.
+template <typename In>
+int launch_bf16(const In* x, const float* w, const float* ew, In* out,
+                long long B, long long N, int n, float lead_sign, int mode,
+                void* stream) {
+  const int ws = 2 * n + 1;
+  if (n < 1 || ws > sgt::kMaxWs || N < ws || mode < sgt::kZero ||
+      mode > sgt::kWrap)
+    return cudaErrorInvalidValue;
+  const long long tiles = (N + sg1b::kTile - 1) / sg1b::kTile;
+  const long long blocks = B * tiles;
+  if (blocks <= 0 || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (sg1b::chunks(ws)) {
+#define SG1D_BF16_CASE(KC)                                                \
+  case KC:                                                                \
+    if constexpr (sizeof(In) == 2)                                        \
+      return run_bf16_async<KC>(x, w, ew, out, B, N, n, lead_sign, mode,   \
+                                s);                                       \
+    else                                                                  \
+      return run_bf16<In, KC>(x, w, ew, out, blocks, N, tiles, n,          \
+                              lead_sign, mode, s);
+    SG1D_BF16_CASE(2)
+    SG1D_BF16_CASE(3)
+    SG1D_BF16_CASE(4)
+    SG1D_BF16_CASE(5)
+    SG1D_BF16_CASE(6)
+    SG1D_BF16_CASE(7)
+    SG1D_BF16_CASE(8)
+    SG1D_BF16_CASE(9)
+#undef SG1D_BF16_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 int launch_bf16(const void* x, const float* w, const float* ew, void* out,
                 long long B, long long N, int n, float lead_sign, int mode,
                 int bf16_storage, void* stream) {
   if (bf16_storage)
-    return launch<sgt::Bf16>(static_cast<const __nv_bfloat16*>(x), w, ew,
-                             static_cast<__nv_bfloat16*>(out), B, N, n,
-                             lead_sign, mode, stream);
-  return launch<sgt::Bf16>(static_cast<const float*>(x), w, ew,
-                           static_cast<float*>(out), B, N, n, lead_sign,
-                           mode, stream);
+    return launch_bf16(static_cast<const __nv_bfloat16*>(x), w, ew,
+                       static_cast<__nv_bfloat16*>(out), B, N, n, lead_sign,
+                       mode, stream);
+  return launch_bf16(static_cast<const float*>(x), w, ew,
+                     static_cast<float*>(out), B, N, n, lead_sign, mode,
+                     stream);
 }
 
 }  // namespace

@@ -11,8 +11,12 @@
 // reads (rows padded to whole 16-byte loads) in shared memory. The source
 // index of a staged sample is mapped by the pad mode, so a same-size apply
 // needs no padded copy of the image: numpy's rules for any pad width, since
-// a small image can be shorter than the pad.
+// a small image can be shorter than the pad. stage_tile loads a sample at a
+// time (K7's tile instance); stage4 (K2D-dense, K7's sweep) 4 at a time
+// from 16-byte loads, mapping only a group that leaves the image.
 #pragma once
+
+#include <stdint.h>
 
 #include "stencil_tile.cuh"
 
@@ -80,6 +84,68 @@ __device__ void stage_tile(const In* __restrict__ img, int R, int C, int row0,
       const int gc = map_index(col0 + j, C, mode);
       dst[j] = gc >= 0 ? T(IO::load(src[gc])) : T(0);
     }
+  }
+}
+
+// 4 samples p[0, 4) of a row, from 16-byte loads at the aligned addresses
+// around them, shifted into place.
+__device__ __forceinline__ void load4(const float* p, float r[4]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const int m = static_cast<int>((a >> 2) & 3);    // samples past alignment
+  const float4* v = reinterpret_cast<const float4*>(a & ~uintptr_t(15));
+  const float4 v0 = __ldg(v);
+  const float4 v1 = m ? __ldg(v + 1) : v0;
+  float f[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+  if (m & 2) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) f[i] = f[i + 2];
+  }
+  if (m & 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = f[i + 1];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = f[i];
+}
+
+__device__ __forceinline__ void load4(const double* p, double r[4]) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const int m = static_cast<int>((a >> 3) & 1);
+  const double2* v = reinterpret_cast<const double2*>(a & ~uintptr_t(15));
+  const double2 v0 = __ldg(v), v1 = __ldg(v + 1);
+  const double2 v2 = m ? __ldg(v + 2) : v1;
+  const double f[6] = {v0.x, v0.y, v1.x, v1.y, v2.x, v2.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = m ? f[i + 1] : f[i];
+}
+
+// Stages rows [row0, row0 + SR) x columns [col0, col0 + SW) of the padded
+// image into xs (row stride SW, a multiple of 4), 4 samples a thread of NT
+// at a time: 16-byte loads at the aligned addresses (load4), only a group
+// of 4 that leaves the image mapped one sample at a time.
+template <int NT, typename T>
+__device__ __forceinline__ void stage4(const T* __restrict__ img, int R,
+                                       int C, int row0, int col0, int SR,
+                                       int SW, int mode, T* __restrict__ xs) {
+  const int groups = SW / 4;
+  for (int e = threadIdx.x; e < SR * groups; e += NT) {
+    const int i = e / groups, g = e - i * groups;
+    const int gr = map_index(row0 + i, R, mode);
+    const int gc = col0 + 4 * g;
+    T v[4] = {T(0), T(0), T(0), T(0)};
+    if (gr >= 0) {
+      const T* __restrict__ src = img + static_cast<long long>(gr) * C;
+      if (gc >= 0 && gc + 4 <= C) {
+        load4(src + gc, v);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = map_index(gc + j, C, mode);
+          if (c >= 0) v[j] = src[c];
+        }
+      }
+    }
+    Vec4<T>::store(xs + i * SW + 4 * g, v);
   }
 }
 

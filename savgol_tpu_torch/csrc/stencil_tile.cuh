@@ -21,10 +21,13 @@
 // The staging loops and the kernels' stores take a policy: AsStored (the
 // exact kernels: samples, taps and sums in the storage type) or a bf16 mode
 // (the JAX package's method="bf16": bf16 operands, f32 sums). A bf16 mode
-// rounds each sample to bf16 in registers as it is staged and stages it as
-// f32, so the tap loops are the exact f32 ones; its taps are bf16 values
-// held in f32, so every product is exact in f32. It reads and writes the
-// caller's storage, f32 or bf16, so no cast pass runs before or after.
+// rounds each sample to bf16 in registers as it is staged (one load of 2
+// or 4 bytes a sample) and stages it as f32, so the tap loops are the
+// exact f32 ones; its taps are bf16 values held in f32, so every product
+// is exact in f32. It reads and writes the caller's storage, f32 or bf16,
+// so no cast pass runs before or after. K3-bf16 (corr1d_valid.cu) runs
+// this way; K1-bf16 and K2-bf16 run their own tile on the tensor cores,
+// staged by 16-byte loads (sg1d_bf16.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

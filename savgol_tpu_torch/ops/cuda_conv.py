@@ -18,8 +18,10 @@ functions whose autograd gives the gradients (``ops.apply``).
 
 ``method="bf16"`` has its own wrappers and plain versions
 (``savgol_polynomial_bf16_cuda`` / ``_plain`` and the padded and VALID
-pairs): the same kernels in their bf16 mode, the counterparts of the
-Pallas wrappers on bf16 operands at single-pass MXU precision. Samples and
+pairs): the same kernels in their bf16 mode (K1 and K2 on the tensor cores,
+``csrc/sg1d_bf16.cuh``: a block of 16 outputs is a product with the taps'
+band, ``cuda_conv2d.row_bands`` of a 1 x ws stencil), the counterparts of
+the Pallas wrappers on bf16 operands at single-pass MXU precision. Samples and
 taps are rounded to bf16 (the taps as ``bf16(bf16(w) * bf16(dt_inv))``, on
 the host side by :func:`bf16_taps` for both versions, so both get the same
 bits), products are exact in f32, sums are f32, and each output is rounded
@@ -463,10 +465,11 @@ def savgol_polynomial_bf16_cuda(x: torch.Tensor, center_w: torch.Tensor,
                                 lead_sign: float = 1.0) -> torch.Tensor:
     """``method="bf16"`` same-length POLYNOMIAL apply along the last axis.
 
-    CUDA tensor: kernel K1 in its bf16 mode (``sg1d_poly_bf16``), one launch
-    that reads and writes f32 or bf16 storage (other dtypes go through bf16
-    and come back); any length N >= 2n + 1 runs, where the TPU kernel needs
-    an admissible block width. CPU tensor:
+    CUDA tensor: kernel K1 in its bf16 mode (``sg1d_poly_bf16``, the band
+    products on the tensor cores), one launch that reads and writes f32 or
+    bf16 storage (other dtypes go through bf16 and come back); any length
+    N >= 2n + 1 and any alignment of the rows runs, where the TPU kernel
+    needs an admissible block width. CPU tensor:
     :func:`savgol_polynomial_bf16_plain`.
     """
     name = "savgol_polynomial_bf16_cuda"

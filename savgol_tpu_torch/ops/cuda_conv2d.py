@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from savgol_tpu_torch._build import library
 from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _bf16_operand,
                                             _check_bf16_input,
                                             _check_cuda_input, _launch,
@@ -48,6 +49,7 @@ __all__ = [
     "correlate2d_valid_bf16_plain",
     "correlate2d_valid_bf16_cuda",
     "row_bands",
+    "sep_instance",
 ]
 
 # Kernel launches since the last reset_launches(), one count per wrapper.
@@ -69,7 +71,9 @@ def _svd_stencil_np(w, rtol: float = 1e-9):
     r = int(np.sum(s > rtol * s[0])) if s[0] > 0 else 1
     r = max(1, r)
     sq = np.sqrt(s[:r])
-    return (U[:, :r] * sq).T, (Vt[:r, :] * sq[:, None])
+    # C order, so that the kernel takes them without a copy a call
+    return (np.ascontiguousarray((U[:, :r] * sq).T),
+            np.ascontiguousarray(Vt[:r, :] * sq[:, None]))
 
 
 def _out_size(x: torch.Tensor, H: int, W: int, pad_mode) -> tuple[int, int]:
@@ -201,14 +205,29 @@ def correlate2d_valid_cuda(x: torch.Tensor, w: torch.Tensor,
     return _k2d_dense(name, x, w, pad_mode, False)
 
 
+def sep_instance(H: int, W: int, rank: int, dtype=torch.float32) -> str:
+    """Which K2D-sep instance a launch of an H x W stencil of this rank
+    runs, as ``csrc/corr2d_sep.cu`` decides it (``corr2d_sep_instance``):
+    ``"tile"`` (the 64 x 64 tiles), ``"sweep"`` (the column-strip sweep at
+    runtime widths) or ``"sweep HxW"`` (a compile-time width). Builds the
+    kernel library."""
+    code = library().corr2d_sep_instance(
+        int(H), int(W), int(rank), torch.empty((), dtype=dtype).element_size())
+    if code < 0:
+        raise ValueError(f"sep_instance: K2D-sep takes no {H} x {W} stencil "
+                         f"of rank {rank} in {dtype}")
+    return {0: "tile", 1: "sweep"}.get(code, f"sweep {code}x{code}")
+
+
 def correlate2d_sep_cuda(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                          pad_mode=None) -> torch.Tensor:
     """Separable 2D correlation of ``x`` (..., R, C) with the stencil
     ``sum_k outer(u[k], v[k])``, ``u`` (r, H) and ``v`` (r, W); output
     (..., R', C').
 
-    CUDA tensor: kernel K2D-sep (``csrc/corr2d_sep.cu``) on the current
-    stream, no synchronisation. CPU tensor: :func:`correlate2d_sep_plain`.
+    CUDA tensor: kernel K2D-sep (``csrc/corr2d_sep.cu``, the instance
+    :func:`sep_instance` names) on the current stream, no
+    synchronisation. CPU tensor: :func:`correlate2d_sep_plain`.
     """
     name = "correlate2d_sep_cuda"
     if not _plain_or_cuda(x, name):

@@ -136,7 +136,7 @@ def measure(x: torch.Tensor, w: torch.Tensor) -> list:
     Returns one record a kernel."""
     from savgol_tpu_torch.ops.cuda_conv import (correlate_valid_bf16_cuda,
                                                 correlate_valid_bf16_plain)
-    from savgol_tpu_torch.utils.timing import bound, cuda_time_ms, cudnn_ms
+    from savgol_tpu_torch.utils.timing import bound, cudnn_ms, device_ms
 
     B, N = x.shape
     ws = w.shape[0]
@@ -166,8 +166,8 @@ def measure(x: torch.Tensor, w: torch.Tensor) -> list:
                                f"max {err.max().item():.3e}")
         nbytes = 2 * samples + 2 * got.numel()
         recs.append({"name": name, "max_abs_err": err.max().item(),
-                     "ms": cuda_time_ms(kernel),
-                     "plain_ms": cuda_time_ms(plain, warmup=1, reps=3),
+                     "ms": device_ms(kernel),
+                     "plain_ms": device_ms(plain, warmup=1, reps=3),
                      **bound(nbytes, flops[name], "bf16"),
                      "library_ms": lib["best"] if name == "K3-bf16" else None,
                      "library_default_ms": (lib["default"]

@@ -120,7 +120,7 @@ def measure(x: torch.Tensor, w: torch.Tensor, n_out: int,
     - 1) samples it must read and the B n_out it writes. Returns one record
     a geometry."""
     from savgol_tpu_torch.ops.cuda_conv import correlate_valid_cuda
-    from savgol_tpu_torch.utils.timing import bound, cuda_time_ms
+    from savgol_tpu_torch.utils.timing import bound, device_ms
 
     B, N = x.shape
     ws = w.shape[0]
@@ -129,10 +129,10 @@ def measure(x: torch.Tensor, w: torch.Tensor, n_out: int,
     torch.backends.cudnn.allow_tf32 = False
     try:
         x3, w3 = x.view(B, 1, N), w.to(x.dtype).view(1, 1, ws)
-        lib_ms = cuda_time_ms(lambda: torch.nn.functional.conv1d(x3, w3))
+        lib_ms = device_ms(lambda: torch.nn.functional.conv1d(x3, w3))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    k3_ms = cuda_time_ms(lambda: correlate_valid_cuda(x, w))
+    k3_ms = device_ms(lambda: correlate_valid_cuda(x, w))
     lim = bound(4 * B * (n_out + ws - 1) + 4 * B * n_out, 2 * ws * B * n_out)
     recs = []
     for rows, cols in geometries:
@@ -154,8 +154,8 @@ def measure(x: torch.Tensor, w: torch.Tensor, n_out: int,
                                f"not bit-equal to K3")
         recs.append({"rows": rows, "cols": cols, "B": B, "N": N,
                      "n_out": n_out, "max_abs_err": err, "k3_equal": True,
-                     "ms": cuda_time_ms(run),
-                     "plain_ms": cuda_time_ms(plain, warmup=1, reps=3),
+                     "ms": device_ms(run),
+                     "plain_ms": device_ms(plain, warmup=1, reps=3),
                      "k3_ms": k3_ms, **lim, "library_ms": lib_ms})
     return recs
 

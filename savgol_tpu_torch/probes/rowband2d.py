@@ -148,7 +148,7 @@ def measure(x: torch.Tensor, w: torch.Tensor, pad_mode="edge") -> list:
     f32 peak of the CUDA cores, which ``B_alignctl`` runs on. Returns one
     record a variant."""
     from savgol_tpu_torch.utils.timing import (PEAK_FLOPS, bound,
-                                               cuda_time_ms, cudnn_ms)
+                                               cudnn_ms, device_ms)
 
     H, W = w.shape
     pix = x.numel()
@@ -178,8 +178,8 @@ def measure(x: torch.Tensor, w: torch.Tensor, pad_mode="edge") -> list:
         flops = 2 * taps * pix
         recs.append({
             "name": name, "max_abs_err": err,
-            "ms": cuda_time_ms(lambda: variant_cuda(name, x, w, pad_mode)),
-            "plain_ms": cuda_time_ms(
+            "ms": device_ms(lambda: variant_cuda(name, x, w, pad_mode)),
+            "plain_ms": device_ms(
                 lambda: variant_plain(name, x, w, pad_mode), warmup=1,
                 reps=3),
             **bound((x.element_size() + out_b) * pix, flops, "bf16"),

@@ -1,6 +1,6 @@
-"""Times the stencil kernels K4 and K2D-dense of one checkout of this package
-on the card, so that two checkouts can be compared in one call, in turns
-(parent, change, change, parent):
+"""Times the stencil kernels K4, K2D-dense, K7 and the bf16 1D kernels of
+one checkout of this package on the card, so that two checkouts can be
+compared in one call, in turns (parent, change, change, parent):
 
     python savgol_tpu_torch/probes/stencil_ab.py [--root DIR]
 
@@ -22,18 +22,39 @@ medians in ms (L2 flushed) of
   three (a width that ``Savgol2D.apply(method="auto")`` also sends to this
   kernel);
 - K7 (``csrc/corr2d_sep.cu``) on the same image and stencil, with the
-  path's rank-2 factors and with the rank-6 factors of the float32 stencil.
+  path's rank-2 factors and with the rank-6 factors of the float32 stencil,
+  and with the factors ``Savgol2D.apply(method="auto")`` takes for 21 x 21
+  order 4 (rank 3), 33 x 33 order 6 (rank 4) and the rectangle 17 x 25
+  order 4 (rank 3), which are wider than the dense kernel's widths;
+- the bf16 1D tile (``sg1d_poly_bf16`` / ``sg1d_pad_bf16`` in
+  ``csrc/sg1d_poly.cu``) at the 1D headline, (128, 1,048,576), n = 12,
+  m = 4: K1-bf16 in bf16 and f32 storage, K2-bf16 in each pad mode (bf16
+  storage, and wrap in f32 storage), and K3-bf16 (``csrc/corr1d_valid.cu``)
+  beside them as a control.
 
 It uses only the wrappers' public signatures, which every checkout since
-the bf16 mode was ported shares.
+the bf16 mode was ported shares, and times every checkout with this
+checkout's ``utils.timing.device_ms`` (device time: the card is kept
+busy while the host enqueues each timed call).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import pathlib
 import sys
+
+
+def _own_timing(here: pathlib.Path):
+    """``utils/timing.py`` of the checkout this file is in, loaded by path
+    (it imports only torch and the standard library)."""
+    path = here / "savgol_tpu_torch" / "utils" / "timing.py"
+    spec = importlib.util.spec_from_file_location("_stencil_ab_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main() -> int:
@@ -42,6 +63,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(here))
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
+    # one timing rule for every checkout compared: this checkout's
+    timing = _own_timing(here)
     sys.path.insert(0, str(root))
 
     import numpy as np
@@ -49,11 +72,13 @@ def main() -> int:
 
     import savgol_tpu_torch as sgt
     from savgol_tpu_torch.ops import cuda_bank as cb
+    from savgol_tpu_torch.ops import cuda_conv as cc
     from savgol_tpu_torch.ops import cuda_conv2d as c2
+    from savgol_tpu_torch.ops.apply2d import _factors
     from savgol_tpu_torch.ops.sweep import savgol_weights_masked
     from savgol_tpu_torch.ops.weights import savgol2d_weights_np
     from savgol_tpu_torch.probes.masked_ab import card
-    from savgol_tpu_torch.utils.timing import cuda_time_ms
+    from savgol_tpu_torch.scipy_compat import _compat_weights_np
 
     if not torch.cuda.is_available():
         raise SystemExit("stencil_ab needs a CUDA device")
@@ -65,7 +90,7 @@ def main() -> int:
 
     def run(name, fn, **kw):
         sums[name] = fn().double().sum().item()
-        ms[name] = cuda_time_ms(fn, **kw)
+        ms[name] = timing.device_ms(fn, **kw)
 
     # -- K4 --
     x = torch.randn(128, 1 << 20, generator=gen, device=dev)
@@ -78,6 +103,21 @@ def main() -> int:
         warmup=2, reps=7)
     xs = x.reshape(-1)[:4_194_304].clone()
     run("K4 sweep 4M", lambda: cb.correlate_valid_bank_cuda(xs, center, 32))
+    # -- the bf16 1D kernels at the 1D headline (K3-bf16 the control) --
+    xb = x.to(torch.bfloat16)
+    cw, ew = (torch.from_numpy(a).to(dev, torch.float32)
+              for a in _compat_weights_np(12, 4, 0))
+    one = torch.tensor(1.0, device=dev)
+    for tag, xx in (("bf16", xb), ("f32 storage", x)):
+        run(f"K1-bf16 {tag}", lambda: cc.savgol_polynomial_bf16_cuda(
+            xx, cw, ew, 12, one, 1.0))
+        run(f"K3-bf16 {tag}", lambda: cc.correlate_valid_bf16_cuda(xx, cw))
+    for mode in ("symmetric", "wrap", "edge"):
+        run(f"K2-bf16 {mode} bf16", lambda: cc.savgol_padded_bf16_cuda(
+            xb, cw, mode, 12, one))
+    run("K2-bf16 wrap f32 storage", lambda: cc.savgol_padded_bf16_cuda(
+        x, cw, "wrap", 12, one))
+    del xb
     xd, wd = x.double(), wdt.double()
     del x
     run("K4 bank K=3 f64", lambda: cb.correlate_valid_bank_cuda(xd, wd, 12))
@@ -120,6 +160,12 @@ def main() -> int:
               for a in c2._svd_stencil_np(w1.double().cpu().numpy()))
     run(f"K7 rank {u6.shape[0]}",
         lambda: c2.correlate2d_sep_cuda(img, u6, v6, "edge"))
+    # the wide windows method="auto" sends to K7, with its factors
+    for nx, ny, m in ((10, 10, 4), (16, 16, 6), (12, 8, 4)):
+        f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(nx, ny, m), device=dev)
+        (uw, vw), = _factors(f2.weights, torch.float32, dev)
+        run(f"K7 {2 * ny + 1}x{2 * nx + 1} rank {uw.shape[0]}",
+            lambda: c2.correlate2d_sep_cuda(img, uw, vw, "edge"))
 
     print(json.dumps({"card": card(), "root": str(root), "ms": ms,
                       "sums": sums}))

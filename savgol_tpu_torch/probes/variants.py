@@ -1,46 +1,65 @@
-"""Times design alternatives of five kernels against the kernels as they
+"""Times design alternatives of seven kernels against the kernels as they
 stand, in turns, in one process on the card:
 
     python -m savgol_tpu_torch.probes.variants [dense] [bf16] [k8a] [k11]
-        [k8b] [census] [--root DIR] [--dry-run]
+        [k8b] [sg1d] [sep] [census] [--root DIR] [--only NAME ...]
+        [--dry-run]
 
 Each alternative is this checkout's source with a few lines replaced
-(``VARIANTS``): the exact K2D-dense (``csrc/corr2d_valid.cu``) with four
-output rows a thread instead of two, with and without a register cap that
-asks for three blocks an SM, with two rows under that cap, and with every
-stencil width on the runtime-width instance (no compile-time W);
-K2D-dense's bf16 mode (``csrc/corr2d_bf16_mma.cu``) with the
-non-finite tile's branch taken before the tensor-core products, and with
-no finiteness flag at all (the kernel before the F11 repair); K8a
-(``csrc/plane_solve.cu``) with L in shared memory at k = 15 in f32, and on
-its runtime instance only; K11 (``csrc/nonuniform.cu``) with its moment
-pass alone (the solve replaced by c = r) and with its solve alone (moments
-set from the centre sample, no tap loop), and K8b (the double-word
-``plane_solve_dd_*`` of ``plane_solve.cu``) with its solve alone (Gram and
-rhs made in registers, no plane loads). Those three are attribution, not
-alternatives: their outputs differ from the kernel's by design, so no
-checksum holds them. Each is built with ``nvcc -shared -Xptxas -v``
+(``VARIANTS``; an edit may name a header the source includes): the exact
+K2D-dense (``csrc/corr2d_valid.cu``) with four output rows a thread
+instead of two, with and without a register cap that asks for three
+blocks an SM, with two rows under that cap, and with every stencil width
+on the runtime-width instance (no compile-time W); K2D-dense's bf16 mode
+(``csrc/corr2d_bf16_mma.cu``) with the non-finite tile's branch taken
+before the tensor-core products, and with no finiteness flag at all (the
+kernel before the F11 repair); K8a (``csrc/plane_solve.cu``) with L in
+shared memory at k = 15 in f32, and on its runtime instance only; K11
+(``csrc/nonuniform.cu``) with L in registers to k = 6 and 8; K8b with L in
+shared memory from k = 5; the bf16 1D tile (``csrc/sg1d_poly.cu``,
+``csrc/sg1d_bf16.cuh``) with bf16 storage on the one-tile-a-block kernel
+instead of the ``cp.async`` one, other register caps and 4096-output
+tiles; K7 (``csrc/corr2d_sep.cu``) with every window on its
+runtime-width sweep (no compile-time widths) or on its 64 x 64 tiles,
+with rings past 113 KB on the tiles, with the runtime-width passes
+unrolled less, without its L1 prefetch, with an L2 one, other register
+caps and shorter bands. Attribution edits sit beside
+them: K11's moment pass alone (the solve replaced by c = r) and its solve
+alone (moments set from the centre sample, no tap loop), K8b's solve alone
+(Gram and rhs made in registers, no plane loads), the bf16 1D tile with
+its band products replaced by a copy (``stage_store``) or its device
+loads by constants (``no_loads``), and K7 with its column pass cut to one
+tap (``row_only``), its row pass to one group of four (``col_only``) or
+both (``stage_store``): their outputs differ from the kernel's by design,
+so no checksum holds them. Each is built with ``nvcc -shared -Xptxas -v``
 with the package's own nvcc flags into ``build/variants/<kernel>/<name>/``,
 loaded with ctypes, required to give the as-is build's checksum (the
 alternatives compute the same sums in the same order), and timed with CUDA
-events (L2 flushed) in four rounds whose order alternates, at the paths'
-shapes: the 2D headline (16 x 2048^2, 11 x 11, 5 x 5, 15 x 15 and one
-1 x 11 row,
-CONSTANT, one stencil and the Hessian's three) and K8a on the masked 2D
-slice's planes (1024^2; 11 x 11 order 3, k = 10; 3 x 11 order 4, k = 15),
-K11 at the nonuniform path's (8, 131,072), n = 12, m = 4, f32 and f64, and
-K8b on the qr route's planes (8 x 131,072 positions, k = 5, f32 and f64
-pairs). An alternative whose lines the source no longer has is reported
-as stale and not built.
+events (L2 flushed; ``utils.timing.device_ms``) in four rounds whose
+order alternates, at the paths' shapes: the 2D headline (16 x 2048^2,
+11 x 11, 5 x 5, 15 x 15 and one 1 x 11 row, CONSTANT, one stencil and the
+Hessian's three; K7 with the path's rank 2, the f32 stencils' noise ranks
+6 and 7 at 11 x 11 to 15 x 15, the smoothing stencils' factors at every
+square width 13-33 and at 17 x 25, and 11 x 11, 17 x 25, 27 x 27 and
+33 x 33 in f64) and
+K8a on the masked 2D slice's planes (1024^2; 11 x 11 order 3, k = 10;
+3 x 11 order 4, k = 15), K11 at the nonuniform path's (8, 131,072), n =
+12, m = 4, f32 and f64, K8b on the qr route's planes (8 x 131,072
+positions, k = 5, f32 and f64 pairs), and the bf16 1D tile at the 1D
+headline (128, 1,048,576), n = 12 (K1-bf16 both storages, K2-bf16
+symmetric in bf16 and wrap in f32 storage). An alternative whose lines
+the source no longer has is reported as stale and not built.
 
 ``census`` builds every source of the checkout to a cubin with ``-Xptxas
 -v`` and reads ``cuobjdump -sass``: each kernel's registers, stack and
-spill, its SASS instruction count and its DFMA, DADD and DMUL. ``--root
+spill, its SASS instruction count and its DFMA, DADD, DMUL and HMMA
+(tensor-core products). ``--root
 DIR`` takes the sources (and the C signatures) of the checkout at DIR, so
 that another tree's census is read with this script; the timed cases call
 this checkout's entry points and edit its kernels. Prints one JSON
 record: the card, each build's registers, stack and spill by kernel, and
-each case's times (min, median, max). ``--dry-run`` only applies the edits
+each case's times (min, median, max). ``--only`` builds and times only the
+named alternatives beside ``as_is``; ``--dry-run`` only applies the edits
 (no card).
 """
 
@@ -73,6 +92,12 @@ _ROWS4 = [("constexpr int kQR = 2; ", "constexpr int kQR = 4; ")]
 _WIDTHS = "".join(
     f"    case {w}: return run<T, {w}>(x, w, out, B, r, c, Ro, Co, k, h, wd, "
     "mode, s);\n" for w in (3, 5, 7, 9, 11, 13, 15, 17))
+
+_SG1D_BOUNDS = "(sg1b::kThreads, KC < 9 ? 5 : 4)"
+_SEP_COL_ONE_TAP = ("  for (int i = 0; i < kQRS + H - 1; ++i) {",
+                    "  for (int i = 0; i < kQRS; ++i) {")
+_SEP_ROW_FOUR_TAPS = ("  for (int q = 0; q < (W + 3) / 4; ++q) {",
+                      "  for (int q = 0; q < 1; ++q) {")
 
 VARIANTS = {
     "dense": ("corr2d_valid.cu", {
@@ -156,39 +181,117 @@ VARIANTS = {
              "      wk.vh[i] = i + 1e-9 * p;\n"
              "      wk.vl[i] = 0.0;\n")],
     }),
+    # the bf16 1D tile on the tensor cores (sg1d_bf16.cuh): bf16 storage
+    # without the cp.async instance (one tile a block, as f32 storage
+    # runs), registers capped for 4 and for 6 blocks an SM, tiles of 4096
+    # outputs; attribution: the band
+    # products replaced by a copy of the staged samples (stage_store), the
+    # device loads of the staging by constants (no_loads)
+    "sg1d": ("sg1d_poly.cu", {
+        "as_is": [],
+        "no_async": [("    if constexpr (sizeof(In) == 2)",
+                      "    if constexpr (false)")],
+        "blocks_4": [(_SG1D_BOUNDS, "(sg1b::kThreads, 4)")],
+        "blocks_6": [(_SG1D_BOUNDS, "(sg1b::kThreads, 6)")],
+        "tile_4096": [("sg1d_bf16.cuh", "constexpr int kMT = 4;",
+                       "constexpr int kMT = 2;")],
+        "stage_store": [
+            ("    sg1b::mma_tile<KC>(s.xs, s.taps, ws, s.ys);\n",
+             "    for (int i = threadIdx.x; i < sg1b::kTile; "
+             "i += sg1b::kThreads)\n      s.ys[i] = s.xs[i];\n"),
+            ("      sg1b::mma_tile<KC>(s.xs[buf], s.taps, ws, s.ys);\n",
+             "      for (int i = threadIdx.x; i < sg1b::kTile; "
+             "i += sg1b::kThreads)\n        s.ys[i] = s.xs[buf][i];\n")],
+        "no_loads": [
+            ("sg1d_bf16.cuh", "      v = sgmma::load8(xrow + g);\n",
+             "      v = make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, "
+             "0x3f803f80u + static_cast<unsigned>(g & 63));\n"),
+            ("sg1d_bf16.cuh",
+             '      asm volatile("cp.async.cg.shared.global [%0], [%1], '
+             '16;\\n"\n                   :: "r"(sgmma::smem_addr(dst)), '
+             '"l"(xrow + g));\n',
+             "      *reinterpret_cast<uint4*>(dst) = make_uint4(0x3f803f80u, "
+             "0x3f803f80u, 0x3f803f80u, 0x3f803f80u + "
+             "static_cast<unsigned>(g & 63));\n")],
+    }),
+    # K7's sweep: every stencil whose ring fits on the runtime-width sweep
+    # (no compile-time widths), every stencil on the 64 x 64 tiles, rings
+    # past 113 KB (one block an SM) on the tiles, the runtime-width passes
+    # unrolled less (f64 spills 16 B), without
+    # the L1 prefetch of the next chunk, with an L2 prefetch, every f32
+    # width's registers capped for 3 and for 4 blocks an SM, bands of 8
+    # chunks;
+    # attribution: the column pass cut to one tap (row_only), the
+    # row pass to one group of 4 taps (col_only), both (stage_store)
+    "sep": ("corr2d_sep.cu", {
+        "as_is": [],
+        "runtime_width": [
+            ("      case 11: case 19: case 21: case 23: case 25: case 27: "
+             "case 29:\n      case 31: case 33:\n        return H;\n", "")],
+        "tile": [("  if (sweep_smem<T>(H, W, rank) > kSweepSmemMax) return "
+                  "kTileInstance;", "  return kTileInstance;")],
+        "ring_113k": [("constexpr size_t kSweepSmemMax = 227 * 1024;",
+                       "constexpr size_t kSweepSmemMax = 113 * 1024;")],
+        "rt_row_unroll1": [("#pragma unroll 2\n  for (int q = 0; q < (W + 3) "
+                            "/ 4; ++q) {", "#pragma unroll 1\n  for (int q "
+                            "= 0; q < (W + 3) / 4; ++q) {")],
+        "rt_col_unroll2": [("#pragma unroll 4\n  for (int y = 0; y < H; ++y)",
+                            "#pragma unroll 2\n  for (int y = 0; y < H; "
+                            "++y)")],
+        "no_prefetch": [
+            ("    if (c + 1 < nch)\n      prefetch_rows(",
+             "    if (false)\n      prefetch_rows("),
+            ("  prefetch_rows(img, R, C, r0 - oy + H - 1, kCH, c0 - ox, SW, "
+             "mode);\n", "")],
+        "prefetch_l2": [("prefetch.global.L1", "prefetch.global.L2")],
+        "blocks_3": [("return sizeof(T) == 8 ? 2 : H <= 21 ? 4 : 3;",
+                      "return sizeof(T) == 8 ? 2 : 3;")],
+        "blocks_4": [("return sizeof(T) == 8 ? 2 : H <= 21 ? 4 : 3;",
+                      "return sizeof(T) == 8 ? 2 : 4;")],
+        "chunks_8": [("constexpr int kChunks = 16;",
+                      "constexpr int kChunks = 8;")],
+        "row_only": [_SEP_COL_ONE_TAP],
+        "col_only": [_SEP_ROW_FOUR_TAPS],
+        "stage_store": [_SEP_COL_ONE_TAP, _SEP_ROW_FOUR_TAPS],
+    }),
 }
 
 # variants whose outputs differ from the kernel's by design
-ATTRIBUTION = {"moments_only", "solve_only", "no_loads"}
+ATTRIBUTION = {"moments_only", "solve_only", "no_loads", "stage_store",
+               "row_only", "col_only"}
 
 
-def _edited(text: str, edits) -> str | None:
-    """``text`` with the edits applied, or None where a target is missing."""
-    if not all(old in text for old, _ in edits):
-        return None
-    for old, new in edits:
-        text = text.replace(old, new)
-    return text
+def _edited(texts: dict, fname: str, edits) -> dict | None:
+    """{file: text} with the edits applied, or None where a target is
+    missing. An edit is (old, new) in the kernel's source ``fname`` or
+    (file, old, new) in another file of ``texts`` (a header)."""
+    texts = dict(texts)
+    for edit in edits:
+        f, old, new = edit if len(edit) == 3 else (fname, *edit)
+        if old not in texts[f]:
+            return None
+        texts[f] = texts[f].replace(old, new)
+    return texts
 
 
 def sources(kernel: str, root: pathlib.Path = _OUT,
             csrc: pathlib.Path = _CSRC) -> tuple[dict, list]:
     """({variant: path of its edited source} under ``root``/kernel/, the
-    variants whose edit targets the source in ``csrc`` lacks)."""
+    variants whose edit targets the sources in ``csrc`` lack)."""
     fname, variants = VARIANTS[kernel]
-    text = (csrc / fname).read_text()
+    texts = {f.name: f.read_text() for f in csrc.glob("*.cuh")}
+    texts[fname] = (csrc / fname).read_text()
     out, stale = {}, []
     for name, edits in variants.items():
-        s = _edited(text, edits)
-        if s is None:
+        edited = _edited(texts, fname, edits)
+        if edited is None:
             stale.append(name)
             continue
         d = root / kernel / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for header in csrc.glob("*.cuh"):
-            shutil.copy(header, d)
-        (d / fname).write_text(s)
+        for f, text in edited.items():
+            (d / f).write_text(text)
         out[name] = d / fname
     return out, stale
 
@@ -239,7 +342,7 @@ def _ptxas(text: str) -> dict:
 
 def _sass(cubin: pathlib.Path) -> dict:
     """{kernel: {"sass": instructions but NOPs, "DFMA": n, "DADD": n,
-    "DMUL": n}} from ``cuobjdump -sass``."""
+    "DMUL": n, "HMMA": n}} from ``cuobjdump -sass``."""
     from savgol_tpu_torch._build import _nvcc
     tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(cubin)], check=True,
@@ -249,13 +352,13 @@ def _sass(cubin: pathlib.Path) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = {"sass": 0, "DFMA": 0, "DADD": 0, "DMUL": 0}
+            out[fn] = {"sass": 0, "DFMA": 0, "DADD": 0, "DMUL": 0, "HMMA": 0}
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                      line)
         if m and fn and m.group(1) != "NOP":
             out[fn]["sass"] += 1
-            if m.group(1) in ("DFMA", "DADD", "DMUL"):
+            if m.group(1) in ("DFMA", "DADD", "DMUL", "HMMA"):
                 out[fn][m.group(1)] += 1
     names = subprocess.run(["c++filt"], input="\n".join(out),
                            capture_output=True, text=True).stdout.split("\n")
@@ -298,14 +401,14 @@ def _signatures(root: pathlib.Path) -> dict:
 
 
 def _in_turns(cases: dict, libs: dict, rounds: int = 4) -> dict:
-    from savgol_tpu_torch.utils.timing import cuda_time_ms
+    from savgol_tpu_torch.utils.timing import device_ms
     times = {}
     for r in range(rounds):
         order = list(libs) if r % 2 == 0 else list(libs)[::-1]
         for name in order:
             for case, run in cases.items():
                 times.setdefault(case, {}).setdefault(name, []).append(
-                    cuda_time_ms(lambda: run(libs[name])))
+                    device_ms(lambda: run(libs[name])))
     return {case: {name: [min(t), statistics.median(t), max(t)]
                    for name, t in by.items()} for case, by in times.items()}
 
@@ -314,6 +417,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernels", nargs="*", default=list(VARIANTS))
     ap.add_argument("--root", default=str(_CSRC.parents[1]))
+    ap.add_argument("--only", nargs="+", metavar="VARIANT",
+                    help="build and time only these variants (and as_is)")
     ap.add_argument("--dry-run", action="store_true")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
@@ -333,9 +438,11 @@ def main() -> int:
     import savgol_tpu_torch as sgt
     from savgol_tpu_torch.ops import lsq
     from savgol_tpu_torch.ops import masked as mk
+    from savgol_tpu_torch.ops import cuda_conv2d as c2
     from savgol_tpu_torch.ops.cuda_conv import bf16_taps
     from savgol_tpu_torch.ops.weights import savgol2d_weights_np
     from savgol_tpu_torch.probes.masked_ab import card
+    from savgol_tpu_torch.scipy_compat import _compat_weights_np
 
     if not torch.cuda.is_available():
         raise SystemExit("variants needs a CUDA device")
@@ -373,6 +480,9 @@ def main() -> int:
 
     for kernel in kernels:
         paths, record["stale"][kernel] = sources(kernel, out_root, csrc)
+        if args.only:
+            paths = {n: p for n, p in paths.items()
+                     if n == "as_is" or n in args.only}
         libs, regs = _build(paths, signatures)
         record["ptxas"][kernel] = regs
         if kernel == "dense":
@@ -407,6 +517,86 @@ def main() -> int:
                      "K=1 f32 storage": bf16(img, t1, 1, out3, 0),
                      "K=3 f32 storage": bf16(img, t3, 3, out3, 0)}
             checked(kernel, libs, cases["K=3 f32 storage"], out3)
+        elif kernel == "sg1d":
+            x1 = torch.randn(128, 1 << 20, generator=gen, device=dev)
+            x1b = x1.to(torch.bfloat16)
+            o1, o1b = torch.empty_like(x1), torch.empty_like(x1b)
+            cw, ew = (bf16_taps(torch.from_numpy(a).to(dev, torch.float32))
+                      .contiguous() for a in _compat_weights_np(12, 4, 0))
+
+            def k1(x, out, storage):
+                return lambda L: L.sg1d_poly_bf16(
+                    x.data_ptr(), cw.data_ptr(), ew.data_ptr(),
+                    out.data_ptr(), 128, 1 << 20, 12, 1.0, storage,
+                    stream())
+
+            def k2(x, out, storage, mode):
+                return lambda L: L.sg1d_pad_bf16(
+                    x.data_ptr(), cw.data_ptr(), out.data_ptr(), 128,
+                    1 << 20, 12, mode, storage, stream())
+            cases = {"K1-bf16 bf16": k1(x1b, o1b, 1),
+                     "K1-bf16 f32 storage": k1(x1, o1, 0),
+                     "K2-bf16 symmetric bf16": k2(x1b, o1b, 1, 2),
+                     "K2-bf16 wrap f32 storage": k2(x1, o1, 0, 3)}
+            same = {n: v for n, v in libs.items() if n not in ATTRIBUTION}
+            checked(kernel, same, cases["K1-bf16 f32 storage"], o1)
+            checked(kernel + " pad", same, cases["K2-bf16 wrap f32 storage"],
+                    o1)
+        elif kernel == "sep":
+            from savgol_tpu_torch.ops.apply2d import _factors
+            cases = {}
+            img64 = img.double()
+            out64 = torch.empty(16, 2048, 2048, device=dev,
+                                dtype=torch.float64)
+            # the path's widths (every square width method="auto" sends
+            # here, 19-33, at its smoothing stencil's rank; f64 27 x 27 and
+            # 33 x 33, whose rings pass 113 KB), and the widths of the
+            # runtime-width sweep: 13 x 13 to 17 x 17 through
+            # method="sep", 17 x 25 (rows x columns) a wide rectangular
+            # window method="auto" sends here
+            for nx, ny, m, dt in ((5, 5, 3, "f32"), (10, 10, 4, "f32"),
+                                  (16, 16, 6, "f32"), (6, 6, 3, "f32"),
+                                  (7, 7, 3, "f32"), (8, 8, 4, "f32"),
+                                  (12, 8, 4, "f32"), (9, 9, 4, "f32"),
+                                  (11, 11, 4, "f32"), (12, 12, 4, "f32"),
+                                  (13, 13, 5, "f32"), (14, 14, 6, "f32"),
+                                  (15, 15, 6, "f32"), (5, 5, 3, "f64"),
+                                  (12, 8, 4, "f64"), (13, 13, 5, "f64"),
+                                  (16, 16, 6, "f64")):
+                f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(nx, ny, m),
+                                         device=dev)
+                ft = torch.float32 if dt == "f32" else torch.float64
+                (u, v), = _factors(f2.weights, ft, dev)
+                r, H, W = u.shape[0], u.shape[1], v.shape[1]
+                xx, oo = (img, out3) if dt == "f32" else (img64, out64)
+                tag = f"K7 {H}x{W} rank {r}" + ("" if dt == "f32" else
+                                               " f64")
+                cases[tag] = (
+                    lambda u=u, v=v, r=r, H=H, W=W, xx=xx, oo=oo, dt=dt:
+                    lambda L: getattr(L, f"corr2d_sep_{dt}")(
+                        xx.data_ptr(), u.data_ptr(), v.data_ptr(),
+                        oo.data_ptr(), 16, 2048, 2048, r, H, W, 1,
+                        stream()))()
+            # the ranks the float32 stencils' rounding noise gives at
+            # _svd_stencil_np's default cutoff (11 x 11: 6, 13 x 13: 6,
+            # 15 x 15: 7)
+            for n in (5, 6, 7):
+                wf = savgol2d_weights_np(sgt.Savgol2DConfig(n, n, 3),
+                                         np.float64).astype(np.float32)
+                uf, vf = (torch.from_numpy(a).to(dev, torch.float32) for a in
+                          c2._svd_stencil_np(wf.astype(np.float64)))
+                r, H = uf.shape
+                cases[f"K7 {H}x{H} rank {r}"] = (
+                    lambda uf=uf, vf=vf, r=r, H=H: lambda L: L.corr2d_sep_f32(
+                        img.data_ptr(), uf.data_ptr(), vf.data_ptr(),
+                        out3.data_ptr(), 16, 2048, 2048, r, H, H, 1,
+                        stream()))()
+            same = {n: v for n, v in libs.items() if n not in ATTRIBUTION}
+            checked(kernel, same, cases["K7 33x33 rank 4"], out3)
+            checked(kernel + " rank 2", same, cases["K7 11x11 rank 2"], out3)
+            checked(kernel + " 17x25", same, cases["K7 17x25 rank 3"], out3)
+            checked(kernel + " 17x25 f64", same,
+                    cases["K7 17x25 rank 3 f64"], out64)
         elif kernel == "k11":
             cases = {}
             gen.manual_seed(1004)

@@ -3,9 +3,14 @@
 
 PyTorch returns before the card finishes, so a host clock measures the
 enqueue. :func:`cuda_time_ms` records an event pair around each call and
-reports the median of the device-side intervals. Before each timed call it
-overwrites a buffer larger than the H100's 50 MB L2 cache, so every call
-finds its input in device memory, as a caller streaming fresh data would.
+reports the median of the intervals. Before each timed call it overwrites
+a buffer larger than the H100's 50 MB L2 cache, so every call finds its
+input in device memory, as a caller streaming fresh data would. The
+interval holds whatever of the call's host work the card waits for: where
+a call's host work outlasts the card's, it is what a caller waits for, and
+that is how entry points are timed. :func:`device_ms` times a kernel
+instead: it also keeps the card busy while the host enqueues the call, so
+its interval is the card's time alone.
 :func:`host_ms` times the host instead: how long a call takes to enqueue
 its work, which bounds a call whose device work is shorter.
 :func:`cudnn_ms` times a library yardstick under the settings cuDNN can be
@@ -21,10 +26,12 @@ from typing import Callable
 
 import torch
 
-__all__ = ["cuda_time_ms", "host_ms", "cudnn_ms", "bound", "HBM_BPS",
-           "PEAK_FLOPS"]
+__all__ = ["cuda_time_ms", "device_ms", "host_ms", "cudnn_ms", "bound",
+           "HBM_BPS", "PEAK_FLOPS"]
 
 _FLUSH_BYTES = 256 << 20
+# ~1 ms of the card's time at the H100's 1.98 GHz SM clock
+_SPIN_CYCLES = 2_000_000
 
 # H100 SXM data sheet: the memory rate, and the dense peak rate of each
 # operand type (f32 and f64 outside the tensor cores; bf16 products summed
@@ -33,18 +40,16 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
 
 
-def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3,
-                 reps: int = 10) -> float:
-    """Median device milliseconds of ``fn()`` over ``reps`` calls after
-    ``warmup`` untimed ones. Needs a card; raises without one."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("cuda_time_ms needs a CUDA device")
+def _event_ms(fn: Callable[[], object], warmup: int, reps: int,
+              spin: int) -> float:
     flush = torch.empty(_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -53,6 +58,32 @@ def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3,
+                 reps: int = 10) -> float:
+    """Median milliseconds between CUDA events around ``fn()`` over
+    ``reps`` calls after ``warmup`` untimed ones: the card's time, and the
+    part of the host's enqueue it waits for. Needs a card; raises without
+    one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time_ms needs a CUDA device")
+    return _event_ms(fn, warmup, reps, 0)
+
+
+def device_ms(fn: Callable[[], object], *, warmup: int = 3,
+              reps: int = 10) -> float:
+    """Median device milliseconds of ``fn()``, as :func:`cuda_time_ms`, but
+    with the card kept busy for about a millisecond (``torch.cuda._sleep``)
+    before each timed call, so that the host has enqueued the call's
+    launches before its start event runs: the interval is the card's time
+    for them, not the host's enqueue (a wrapper's host work, ~0.1-0.4 ms,
+    outruns the flush alone). For kernels and their yardsticks; an entry
+    point is timed by :func:`cuda_time_ms`. Needs a card; raises without
+    one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms needs a CUDA device")
+    return _event_ms(fn, warmup, reps, _SPIN_CYCLES)
 
 
 def host_ms(fn: Callable[[], object], *, warmup: int = 10,
@@ -75,19 +106,19 @@ def host_ms(fn: Callable[[], object], *, warmup: int = 10,
 
 def cudnn_ms(call: Callable[[], object],
              call_nhwc: Callable[[], object] | None = None) -> dict:
-    """Device milliseconds (:func:`cuda_time_ms`) of a cuDNN call at its
+    """Device milliseconds (:func:`device_ms`) of a cuDNN call at its
     default algorithm pick ("default") and with ``cudnn.benchmark`` on,
     which times cuDNN's algorithms at the first call of a shape and keeps
     the fastest ("benchmark"); ``call_nhwc``, the same call on
     channels_last tensors, with it on too ("benchmark channels_last").
     "best" is the least of them. The setting is restored after."""
     flag = torch.backends.cudnn.benchmark
-    t = {"default": cuda_time_ms(call)}
+    t = {"default": device_ms(call)}
     try:
         torch.backends.cudnn.benchmark = True
-        t["benchmark"] = cuda_time_ms(call)
+        t["benchmark"] = device_ms(call)
         if call_nhwc is not None:
-            t["benchmark channels_last"] = cuda_time_ms(call_nhwc)
+            t["benchmark channels_last"] = device_ms(call_nhwc)
     finally:
         torch.backends.cudnn.benchmark = flag
     t["best"] = min(t.values())

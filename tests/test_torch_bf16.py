@@ -31,6 +31,7 @@ import torch
 import savgol_tpu_torch as sgt
 from savgol_tpu_torch import scipy_compat as tsc
 from savgol_tpu_torch.ops import cuda_conv as cc
+from savgol_tpu_torch.ops import cuda_conv2d as c2
 from savgol_tpu_torch.ops.cuda_conv import bf16_ulp_gate
 from savgol_tpu_torch.ops.weights import savgol_weights_np
 from savgol_tpu_torch.parallel.launch import (Full, Pool, Sharded,
@@ -345,6 +346,59 @@ def test_apply2d_sharded_matches_jax_bf16(jx, pool, jax_mesh):
         assert err <= 2e-6 * max(1.0, np.abs(want).max()), (boundary, err)
 
 
+# -- the tensor-core tile's band (csrc/sg1d_bf16.cuh) -------------------------
+
+BAND_WINDOWS = [3, 25, 65, 101, 129]
+
+
+@pytest.mark.parametrize("ws", BAND_WINDOWS)
+def test_1d_band_is_jax_valid_band_cut(jx, ws):
+    """The bf16 1D tile's band is ``row_bands`` of a 1 x ws stencil: the
+    first S rows and 16 columns of the JAX package's VALID band stack
+    (``_valid_band_matrices``), S the tile's band depth."""
+    from savgol_tpu.ops import pallas_conv as pc
+    _, jnp = jx
+    w = _data((ws,), 90 + ws)
+    S = c2.band_depth(ws)
+    want = np.asarray(pc._valid_band_matrices(jnp.asarray(w)))[:S, :16]
+    got = c2.row_bands(torch.from_numpy(w)[None], S)[0]
+    assert S % 16 == 0 and 15 + ws <= S < 31 + ws
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _band_product_1d(xv: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``sum_k w[k] * xv[..., j + k]`` for every full window of ``xv`` as the
+    tensor-core tile forms it: each block of 16 outputs at c is
+    ``xv[..., c : c + S] @ B``, B the band of the taps, xv zero past its
+    end; float32 sums."""
+    ws = w.shape[0]
+    S = c2.band_depth(ws)
+    band = c2.row_bands(w[None], S)[0]
+    n_out = xv.shape[-1] - ws + 1
+    nb = -(-n_out // 16)
+    xp = torch.nn.functional.pad(xv, (0, 16 * (nb - 1) + S - xv.shape[-1]))
+    y = xp.unfold(-1, S, 16) @ band                    # (..., nb, 16)
+    return y.reshape(*xv.shape[:-1], nb * 16)[..., :n_out]
+
+
+@pytest.mark.parametrize("ws", BAND_WINDOWS)
+def test_1d_band_product_matches_bf16_plain(ws):
+    """The band products give the bf16 plain versions: the VALID
+    correlation, and the same-length apply in each pad mode (the row
+    extended as the tile stages it), within one bf16 ulp."""
+    from savgol_tpu_torch.ops.cuda_conv import _bf16_operand, bf16_taps
+    n = (ws - 1) // 2
+    x = torch.from_numpy(_data((3, 3 * ws + 37), 91 + ws))
+    w = torch.from_numpy(_data((ws,), 92 + ws))
+    xb, wb = _bf16_operand(x), bf16_taps(w)
+    got = _band_product_1d(xb, wb).to(torch.bfloat16).float()
+    _within_ulp(got, cc.correlate_valid_bf16_plain(x, w))
+    for mode in ("symmetric", "wrap", "edge"):
+        got = _band_product_1d(cc.pad_last(xb, n, mode), wb)
+        _within_ulp(got.to(torch.bfloat16).float(),
+                    cc.savgol_padded_bf16_plain(x, w, mode, n))
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -444,6 +498,68 @@ def test_cuda_bf16_nonfinite_pattern_matches_plain(cuda, storage, n):
               cc.correlate_valid_bf16_plain(x, cw))]
     pairs += [(cc.savgol_padded_bf16_cuda(x, cw, mode, n, dt),
                cc.savgol_padded_bf16_plain(x, cw, mode, n, dt))
+              for mode in ("symmetric", "wrap", "edge")]
+    for got, want in pairs:
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(f(got), f(want)), f.__name__
+        fin = torch.isfinite(want)
+        assert not bool(fin.all())
+        _within_ulp(got[fin].cpu(), want[fin].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 12, 32, 64])
+@pytest.mark.parametrize("N_kind", ["ws", "ws+1", 8195])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_cuda_bf16_tile_matches_plain_at_any_alignment(cuda, storage, n,
+                                                       N_kind, offset):
+    """The tensor-core tile (K1-bf16 with both edge signs, K2-bf16 in each
+    pad mode) against the plain versions, one bf16 ulp, on rows that start
+    ``offset`` samples past a 16-byte boundary (a view into a larger
+    buffer), N = ws, ws + 1 and 8k + 3 (a ragged second tile)."""
+    ws = 2 * n + 1
+    N = {"ws": ws, "ws+1": ws + 1}.get(N_kind, N_kind)
+    c, e = tsc._compat_weights_np(n, min(4, 2 * n), 2)
+    cw = torch.from_numpy(c).to(cuda, torch.float32)
+    ew = torch.from_numpy(e).to(cuda, torch.float32)
+    base = torch.from_numpy(_data((3 * N + 8,), 7 * n + N)).to(cuda, storage)
+    x = base[offset:offset + 3 * N].view(3, N)
+    assert x.is_contiguous() and x.data_ptr() % 16 == offset * x.element_size()
+    dt = torch.tensor(16.0, device=cuda)
+    for sign in (1.0, -1.0):
+        _within_ulp(cc.savgol_polynomial_bf16_cuda(x, cw, ew, n, dt,
+                                                   sign).cpu(),
+                    cc.savgol_polynomial_bf16_plain(x, cw, ew, n, dt,
+                                                    sign).cpu())
+    for mode in ("symmetric", "wrap", "edge"):
+        _within_ulp(cc.savgol_padded_bf16_cuda(x, cw, mode, n, dt).cpu(),
+                    cc.savgol_padded_bf16_plain(x, cw, mode, n, dt).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 12, 32, 64])
+def test_cuda_bf16_tile_nonfinite_pattern_matches_plain(cuda, storage, n):
+    """K1-bf16 and K2-bf16 with NaN, +inf and -inf on both sides of the
+    tensor-core tiles' 8192-output boundary (bf16 storage shifts it by up
+    to 7 samples), at the row's ends and +inf with -inf in one window: the
+    plain versions' non-finite outputs, the finite ones within one bf16
+    ulp."""
+    x = torch.from_numpy(_data((6, 8195), 40 + n)).to(cuda)
+    for row, (j, v) in enumerate(((8185, "nan"), (8191, "inf"),
+                                  (8194, "-inf"), (0, "inf"),
+                                  (4000, "nan"))):
+        x[row, j] = float(v)
+    x[5, 5000], x[5, 5002] = float("inf"), float("-inf")
+    x = x.to(storage)
+    c, e = tsc._compat_weights_np(n, min(4, 2 * n), 0)
+    cw = torch.from_numpy(c).to(cuda, torch.float32)
+    ew = torch.from_numpy(e).to(cuda, torch.float32)
+    pairs = [(cc.savgol_polynomial_bf16_cuda(x, cw, ew, n),
+              cc.savgol_polynomial_bf16_plain(x, cw, ew, n))]
+    pairs += [(cc.savgol_padded_bf16_cuda(x, cw, mode, n),
+               cc.savgol_padded_bf16_plain(x, cw, mode, n))
               for mode in ("symmetric", "wrap", "edge")]
     for got, want in pairs:
         for f in (torch.isnan, torch.isposinf, torch.isneginf):

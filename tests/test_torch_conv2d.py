@@ -259,6 +259,26 @@ def test_cuda_kernels_match_plain(cuda, H, W, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,W,rank,dtype,want", [
+    (11, 11, 2, torch.float32, "sweep 11x11"),
+    (11, 11, 6, torch.float32, "sweep 11x11"),
+    (21, 21, 3, torch.float32, "sweep 21x21"),
+    (33, 33, 4, torch.float32, "sweep 33x33"),
+    (33, 33, 6, torch.float32, "sweep 33x33"),
+    (33, 33, 13, torch.float32, "tile"), (17, 25, 3, torch.float32, "sweep"),
+    (13, 13, 2, torch.float32, "sweep"),
+    (11, 11, 2, torch.float64, "sweep 11x11"),
+    (33, 33, 4, torch.float64, "sweep 33x33"),
+    (33, 33, 7, torch.float64, "tile")])
+def test_sep_instance_follows_the_sweep_rule(cuda, H, W, rank, dtype, want):
+    """K2D-sep's instance, as the kernel library decides it: the sweep
+    while its ring fits in the 227 KB a block may hold, at compile-time
+    widths for the square windows 11 and 19-33 and at runtime widths
+    otherwise, else the tiles."""
+    assert c2.sep_instance(H, W, rank, dtype) == want
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 40, 50, device=cuda)
     w = torch.ones(5, 5, device=cuda)
@@ -321,3 +341,83 @@ def test_cuda_nonfinite_pattern_matches_plain(cuda, H, W, dtype):
         got, want = _same_nonfinite(c2.correlate2d_sep_cuda(x, u, v, mode),
                                     c2.correlate2d_sep_plain(x, u, v, mode))
         _assert_close(got.cpu(), want.cpu(), tol)
+
+
+# K2D-sep's sweep windows: the compile-time square widths (every one that
+# method="auto" sends past 17, and 11), then windows of the runtime-width
+# instance: square widths without one, rectangles both ways (17 x 25 is one
+# "auto" sends), single rows and columns
+_SWEEP_WINDOWS = [(h, h) for h in (11, 19, 21, 23, 25, 27, 29, 31, 33)] + [
+    (13, 13), (15, 15), (17, 17), (17, 25), (25, 17), (5, 5), (3, 33),
+    (1, 11), (11, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("H,W", _SWEEP_WINDOWS)
+def test_cuda_sep_sweep_matches_plain(cuda, H, W, rank, dtype):
+    """K2D-sep's sweep at every width its compile-time instances take (and
+    that ``method="auto"`` sends past 17) and at runtime widths, ranks 1-4
+    and 6, random factors, every boundary, on images whose last strip and
+    band are ragged: within 1e-5 scaled (f32) and 1e-12 (f64) of the plain
+    version, one launch each."""
+    assert c2.sep_instance(H, W, rank, dtype).startswith("sweep")
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    tol = 1e-5 if dtype == torch.float32 else F64_TOL
+    x = torch.from_numpy(_data((2, 300, 131), seed=H * W * rank,
+                               dtype=npdt)).to(cuda)
+    u = torch.from_numpy(_data((rank, H), H + rank, npdt)).to(cuda)
+    v = torch.from_numpy(_data((rank, W), 2 * W + rank, npdt)).to(cuda)
+    for mode in (None, *MODES):
+        before = c2.LAUNCHES["corr2d_sep"]
+        got = c2.correlate2d_sep_cuda(x, u, v, mode)
+        assert c2.LAUNCHES["corr2d_sep"] == before + 1
+        _assert_close(got.cpu(), c2.correlate2d_sep_plain(
+            x, u, v, mode).cpu(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("H,W,rank", [(11, 11, 2), (21, 21, 3), (33, 33, 4),
+                                      (11, 11, 6), (17, 25, 3), (13, 13, 3)])
+def test_cuda_sep_sweep_nonfinite_pattern_matches_plain(cuda, H, W, rank,
+                                                        dtype):
+    """K2D-sep's sweep on an image holding NaN, +inf and -inf on the
+    boundaries of its chunks (32 rows), bands (256 rows) and strips (64
+    columns), at an edge and +inf with -inf in one window: the plain
+    version's non-finite outputs, the finite ones within its gate."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    x = torch.from_numpy(_data((2, 300, 150), seed=H + rank, dtype=npdt)).to(
+        cuda)
+    for b, r, c, v in ((0, 31, 63, "nan"), (0, 32, 64, "inf"),
+                       (0, 255, 100, "-inf"), (1, 256, 127, "nan"),
+                       (1, 0, 149, "inf"), (1, 150, 40, "inf"),
+                       (1, 150, 42, "-inf")):
+        x[b, r, c] = float(v)
+    u = torch.from_numpy(_data((rank, H), H, npdt)).to(cuda)
+    v = torch.from_numpy(_data((rank, W), W + 1, npdt)).to(cuda)
+    tol = 1e-5 if dtype == torch.float32 else F64_TOL
+    for mode in (None, *MODES):
+        got, want = _same_nonfinite(c2.correlate2d_sep_cuda(x, u, v, mode),
+                                    c2.correlate2d_sep_plain(x, u, v, mode))
+        _assert_close(got.cpu(), want.cpu(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rank", [(torch.float32, 13),
+                                        (torch.float64, 7)])
+def test_cuda_sep_tile_matches_plain(cuda, dtype, rank):
+    """K2D-sep's tile instance, which takes the rings past 227 KB (33 x 33
+    at rank 13 in f32, 7 in f64), on a ragged image in every boundary:
+    within 1e-5 scaled (f32) and 1e-12 (f64) of the plain version."""
+    assert c2.sep_instance(33, 33, rank, dtype) == "tile"
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    tol = 1e-5 if dtype == torch.float32 else F64_TOL
+    x = torch.from_numpy(_data((2, 150, 131), seed=rank, dtype=npdt)).to(
+        cuda)
+    u = torch.from_numpy(_data((rank, 33), 33 + rank, npdt)).to(cuda)
+    v = torch.from_numpy(_data((rank, 33), 66 + rank, npdt)).to(cuda)
+    for mode in (None, *MODES):
+        _assert_close(c2.correlate2d_sep_cuda(x, u, v, mode).cpu(),
+                      c2.correlate2d_sep_plain(x, u, v, mode).cpu(), tol)

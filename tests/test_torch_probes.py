@@ -191,13 +191,19 @@ def test_cuda_p2_matches_plain(cuda, variant, dtype, pad_mode):
 def test_variants_apply_to_this_checkout(kernel, tmp_path):
     """probes/variants.py writes the as-is source of this checkout's kernel
     and each design alternative whose lines it still finds as an edited
-    copy beside the headers; the rest it reports as stale, not built."""
+    copy beside the headers (an alternative may edit a header); the rest it
+    reports as stale, not built."""
     fname, by_name = variants.VARIANTS[kernel]
     paths, stale = variants.sources(kernel, tmp_path)
     assert sorted([*paths, *stale]) == sorted(by_name)
     assert "as_is" in paths
-    as_is = paths["as_is"].read_text()
-    assert as_is == (variants._CSRC / fname).read_text()
+    assert paths["as_is"].read_text() == (variants._CSRC / fname).read_text()
+
+    def texts(d):
+        return {f.name: f.read_text() for f in sorted(d.iterdir())}
+    as_is = texts(paths["as_is"].parent)
+    assert all(text == (variants._CSRC / f).read_text()
+               for f, text in as_is.items())
     for name, path in paths.items():
-        assert (path.read_text() == as_is) == (name == "as_is")
+        assert (texts(path.parent) == as_is) == (name == "as_is")
         assert (path.parent / "plane_chol.cuh").exists()
