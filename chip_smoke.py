@@ -48,10 +48,11 @@ four ways against the single-device apply and float64, and
 ``apply2d_sharded`` on the 2D headline by rows and by 2 x 2 tiles, each
 call's launches counted on every rank; float64 gradients through K13; and
 timings by rank; the same four ranks with ``method="bf16"``.
-Then ``method="bf16"``: K1, K2, K3 and K2D-dense in their bf16 mode (in 2D
-on the tensor cores, ``csrc/corr2d_bf16_mma.cu``) against
-their bf16 plain versions over grids of windows (to 129 taps in 1D, 33 x 33
-in 2D), batches, lengths, boundaries, stacks and f32 / bf16 storage (one
+Then ``method="bf16"``: K1, K2, K3 and K2D-dense in their bf16 mode (on
+the tensor cores: ``csrc/sg1d_bf16.cuh`` in 1D, ``csrc/corr2d_bf16_mma.cu``
+in 2D) against their bf16 plain versions over grids of windows (to 129 taps
+in 1D, K3 also at one tap and even windows; 33 x 33 in 2D), batches,
+lengths, boundaries, stacks and f32 / bf16 storage (one
 bf16 ulp; 2D f32 sums 2e-6 scaled, 1e-5 at random stencils); every stencil
 kernel (K1-K3 and their bf16 modes, K2D-dense with one stencil and three,
 K7, K2D-dense's bf16 mode) on input holding NaN, +inf and -inf, whose
@@ -84,6 +85,7 @@ Exits nonzero without a CUDA device. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -1180,22 +1182,32 @@ def k11_grid(sgt, dev) -> str:
             f"and 7; launches {dict(c11.LAUNCHES)}")
 
 
+# K12's grid: m = 4 and 7 (compile-time) and 9 (runtime m); batches of one,
+# three, eight and seventeen rows (a thread takes two rows at compile-time m
+# and four past it) with the share of holes in the fitted data
+K12_MS = (4, 7, 9)
+K12_BATCHES = ((1, 0.2), (3, 0.5), (8, 0.2), (17, 0.5))
+
+
 def k12_grid(dev) -> str:
     """K12 against its plain version on K11p's planes over sorted,
     shuffled, sparse, extrapolating and dense queries (Nq < N and > N),
-    every derivative d = 0..m (K = 1 at d = m), one and three rows, and the
-    x and t dtypes."""
+    every derivative d = 0..m (K = 1 at d = m) at m = 4 and 7 (compile-time
+    instances) and 9 (the runtime one), 1, 3, 8 and 17 rows (3 and 17: a
+    partial group of the kernel's rows), and the x and t dtypes."""
     from savgol_tpu_torch.ops import cuda_nonuniform as c11
     from savgol_tpu_torch.ops import cuda_resample as c12
     rng = np.random.default_rng(12)
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     cases = 0
-    n, m, N = 6, 4, 5000
+    n, N = 6, 5000
     c12.reset_launches()
-    for xd, td in ((torch.float32, torch.float32),
-                   (torch.float32, torch.float64),
-                   (torch.float64, torch.float64)):
-        for B, frac in ((1, 0.2), (3, 0.5)):
+    for xd, td, m in itertools.product(
+            (torch.float32, torch.float64), (torch.float32, torch.float64),
+            K12_MS):
+        if (xd, td) == (torch.float64, torch.float32):
+            continue
+        for B, frac in K12_BATCHES:
             t_np = np.cumsum(rng.uniform(0.5, 1.5, N))
             t = torch.from_numpy(t_np).to(dev, td)
             valid = torch.from_numpy(rng.random((B, N)) >= frac).to(dev)
@@ -1221,7 +1233,7 @@ def k12_grid(dev) -> str:
                     want = c12.resample_eval_plain(planes, t, ctr, tq, **kw)
                     tol = NONUNI_F32_TOL if xd == torch.float32 else \
                         NONUNI_F64_TOL
-                    what = f"K12 {qname} B={B} d={d} x {xd} t {td}"
+                    what = f"K12 {qname} m={m} B={B} d={d} x {xd} t {td}"
                     require(torch.equal(got == -3.0, want == -3.0),
                             f"{what}: fill pattern")
                     e, _ = masked_err(got, want, tol,
@@ -1232,7 +1244,8 @@ def k12_grid(dev) -> str:
     torch.cuda.synchronize()
     require(c12.LAUNCHES["resample"] == cases,
             f"K12 grid launched {c12.LAUNCHES}, expected {cases}")
-    return (f"K12 grid: {cases} cases vs plain, worst scaled error "
+    return (f"K12 grid: {cases} cases (m = {K12_MS}, B = "
+            f"{[b for b, _ in K12_BATCHES]}) vs plain, worst scaled error "
             f"f32={worst[torch.float32]:.3e} f64={worst[torch.float64]:.3e} "
             f"(tol {NONUNI_F32_TOL}, {NONUNI_F64_TOL}), fill pattern "
             f"identical; launches {dict(c12.LAUNCHES)}")
@@ -2423,6 +2436,8 @@ BF16_CONTRACT = 5e-3
 BF16_HALVES = (1, 12, 32, 50, 64)        # windows 3, 25, 65, 101, 129
 BF16_BATCHES = (1, 16, 24, 128)
 BF16_STORAGE = (torch.float32, torch.bfloat16)
+# K3-bf16 windows past K1's odd ones >= 3: one tap, even windows
+K3_BF16_WINDOWS = (1, 2, 4, 24, 128)
 
 
 def ulp_check(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -2450,7 +2465,9 @@ def bf16_grid_1d(dev) -> str:
     ws / ws + 1 / 4099 / 262,147, f32 and bf16 storage, derivatives 0-2
     (dt_inv 100^d folded into the taps), both edge signs; the first
     derivative on rows that start 1-7 samples past a 16-byte boundary (a
-    view into a larger buffer)."""
+    view into a larger buffer); then K3-bf16 at one tap and even windows
+    (``K3_BF16_WINDOWS``), B 1 / 3 / 130 / 16 and N from ws to 3 x 8192 +
+    5, rows aligned and misaligned."""
     from savgol_tpu_torch import scipy_compat as tsc
     from savgol_tpu_torch.ops import cuda_conv as cc
     rng = np.random.default_rng(11)
@@ -2496,12 +2513,34 @@ def bf16_grid_1d(dev) -> str:
                                       f"K3-bf16 {where}")
                         worst["corr1d_valid"] = max(worst["corr1d_valid"], e)
                         cases += 6
+    # K3-bf16 at the windows only the VALID correlation brings to the
+    # tensor-core tile (one tap: a band of one chunk; even windows), with
+    # output rows of any alignment and rows 0 or 1-7 samples past a 16-byte
+    # boundary
+    k3 = 0
+    for storage in BF16_STORAGE:
+        for ws in K3_BF16_WINDOWS:
+            w = torch.from_numpy(rng.standard_normal(
+                ws, dtype=np.float32)).to(dev)
+            for B, N in ((1, ws), (3, ws + 7), (130, 8195 + ws),
+                         (16, 3 * 8192 + 5)):
+                x0 = torch.from_numpy(rng.standard_normal(
+                    B * N + 8, dtype=np.float32)).to(dev, storage)
+                for off in (0, 1 + (B + N) % 7):
+                    x = x0[off:off + B * N].view(B, N)
+                    e = ulp_check(cc.correlate_valid_bf16_cuda(x, w),
+                                  cc.correlate_valid_bf16_plain(x, w),
+                                  f"K3-bf16 ws={ws} B={B} N={N} {storage} "
+                                  f"offset {off}")
+                    worst["corr1d_valid"] = max(worst["corr1d_valid"], e)
+                    k3 += 1
     torch.cuda.synchronize()
     launches = dict(cc.LAUNCHES)
     require(all(v > 0 for v in launches.values()),
             f"bf16 1D grid did not reach every kernel: {launches}")
     return (f"bf16 1D grid: {cases} cases (windows 3/25/65/101/129, f32 "
-            f"and bf16 storage, misaligned rows), each within one bf16 ulp "
+            f"and bf16 storage, misaligned rows) and {k3} K3-bf16 cases "
+            f"(windows {K3_BF16_WINDOWS}), each within one bf16 ulp "
             f"of its plain version; "
             f"max abs error " + ", ".join(f"{k} {v:.3e}"
                                           for k, v in worst.items())
@@ -2593,6 +2632,34 @@ def nonfinite_image(gen, dev, dtype) -> torch.Tensor:
     return x
 
 
+def k3_bf16_window_tiles(x: torch.Tensor, ws: int) -> tuple[int, int]:
+    """(tiles of K3-bf16 on ``x`` (B, N) that stage an inf or a NaN and so
+    compute every output from its window on the CUDA cores, those of them
+    whose stored outputs read no such sample): the tiles of
+    ``csrc/corr1d_valid.cu`` (8192 outputs from t0, staged to t0 + 8192 + 16
+    KC - 16 with KC = (ws + 30) // 16; bf16 storage shifts a row's tiles by
+    the row's misalignment in samples, ``sg1d_bf16.cuh`` first_output)."""
+    tile, B, N = 8192, x.shape[0], x.shape[-1]
+    n_out, staged = N - ws + 1, 8192 + 16 * ((ws + 30) // 16) - 16
+    shifted = x.dtype == torch.bfloat16
+    bad = ~torch.isfinite(x.to(torch.bfloat16)).cpu()
+    flagged = stray = 0
+    for b in range(B):
+        where = torch.nonzero(bad[b]).flatten().tolist()
+        if not where:
+            continue
+        e = (x[b].data_ptr() // 2) % 8 if shifted else 0
+        for t in range(-(-(n_out + 7 * shifted) // tile)):
+            t0 = t * tile - e
+            if t0 >= n_out:
+                continue
+            lo, hi = max(t0, 0), min(t0 + tile, n_out)
+            if any(t0 <= j < t0 + staged for j in where):
+                flagged += 1
+                stray += not any(lo <= j < hi + ws - 1 for j in where)
+    return flagged, stray
+
+
 def nonfinite_grid(dev) -> str:
     """Every stencil kernel on input holding NaN, +inf and -inf against its
     plain version: the NaN, +inf and -inf outputs exactly where the plain
@@ -2654,6 +2721,25 @@ def nonfinite_grid(dev) -> str:
                       cc.savgol_padded_bf16_plain(xs, cw, mode, n, dt), "ulp")
             check("K3-bf16", where, cc.correlate_valid_bf16_cuda(xs, cw),
                   cc.correlate_valid_bf16_plain(xs, cw), "ulp")
+    # K3-bf16 on rows of three tiles whose NaN / inf samples sit just past a
+    # tile's last window (staged by that tile, read by none of its stored
+    # outputs) or inside: how often a tile takes window_tile for a sample it
+    # only stages
+    tiles = [0, 0]
+    xl = torch.randn(3, 3 * 8192 + 5, generator=gen, device=dev)
+    for storage in BF16_STORAGE:
+        for ws in (7, 24, 25):
+            xs = xl.clone()
+            xs[0, 8192 + ws], xs[1, 2 * 8192 + ws] = float("nan"), float("inf")
+            xs[2, 5000] = float("-inf")
+            xs = xs.to(storage)
+            w = torch.from_numpy(np.random.default_rng(ws).standard_normal(
+                ws, dtype=np.float32)).to(dev)
+            check("K3-bf16", f"ws={ws} {storage} past a tile's windows",
+                  cc.correlate_valid_bf16_cuda(xs, w),
+                  cc.correlate_valid_bf16_plain(xs, w), "ulp")
+            for i, v in enumerate(k3_bf16_window_tiles(xs, ws)):
+                tiles[i] += v
 
     modes = {"valid": None, **{b: PAD_MODES[b] for b in
                                ("constant", "reflect", "periodic")}}
@@ -2701,7 +2787,10 @@ def nonfinite_grid(dev) -> str:
     return (f"non-finite grid: NaN / +inf / -inf patterns equal to the plain "
             f"versions' in " + ", ".join(f"{k} {v}" for k, v in
                                           cases.items())
-            + " cases; finite outputs within each kernel's gate")
+            + " cases; finite outputs within each kernel's gate; K3-bf16 on "
+            f"rows of three tiles: {tiles[0]} tiles through window_tile, "
+            f"{tiles[1]} of them for a sample none of their stored outputs "
+            f"reads")
 
 
 def _contract(got, ref, what) -> float:
@@ -2770,6 +2859,9 @@ def bf16_slice_1d(sgt, dev, card) -> list:
            for m in ("symmetric", "wrap", "edge")},
         "K3-bf16": (lambda: cc.correlate_valid_bf16_cuda(xb, w),
                     lambda: cc.correlate_valid_bf16_plain(xb, w)),
+        "K3-bf16 f32 storage": (
+            lambda: cc.correlate_valid_bf16_cuda(x32, w),
+            lambda: cc.correlate_valid_bf16_plain(x32, w)),
     }
     kerr = {k: ulp_check(a(), b(), f"{k} vs plain at the headline")
             for k, (a, b) in kern.items()}
@@ -2824,6 +2916,8 @@ def bf16_slice_1d(sgt, dev, card) -> list:
     b_f32 = bound(8 * samples, 2 * 25 * samples, "bf16")
     b3 = bound(2 * samples + 2 * B_FULL * (N_FULL - 24),
                2 * 25 * B_FULL * (N_FULL - 24), "bf16")
+    b3f = bound(4 * samples + 4 * B_FULL * (N_FULL - 24),
+                2 * 25 * B_FULL * (N_FULL - 24), "bf16")
     print(f"bf16 1D slice ({B_FULL}, {N_FULL}) n=12 m=4: launches "
           + ", ".join(f"{k} {nz(v)}" for k, v in launches.items())
           + "; vs f64 scaled " + ", ".join(f"{k} {v:.3e}"
@@ -2836,7 +2930,8 @@ def bf16_slice_1d(sgt, dev, card) -> list:
         f"{k} {v:.4f} ms" for k, v in lib.items())
           + " (channels_last: a (1, 25) F.conv2d); bounds bf16 storage "
           f"{b_bf['bound_ms']:.4f} ms ({b_bf['bound_by']}), f32 storage "
-          f"{b_f32['bound_ms']:.4f} ms, K3-bf16 {b3['bound_ms']:.4f} ms; "
+          f"{b_f32['bound_ms']:.4f} ms, K3-bf16 {b3['bound_ms']:.4f} ms "
+          f"(f32 storage {b3f['bound_ms']:.4f}); "
           f"nn.Conv1d on bf16 circular {lib_pad['wrap']:.4f} ms, replicate "
           f"{lib_pad['edge']:.4f} ms [{card}]")
     for name, (k, p) in t.items():
@@ -2871,7 +2966,9 @@ def bf16_slice_1d(sgt, dev, card) -> list:
          "launches": launches["apply_valid bf16"]["corr1d_valid"],
          "max_abs_err": kerr["K3-bf16"], "ms": t["K3-bf16"][0],
          "plain_ms": t["K3-bf16"][1], **b3, "library_ms": lib["best"],
-         "library_default_ms": lib["default"]},
+         "library_default_ms": lib["default"],
+         "f32_storage_ms": t["K3-bf16 f32 storage"][0],
+         "f32_storage_bound_ms": b3f["bound_ms"]},
     ]
 
 

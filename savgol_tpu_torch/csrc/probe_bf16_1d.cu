@@ -1,8 +1,9 @@
-// P3: attribution probes of the bf16 VALID 1D correlation (K3 with
-// sgt::Bf16, corr1d_valid.cu), on bf16 storage at K3's tiles
-// (stencil_tile.cuh: a block of kThreads threads, kTile outputs, kQ a
-// thread). Each removes one cost term of K3-bf16, so the difference of their
-// times attributes K3-bf16's time:
+// P3: attribution probes of the bf16 VALID 1D correlation on the CUDA-core
+// tile (K3's exact tile with sgt::Bf16 staging, which K3-bf16 ran on before
+// it moved to the tensor-core tile of sg1d_bf16.cuh), on bf16 storage at
+// K3's tiles (stencil_tile.cuh: a block of kThreads threads, kTile outputs,
+// kQ a thread). Each removes one cost term of that tile, so the difference
+// of their times attributes its time:
 //
 //   copy       stage a tile and write it back: out[j] = x[j], 0 <= j < N.
 //              Device-memory bytes alone at these tiles (2 B in, 2 B out).

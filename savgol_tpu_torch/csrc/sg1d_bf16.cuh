@@ -1,7 +1,8 @@
-// The 1D stencil tile of the bf16 mode on the tensor cores (sg1d_poly.cu's
-// sg1d_poly_bf16 / sg1d_pad_bf16; written so that the VALID correlation
-// can take it: stage from any in0, zero or mapped pad, then the band
-// products and the stores).
+// The 1D stencil tile of the bf16 mode on the tensor cores: K1-bf16 and
+// K2-bf16 (sg1d_poly.cu's sg1d_poly_bf16 / sg1d_pad_bf16, staged from
+// in0 = t0 - n) and K3-bf16 (corr1d_valid.cu's corr1d_valid_bf16, staged
+// from in0 = t0 with zeros past N). Each kernel stages from its in0, runs
+// the band products and stores its outputs with the pieces below.
 //
 // A block computes kTile = 8192 consecutive outputs of one row,
 //
@@ -115,8 +116,9 @@ template <int KC> struct AsyncSmem {
 
 // The first output of tile t of a row: t kTile - delta, delta in [0, 8)
 // putting the tile's first staged sample, t0 - n, on a 16-byte boundary of
-// the row's bf16 storage, as cp.async needs. A row has
-// ceil((N + 7) / kTile) tiles.
+// the row's bf16 storage, as cp.async needs (n = 0 for the VALID
+// correlation, whose tile stages from t0). A row has
+// ceil((N + 7) / kTile) tiles (N its outputs).
 __device__ __forceinline__ long long first_output(const bf16* xrow, int n,
                                                   long long t) {
   const int e = static_cast<int>((reinterpret_cast<uintptr_t>(xrow) >> 1) & 7);
@@ -149,6 +151,25 @@ __device__ __forceinline__ void start_copies(const bf16* __restrict__ xrow,
         sgmma::pack_bf16(f[4], f[5]), sgmma::pack_bf16(f[6], f[7]));
   }
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The blocks of a kernel that walks over `total` tiles: as many as the
+// card holds at once with `smem` bytes of dynamic shared memory (raised to
+// that size first), at most one a tile.
+template <typename Kernel>
+inline cudaError_t resident_blocks(Kernel kernel, int smem, long long total,
+                                   long long* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  *blocks = min(total, static_cast<long long>(max(sms * per_sm, 1)));
+  return err;
 }
 
 // Waits for this thread's copies of all but the latest tile started and
@@ -225,8 +246,9 @@ __device__ __forceinline__ void mma_tile(const bf16* __restrict__ xs,
 
 // The tile's outputs on the CUDA cores, each from its own window in the
 // plain version's order (a tile holding an inf or a NaN). Out of line, so
-// that the tensor-core path's registers do not see it.
-__device__ __noinline__ void window_tile(const bf16* __restrict__ xs,
+// that the tensor-core path's registers do not see it; static, so that each
+// source that includes this header has its own copy.
+static __device__ __noinline__ void window_tile(const bf16* __restrict__ xs,
                                          const float* __restrict__ w, int ws,
                                          bf16* __restrict__ ys) {
   for (int i = threadIdx.x; i < kTile; i += kThreads) {

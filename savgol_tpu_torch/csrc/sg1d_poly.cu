@@ -55,8 +55,8 @@ namespace {
 
 // mode: sgt::kZero for K1 (edge outputs fitted from ew), a pad mode for K2
 // (ew unused). MaxWs: the widest window of the instance (stencil_tile.cuh).
-// IO: sgt::AsStored (In = T: f32 or f64) or sgt::Bf16 (In f32 or bf16
-// storage, T = float: method="bf16").
+// IO: sgt::AsStored (In = T: f32 or f64); method="bf16" runs
+// sg1d_bf16_kernel below.
 template <typename IO, typename In, typename T, int MaxWs>
 __global__ void __launch_bounds__(sgt::kThreads, sgt::kMinBlocks)
 sg1d_poly_kernel(const In* __restrict__ x, const T* __restrict__ w,
@@ -229,20 +229,11 @@ cudaError_t run_bf16_async(const __nv_bfloat16* x, const float* w,
                            cudaStream_t stream) {
   const auto kernel = sg1d_bf16_async_kernel<KC>;
   const int smem = static_cast<int>(sizeof(sg1b::AsyncSmem<KC>));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, sg1b::kThreads, smem);
-  if (err != cudaSuccess) return err;
   const long long tiles = (N + 7 + sg1b::kTile - 1) / sg1b::kTile;
   const long long total = B * tiles;
-  const long long blocks =
-      min(total, static_cast<long long>(max(sms * per_sm, 1)));
+  long long blocks = 0;
+  const cudaError_t err = sg1b::resident_blocks(kernel, smem, total, &blocks);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(static_cast<unsigned>(blocks)), sg1b::kThreads, smem,
            stream>>>(x, w, ew, out, N, tiles, total, n, lead_sign, mode);
   return cudaGetLastError();

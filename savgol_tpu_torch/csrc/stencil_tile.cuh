@@ -25,9 +25,11 @@
 // or 4 bytes a sample) and stages it as f32, so the tap loops are the
 // exact f32 ones; its taps are bf16 values held in f32, so every product
 // is exact in f32. It reads and writes the caller's storage, f32 or bf16,
-// so no cast pass runs before or after. K3-bf16 (corr1d_valid.cu) runs
-// this way; K1-bf16 and K2-bf16 run their own tile on the tensor cores,
-// staged by 16-byte loads (sg1d_bf16.cuh).
+// so no cast pass runs before or after. The probes of the bf16 1D tile
+// (probe_bf16_1d.cu) stage this way; the bf16 modes of K1, K2 and K3 run
+// their own tile on the tensor cores, staged by 16-byte loads
+// (sg1d_bf16.cuh), and K2D-dense's stages its edge groups through
+// Bf16::load (corr2d_bf16_mma.cu).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,14 +1,16 @@
-"""P3: attribution of the bf16 VALID 1D correlation (kernel K3 in its bf16
-mode), the counterpart of ``benchmarks/probe_bf16_1d.py``.
+"""P3: attribution of the bf16 VALID 1D correlation on the CUDA-core tile
+(K3's exact tile with bf16 staging, which kernel K3 ran in its bf16 mode
+before that mode moved to the tensor-core tile of ``csrc/sg1d_bf16.cuh``),
+the counterpart of ``benchmarks/probe_bf16_1d.py``.
 
 Three bf16-in / bf16-out kernels at K3's tiles (``csrc/probe_bf16_1d.cu``),
-each removing one cost term of K3-bf16:
+each removing one cost term of that tile:
 
   * ``copy``: stage a tile, write it back (``out = x``): the device-memory
     bytes alone at these tiles;
   * ``shift_only``: stage a tile and its halo, write ``out[j] = x[j + n]``
     over the VALID length (n = ws // 2): staging and stores, no FMAs;
-  * ``taps_only``: K3-bf16's tap loop with the halo not loaded; its slots
+  * ``taps_only``: the CUDA-core tap loop with the halo not loaded; its slots
     hold the tile's own first samples, so
     ``out[j] = sum_k w[k] * x[t0 + ((j - t0 + k) mod T)]`` for the tile of
     width T = :data:`TILE` that starts at t0 (samples past N are zero). The

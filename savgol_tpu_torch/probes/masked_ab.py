@@ -27,14 +27,19 @@ CUDA-event medians in ms (L2 flushed) of
   every checkout since the masked path was ported);
 - K11 at the nonuniform path's (8, 131,072), n = 12, m = 4, f32 and f64,
   its planes mode K11p, and the entry points ``savgol_apply_nonuniform``
-  and ``savgol_resample`` there.
+  and ``savgol_resample`` there;
+- K12 (``csrc/resample.cu``) alone at the resample row, on K11p's planes of
+  those 8 rows and the path's 131,072 centres: m = 4 (the path), m = 7 and
+  m = 9 (past the compile-time m) in f32, and m = 4 in f64, on
+  ``utils.timing.device_ms`` (device time), and ``savgol_resample`` again
+  on that timer.
 
 ``--k8a`` times K8a through its wrapper alone on the 2D path's planes, 31
 reps, and the host time of a call (``utils.timing.host_ms``): the quick
 A/B of the wrapper's own work, run many times in alternating order.
 
-Beside the checksums, a digest of each K8b and K11 output's bytes shows
-whether two checkouts give the same bits.
+Beside the checksums, a digest of each K8b, K11 and K12 output's bytes
+shows whether two checkouts give the same bits.
 
 It uses only the wrappers' public signatures, which every checkout since the
 masked path was ported shares.
@@ -101,7 +106,8 @@ def main() -> int:
     from savgol_tpu_torch.ops import cuda_solve as cs
     from savgol_tpu_torch.ops import lsq
     from savgol_tpu_torch.ops import masked as mk
-    from savgol_tpu_torch.utils.timing import cuda_time_ms, host_ms
+    from savgol_tpu_torch.ops import cuda_resample as c12
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, device_ms, host_ms
 
     if not torch.cuda.is_available():
         raise SystemExit("masked_ab needs a CUDA device")
@@ -254,7 +260,27 @@ def main() -> int:
     ms["savgol_resample"] = cuda_time_ms(
         lambda: sgt.savgol_resample(xn, t1, tq1, half_window=12,
                                     poly_order=4, fill=0.0))
+    ms["savgol_resample device"] = device_ms(
+        lambda: sgt.savgol_resample(xn, t1, tq1, half_window=12,
+                                    poly_order=4, fill=0.0))
     del yp
+    # K12 alone on the resample row's planes and centres
+    ctr = torch.clamp(torch.searchsorted(t1, tq1) - 12, 0,
+                      t1.numel() - 25) + 12
+    for m, dt in ((4, torch.float32), (7, torch.float32), (9, torch.float32),
+                  (4, torch.float64)):
+        x_, t_, q_ = xn.to(dt), t1.to(dt), tq1.to(dt)
+        pk = c11.savgol_nonuniform_planes_cuda(
+            x_, torch.ones_like(x_), t_, half_window=12, poly_order=m,
+            kmin=m + 1, rcond=1e-6 if dt == torch.float32 else 1e-12)
+        ke = dict(poly_order=m, derivative=0, fill=0.0)
+        tag = f"K12 m={m}" + (" f64" if dt == torch.float64 else "")
+        y = c12.resample_eval_cuda(pk, t_, ctr, q_, **ke)
+        sums[tag] = y.double().sum().item()
+        digest(tag, y)
+        ms[tag] = device_ms(lambda: c12.resample_eval_cuda(pk, t_, ctr, q_,
+                                                           **ke))
+        del pk, y
 
     # -- K9 and K10 alone at the headline shapes --
     xh, vh = holed((128, 1_048_576))

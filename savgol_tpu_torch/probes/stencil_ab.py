@@ -26,11 +26,14 @@ medians in ms (L2 flushed) of
   and with the factors ``Savgol2D.apply(method="auto")`` takes for 21 x 21
   order 4 (rank 3), 33 x 33 order 6 (rank 4) and the rectangle 17 x 25
   order 4 (rank 3), which are wider than the dense kernel's widths;
-- the bf16 1D tile (``sg1d_poly_bf16`` / ``sg1d_pad_bf16`` in
-  ``csrc/sg1d_poly.cu``) at the 1D headline, (128, 1,048,576), n = 12,
-  m = 4: K1-bf16 in bf16 and f32 storage, K2-bf16 in each pad mode (bf16
-  storage, and wrap in f32 storage), and K3-bf16 (``csrc/corr1d_valid.cu``)
-  beside them as a control.
+- the bf16 1D tile (``csrc/sg1d_bf16.cuh``) at the 1D headline, (128,
+  1,048,576), n = 12, m = 4: K1-bf16 (``sg1d_poly_bf16`` in
+  ``csrc/sg1d_poly.cu``) in bf16 and f32 storage, K2-bf16
+  (``sg1d_pad_bf16``) in each pad mode (bf16 storage, and wrap in f32
+  storage), and K3-bf16 (``corr1d_valid_bf16`` in ``csrc/corr1d_valid.cu``,
+  25 taps) in bf16 and f32 storage, and its entry point
+  ``Savgol1D.apply_valid(method="bf16")`` on the bf16 batch, in device
+  time and with the host's work (``utils.timing.cuda_time_ms``).
 
 It uses only the wrappers' public signatures, which every checkout since
 the bf16 mode was ported shares, and times every checkout with this
@@ -103,7 +106,7 @@ def main() -> int:
         warmup=2, reps=7)
     xs = x.reshape(-1)[:4_194_304].clone()
     run("K4 sweep 4M", lambda: cb.correlate_valid_bank_cuda(xs, center, 32))
-    # -- the bf16 1D kernels at the 1D headline (K3-bf16 the control) --
+    # -- the bf16 1D kernels at the 1D headline --
     xb = x.to(torch.bfloat16)
     cw, ew = (torch.from_numpy(a).to(dev, torch.float32)
               for a in _compat_weights_np(12, 4, 0))
@@ -112,6 +115,10 @@ def main() -> int:
         run(f"K1-bf16 {tag}", lambda: cc.savgol_polynomial_bf16_cuda(
             xx, cw, ew, 12, one, 1.0))
         run(f"K3-bf16 {tag}", lambda: cc.correlate_valid_bf16_cuda(xx, cw))
+    f = sgt.Savgol1D.create(sgt.SavgolConfig(12, 4), device=dev)
+    run("apply_valid bf16", lambda: f.apply_valid(xb, method="bf16"))
+    ms["apply_valid bf16 with host"] = timing.cuda_time_ms(
+        lambda: f.apply_valid(xb, method="bf16"))
     for mode in ("symmetric", "wrap", "edge"):
         run(f"K2-bf16 {mode} bf16", lambda: cc.savgol_padded_bf16_cuda(
             xb, cw, mode, 12, one))

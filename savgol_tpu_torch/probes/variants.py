@@ -1,8 +1,8 @@
-"""Times design alternatives of seven kernels against the kernels as they
+"""Times design alternatives of eight kernels against the kernels as they
 stand, in turns, in one process on the card:
 
     python -m savgol_tpu_torch.probes.variants [dense] [bf16] [k8a] [k11]
-        [k8b] [sg1d] [sep] [census] [--root DIR] [--only NAME ...]
+        [k8b] [sg1d] [sep] [k12] [census] [--root DIR] [--only NAME ...]
         [--dry-run]
 
 Each alternative is this checkout's source with a few lines replaced
@@ -23,12 +23,17 @@ tiles; K7 (``csrc/corr2d_sep.cu``) with every window on its
 runtime-width sweep (no compile-time widths) or on its 64 x 64 tiles,
 with rings past 113 KB on the tiles, with the runtime-width passes
 unrolled less, without its L1 prefetch, with an L2 one, other register
-caps and shorter bands. Attribution edits sit beside
+caps and shorter bands; K12 (``csrc/resample.cu``) with one, four or
+eight rows a thread in its compile-time-m form and two in its runtime
+one, blocks of 128 queries and no register cap. Attribution
+edits sit beside
 them: K11's moment pass alone (the solve replaced by c = r) and its solve
 alone (moments set from the centre sample, no tap loop), K8b's solve alone
 (Gram and rhs made in registers, no plane loads), the bf16 1D tile with
 its band products replaced by a copy (``stage_store``) or its device
-loads by constants (``no_loads``), and K7 with its column pass cut to one
+loads by constants (``no_loads``), K12 with its plane loads replaced by
+values made from the centre (``no_loads``) or every thread returning at
+once (``empty``: the launch alone), and K7 with its column pass cut to one
 tap (``row_only``), its row pass to one group of four (``col_only``) or
 both (``stage_store``): their outputs differ from the kernel's by design,
 so no checksum holds them. Each is built with ``nvcc -shared -Xptxas -v``
@@ -47,7 +52,9 @@ K8a on the masked 2D slice's planes (1024^2; 11 x 11 order 3, k = 10;
 12, m = 4, f32 and f64, K8b on the qr route's planes (8 x 131,072
 positions, k = 5, f32 and f64 pairs), and the bf16 1D tile at the 1D
 headline (128, 1,048,576), n = 12 (K1-bf16 both storages, K2-bf16
-symmetric in bf16 and wrap in f32 storage). An alternative whose lines
+symmetric in bf16 and wrap in f32 storage), and K12 at the resample row
+(8 x 131,072 planes, 131,072 queries; m = 4, 7 and 9, B = 1, 8 and 17,
+f32 and f64). An alternative whose lines
 the source no longer has is reported as stale and not built.
 
 ``census`` builds every source of the checkout to a cubin with ``-Xptxas
@@ -254,11 +261,31 @@ VARIANTS = {
         "col_only": [_SEP_ROW_FOUR_TAPS],
         "stage_store": [_SEP_COL_ONE_TAP, _SEP_ROW_FOUR_TAPS],
     }),
+    # K12: rows a thread in the compile-time m form (1, 4, 8) and in the
+    # runtime one (2), blocks of 128 queries, no register cap below 255
+    # (one block an SM asked for); attribution: the plane loads replaced by
+    # values made from the centre (no_loads), every thread returning at
+    # once (empty: the launch and the grid alone)
+    "k12": ("resample.cu", {
+        "as_is": [],
+        "fixed_rows_1": [("kFixedRows = 2;", "kFixedRows = 1;")],
+        "fixed_rows_4": [("kFixedRows = 2;", "kFixedRows = 4;")],
+        "fixed_rows_8": [("kFixedRows = 2;", "kFixedRows = 8;")],
+        "runtime_rows_2": [("kRuntimeRows = 4;", "kRuntimeRows = 2;")],
+        "block_128": [("constexpr int kBlock = 256;",
+                       "constexpr int kBlock = 128;")],
+        "bounds_1": [("__launch_bounds__(kBlock)",
+                      "__launch_bounds__(kBlock, 1)")],
+        "no_loads": [("        p[r][k] = b0 + r < B && k >= d ? at[k * ps] "
+                      ": T(0);",
+                      "        p[r][k] = T(k + 1) + T(c & 7);")],
+        "empty": [("  if (q >= Nq) return;", "  if (q >= 0) return;")],
+    }),
 }
 
 # variants whose outputs differ from the kernel's by design
 ATTRIBUTION = {"moments_only", "solve_only", "no_loads", "stage_store",
-               "row_only", "col_only"}
+               "row_only", "col_only", "empty"}
 
 
 def _edited(texts: dict, fname: str, edits) -> dict | None:
@@ -653,6 +680,43 @@ def main() -> int:
                     keep[0][5])
             checked(kernel + " k=8", same,
                     cases["K8b f32 pairs k=8 8x131072"], keep[2][5])
+        elif kernel == "k12":
+            # the resample row: (8, 131,072) planes, 131,072 sorted queries
+            # over the span of t, centres clamped to full windows of 25
+            # (chip_smoke.py's nonuniform slice); random coefficients, s in
+            # [4, 5), ok everywhere but a fifth
+            N = 131_072
+            t1 = torch.cumsum(torch.rand(N, generator=gen, device=dev)
+                              + 0.5, 0)
+            tq1 = torch.linspace(t1[0].item(), t1[-1].item(), N, device=dev)
+            ctr = torch.clamp(torch.searchsorted(t1, tq1) - 12, 0,
+                              N - 25) + 12
+            cases, keep = {}, {}
+            for m, B, dt in ((4, 8, torch.float32), (4, 17, torch.float32),
+                             (4, 1, torch.float32), (7, 8, torch.float32),
+                             (7, 1, torch.float32), (9, 8, torch.float32),
+                             (9, 1, torch.float32), (4, 8, torch.float64),
+                             (4, 1, torch.float64)):
+                pl = torch.randn(m + 3, B, N, generator=gen, device=dev,
+                                 dtype=dt)
+                pl[m + 1] = pl[m + 1].abs() + 4
+                pl[m + 2] = (pl[m + 2] > -0.8).to(dt)
+                tt, tq = (v.to(dt) for v in (t1, tq1))
+                o = torch.empty(B, N, device=dev, dtype=dt)
+                tag = "f32" if dt == torch.float32 else "f64"
+                name = f"K12 {tag} m={m} B={B}"
+                keep[name] = (pl, tt, tq, o)
+                cases[name] = (
+                    lambda a=keep[name], tag=tag, m=m, B=B: lambda L: getattr(
+                        L, f"resample_{tag}_t{tag[1:]}")(
+                        a[0].data_ptr(), a[1].data_ptr(), ctr.data_ptr(),
+                        a[2].data_ptr(), a[3].data_ptr(), B, N, N, m, 0,
+                        0.0, stream()))()
+            same = {n: v for n, v in libs.items() if n not in ATTRIBUTION}
+            for name in ("K12 f32 m=4 B=8", "K12 f32 m=9 B=8",
+                         "K12 f64 m=4 B=8"):
+                checked(f"{kernel} {name}", same, cases[name],
+                        keep[name][3])
         else:
             rng = np.random.default_rng(1003)
             im = torch.from_numpy(rng.standard_normal((1024, 1024)).astype(

@@ -349,9 +349,12 @@ def test_apply2d_sharded_matches_jax_bf16(jx, pool, jax_mesh):
 # -- the tensor-core tile's band (csrc/sg1d_bf16.cuh) -------------------------
 
 BAND_WINDOWS = [3, 25, 65, 101, 129]
+# windows K3-bf16 takes on the tile and K1's odd ones >= 3 never reach: one
+# tap (one chunk), and even windows
+VALID_BAND_WINDOWS = [1, 2, 4, 24, 128]
 
 
-@pytest.mark.parametrize("ws", BAND_WINDOWS)
+@pytest.mark.parametrize("ws", BAND_WINDOWS + [1, 2, 24])
 def test_1d_band_is_jax_valid_band_cut(jx, ws):
     """The bf16 1D tile's band is ``row_bands`` of a 1 x ws stencil: the
     first S rows and 16 columns of the JAX package's VALID band stack
@@ -397,6 +400,22 @@ def test_1d_band_product_matches_bf16_plain(ws):
         got = _band_product_1d(cc.pad_last(xb, n, mode), wb)
         _within_ulp(got.to(torch.bfloat16).float(),
                     cc.savgol_padded_bf16_plain(x, w, mode, n))
+
+
+@pytest.mark.parametrize("ws", VALID_BAND_WINDOWS)
+def test_1d_valid_band_product_matches_bf16_plain(ws):
+    """K3-bf16's band products (the tile staged from t0, zeros past N) give
+    the VALID bf16 plain version within one bf16 ulp at one tap, at even
+    windows and at 128, on rows of ws to ws + 40 samples (partial and
+    single 16-output blocks)."""
+    from savgol_tpu_torch.ops.cuda_conv import _bf16_operand, bf16_taps
+    w = torch.from_numpy(_data((ws,), 93 + ws))
+    wb = bf16_taps(w)
+    for N in (ws, ws + 1, ws + 15, ws + 16, 3 * ws + 40):
+        x = torch.from_numpy(_data((3, N), 94 + ws + N))
+        got = _band_product_1d(_bf16_operand(x), wb)
+        _within_ulp(got.to(torch.bfloat16).float(),
+                    cc.correlate_valid_bf16_plain(x, w))
 
 
 # -- on the card ----------------------------------------------------------------
@@ -567,3 +586,68 @@ def test_cuda_bf16_tile_nonfinite_pattern_matches_plain(cuda, storage, n):
         fin = torch.isfinite(want)
         assert not bool(fin.all())
         _within_ulp(got[fin].cpu(), want[fin].cpu())
+
+
+# K3-bf16 on the tensor-core tile: every band depth KC = 1-9, even windows,
+# lengths around the 8192-output tiles
+K3_WINDOWS = [1, 2, 3, 24, 25, 65, 128, 129]
+
+
+def _k3_lengths(ws):
+    return (ws, ws + 1, ws + 7, 8195 + ws, 3 * 8192 + 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ws", K3_WINDOWS)
+def test_cuda_k3_bf16_tile_matches_plain(cuda, storage, ws):
+    """K3-bf16 against ``correlate_valid_bf16_plain``, one bf16 ulp, one
+    launch a call: N = ws, ws + 1, ws + 7, 8195 + ws and 3 x 8192 + 5, B =
+    1, 3 and 130 (output rows of n_out samples, whose starts fall anywhere
+    within a 16-byte unit), rows that start 0 or 3 samples past a 16-byte
+    boundary (a view into a larger buffer)."""
+    w = torch.from_numpy(_data((ws,), 300 + ws)).to(cuda)
+    for N in _k3_lengths(ws):
+        for B in (1, 3, 130):
+            base = torch.from_numpy(_data((B * N + 8,), ws + N + B)).to(
+                cuda, storage)
+            for offset in (0, 3):
+                x = base[offset:offset + B * N].view(B, N)
+                cc.reset_launches()
+                got = cc.correlate_valid_bf16_cuda(x, w)
+                torch.cuda.synchronize()
+                assert cc.LAUNCHES == {k: int(k == "corr1d_valid")
+                                       for k in cc.LAUNCHES}
+                assert got.dtype == storage
+                assert got.shape == (B, N - ws + 1)
+                _within_ulp(got.cpu(),
+                            cc.correlate_valid_bf16_plain(x, w).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ws", [1, 2, 24, 25, 129])
+def test_cuda_k3_bf16_nonfinite_pattern_matches_plain(cuda, storage, ws):
+    """K3-bf16 with NaN, +inf and -inf on both sides of the 8192-output
+    tile boundary, just past a tile's last window (staged by the tile, read
+    by none of its outputs), at the row's ends and +inf with -inf in one
+    window, rows 3 samples past a 16-byte boundary: the plain version's
+    non-finite outputs, the finite ones within one bf16 ulp."""
+    N = 3 * 8192 + 5
+    x = torch.from_numpy(_data((7, N), 60 + ws)).to(cuda)
+    for row, (j, v) in enumerate(((8185, "nan"), (8191, "inf"),
+                                  (8192 + ws, "-inf"), (0, "inf"),
+                                  (N - 1, "nan"), (16384 + 3, 3.4e38))):
+        x[row, j] = float(v)
+    x[6, 5000], x[6, 5002] = float("inf"), float("-inf")
+    base = torch.empty(7 * N + 8, device=cuda, dtype=storage)
+    xs = base[3:3 + 7 * N].view(7, N)
+    xs.copy_(x)
+    w = torch.from_numpy(_data((ws,), 70 + ws)).to(cuda)
+    got = cc.correlate_valid_bf16_cuda(xs, w)
+    want = cc.correlate_valid_bf16_plain(xs, w)
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(want)), f.__name__
+    fin = torch.isfinite(want)
+    assert not bool(fin.all())
+    _within_ulp(got[fin].cpu(), want[fin].cpu())

@@ -285,6 +285,16 @@ def test_direct_solves_through_the_k8b_wrapper(monkeypatch):
 # -- K12 and the auto route on the card -----------------------------------------
 
 
+def _random_planes(rng, m, B, n_data, dtype, dev):
+    """An (m+3, B, N) plane stack: standard normal coefficients, s in
+    [4, 8] (the offsets of queries inside the data are then a few s), ok
+    0 for a fifth of the positions."""
+    c = rng.standard_normal((m + 1, B, n_data))
+    s = rng.uniform(4.0, 8.0, (1, B, n_data))
+    ok = (rng.random((1, B, n_data)) >= 0.2).astype(np.float64)
+    return torch.from_numpy(np.concatenate([c, s, ok])).to(dev, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("queries", ["sorted", "shuffled", "sparse",
                                      "dense"])
@@ -305,6 +315,7 @@ def test_cuda_k12_matches_plain(cuda, queries, dtype):
                                          kmin=m + 1, rcond=1e-6)
     ins = torch.searchsorted(dev[2], dev[3])
     ctr = torch.clamp(ins - n, 0, n_data - 2 * n - 1) + n
+    tol = 1e-5 if dtype == np.float32 else 1e-12
     for d in range(m + 1):
         kw = dict(poly_order=m, derivative=d, fill=0.0)
         c12.reset_launches()
@@ -312,8 +323,38 @@ def test_cuda_k12_matches_plain(cuda, queries, dtype):
         assert c12.LAUNCHES["resample"] == 1
         want = c12.resample_eval_plain(planes, dev[2], ctr, dev[3], **kw)
         torch.cuda.synchronize()
-        _compare(got.cpu().numpy(), want.cpu().numpy(),
-                 1e-5 if dtype == np.float32 else 1e-12)
+        _compare(got.cpu().numpy(), want.cpu().numpy(), tol)
+    # row groups (B = 17 leaves a partial one), every compile-time m the
+    # kernel has a case for up to 7 and the runtime form past it, every d,
+    # one and seven queries, centres outside [0, N) (NaN) and the fill
+    # pattern. Not bit-equal at any m: the kernel's Horner steps are fused
+    # multiply-adds and it divides by s d times, where the plain version
+    # rounds each product and divides once by s**d; hence the f32 / f64
+    # gates above, scaled by max(1, max|want|).
+    for B2 in (1, 3, 8, 17):
+        for m2 in (0, 4, 7, 8, 12):
+            pl = _random_planes(rng, m2, B2, n_data, dev[2].dtype, cuda)
+            for nq2 in (1, 7, nq[queries]):
+                tq2 = dev[3][:nq2]
+                ctr2 = torch.clamp(torch.searchsorted(dev[2], tq2) - n, 0,
+                                   n_data - 2 * n - 1) + n
+                out_of_range = ctr2.clone()
+                if nq2 > 1:
+                    out_of_range[1], out_of_range[-1] = -1, n_data
+                bad = out_of_range != ctr2
+                for d in range(m2 + 1):
+                    kw = dict(poly_order=m2, derivative=d, fill=-3.0)
+                    c12.reset_launches()
+                    got = c12.resample_eval_cuda(pl, dev[2], out_of_range,
+                                                 tq2, **kw)
+                    assert c12.LAUNCHES["resample"] == 1
+                    want = c12.resample_eval_plain(pl, dev[2], ctr2, tq2,
+                                                   **kw)
+                    assert got.shape == (B2, nq2)
+                    assert bool(got[:, bad].isnan().all())
+                    g, w = got[:, ~bad], want[:, ~bad]
+                    assert torch.equal(g == -3.0, w == -3.0)
+                    _compare(g.cpu().numpy(), w.cpu().numpy(), tol)
 
 
 @pytest.mark.cuda
