@@ -1979,6 +1979,81 @@ def bank_slice(sgt, dev, card) -> list:
 
 # -- 25. the 1D tile kernels at window 101 -----------------------------------
 
+# the exact 1D tile (csrc/sg1d_exact.cuh): windows of both instances (101
+# compile-time, the rest the runtime-width loop), K1 and K2 at the odd ones
+# of 3 taps or more
+EXACT_WINDOWS = (1, 2, 3, 25, 65, 101, 128, 129)
+
+
+def exact_grid(dev) -> str:
+    """K1, K2 (each pad mode) and K3 on the exact tile against their plain
+    versions over its windows (compile-time and runtime widths), outputs
+    ending around its tile boundaries (every residue mod 4), the shortest
+    rows (N = ws), row offsets 0-3 (rows whose first sample is 0-3 elements
+    past a 16-byte boundary) and B in {1, 3, 130} (f64: 1, 3), one launch a
+    call; K3 bit for bit against P1 (f32) on the same rows."""
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.probes import dma1d
+
+    rng = np.random.default_rng(25)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    cases = p1_equal = 0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        # outputs a tile: 256 threads of 12 (f64 10) (sg1d_exact.cuh)
+        tile = 256 * (12 if dtype == torch.float32 else 10)
+        for ws in EXACT_WINDOWS:
+            n = ws // 2
+            w = torch.from_numpy(rng.standard_normal(ws)).to(dev, dtype)
+            ew = torch.from_numpy(rng.standard_normal((n, ws))).to(dev, dtype)
+            odd = ws % 2 == 1 and ws >= 3
+            for N in (ws, ws + 1, tile + ws - 2, tile + ws + 1,
+                      2 * tile + ws - 1, 2 * tile + ws):
+                batches = (1, 3, 130) if dtype == torch.float32 else (1, 3)
+                for B in batches if N < 4 * tile else (1, 3):
+                    flat = torch.from_numpy(rng.standard_normal(
+                        B * N + 3)).to(dev, dtype)
+                    for base in range(4):
+                        x = flat[base:base + B * N].view(B, N)
+                        runs = [("K3", "corr1d_valid",
+                                 lambda: cc.correlate_valid_cuda(x, w),
+                                 lambda: cc.correlate_valid_plain(x, w))]
+                        if odd:
+                            runs.append(("K1", "sg1d_poly",
+                                         lambda: cc.savgol_polynomial_cuda(
+                                             x, w, ew, n, 1.0, -1.0),
+                                         lambda: cc.savgol_polynomial_plain(
+                                             x, w, ew, n, 1.0, -1.0)))
+                            runs += [(f"K2 {m}", "sg1d_pad",
+                                      lambda m=m: cc.savgol_padded_cuda(
+                                          x, w, m, n),
+                                      lambda m=m: cc.savgol_padded_plain(
+                                          x, w, m, n))
+                                     for m in ("edge", "symmetric", "wrap")]
+                        for name, key, kernel, plain in runs:
+                            got, _ = counted_all(kernel, {key: 1},
+                                                 f"{name} ws={ws} N={N}")
+                            e, sc = max_err(got, plain())
+                            require(e <= tol * sc, f"{name} ws={ws} B={B} "
+                                    f"N={N} offset {base} {dtype}: {e:.3e}")
+                            worst[dtype] = max(worst[dtype], e / sc)
+                            cases += 1
+                            if name == "K3" and dtype == torch.float32:
+                                p1 = dma1d.corr1d_dma_cuda(
+                                    x, w, rows=1, cols=1024,
+                                    n_out=N - ws + 1)
+                                require(torch.equal(got, p1),
+                                        f"K3 ws={ws} B={B} N={N} offset "
+                                        f"{base}: not bit-equal to P1")
+                                p1_equal += 1
+    torch.cuda.synchronize()
+    return (f"exact tile grid: {cases} cases (K1, K2 x 3 modes, K3; ws "
+            f"{EXACT_WINDOWS}; N = ws, ws + 1 and outputs ending around the "
+            f"1st and 2nd tile boundaries; row offsets 0-3; B 1/3/130), "
+            f"worst scaled error f32={worst[torch.float32]:.3e} "
+            f"f64={worst[torch.float64]:.3e} (tol {F32_TOL}, {F64_TOL}), one "
+            f"launch each; K3 bit-equal to P1 in {p1_equal} f32 cases")
+
+
 WIDE_N = 50    # window 101: past SavgolConfig's 65, inside K1-K3's 129 taps
 SCIPY_MODES = ("interp", "mirror", "nearest", "wrap", "constant")
 
@@ -2032,18 +2107,41 @@ def wide_window(dev, card) -> dict:
          for name, (kernel, plain) in routes.items()}
     t["K1 ws=25"] = (device_ms(
         lambda: cc.savgol_polynomial_cuda(x, c25, e25, 12)), float("nan"))
+    # yardstick: one cuDNN correlation of the same rows at 101 taps, TF32
+    # off (timed here only; the port never calls it)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    x3, w3 = x.view(B_FULL, 1, N_FULL), cw.view(1, 1, -1)
+    lib101 = device_ms(lambda: torch.nn.functional.conv1d(x3, w3))
+    torch.backends.cudnn.allow_tf32 = tf32
+    # f64: the same kernels at 101 taps (FP64 operations bound them)
+    xd, cwd, ewd = x.double(), cw.double(), ew.double()
+    del x
+    t64 = {"K1 f64": device_ms(lambda: cc.savgol_polynomial_cuda(
+               xd, cwd, ewd, n)),
+           "K3 f64": device_ms(lambda: cc.correlate_valid_cuda(xd, cwd))}
+    del xd
     samples = B_FULL * N_FULL
     b101 = bound(8 * samples, 2 * ws * samples)
+    b25 = bound(8 * samples, 2 * 25 * samples)
+    b101_64 = bound(16 * samples, 2 * ws * samples, "f64")
     print(f"window {ws}: K1 / K2 / K3 vs plain at ({B_FULL}, {N_FULL}) "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (tol {F32_TOL} scaled); scipy_compat numpy in all five modes "
           f"vs scipy {sp_err:.3e} (gate {GATE_ABS}), one launch each; bound "
-          f"at ws={ws} {b101['bound_ms']:.4f} ms ({b101['bound_by']})")
+          f"at ws={ws} {b101['bound_ms']:.4f} ms ({b101['bound_by']}); "
+          f"F.conv1d (TF32 off) at ws={ws} {lib101:.4f} ms [{card}]")
     for name, (k, p) in t.items():
-        where = "" if "25" in name else f" ws={ws}"
+        where, b = ("", b25) if "25" in name else (f" ws={ws}", b101)
         print(f"time {name}{where} ({B_FULL}, {N_FULL}) f32: kernel {k:.4f} "
-              f"ms, plain {p:.4f} ms [{card}]")
-    return {"errs": errs, "t": t, "bound": b101}
+              f"ms, plain {p:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}) [{card}]")
+    for name, k in t64.items():
+        print(f"time {name} ws={ws} ({B_FULL}, {N_FULL}): kernel {k:.4f} ms, "
+              f"bound {b101_64['bound_ms']:.4f} ms ({b101_64['bound_by']}) "
+              f"[{card}]")
+    return {"errs": errs, "t": t, "bound": b101, "library_ms": lib101,
+            "t64": t64, "bound64": b101_64}
 
 
 # -- 26-29. the sharded paths: a ring of ranks sharing the card --------------
@@ -3285,11 +3383,15 @@ def p1_grid(dev) -> str:
     rng = np.random.default_rng(36)
     cases = [(B, N, ws, cols, 8) for B, N, ws, cols in P1_JAX_GEOMS]
     cases += [(12, 4096 + r, ws, cols, 4) for r in range(4)
-              for ws in (3, 25, 65) for cols in (1024, 2048)]
+              for ws in (3, 25, 65, 101) for cols in (1024, 2048)]
     worst, count = 0.0, 0
-    for B, N, ws, cols, rows in cases:
-        x = torch.from_numpy(rng.standard_normal((B, N))).to(dev,
-                                                             torch.float32)
+    for i, (B, N, ws, cols, rows) in enumerate(cases):
+        # every fourth case on rows whose first sample is 1-3 elements past
+        # a 16-byte boundary
+        base = i % 4
+        flat = torch.from_numpy(rng.standard_normal(B * N + 3)).to(
+            dev, torch.float32)
+        x = flat[base:base + B * N].view(B, N)
         w = torch.from_numpy(rng.standard_normal(ws)).to(dev, torch.float32)
         for short in (0, 333):
             n_out = N - ws + 1 - short
@@ -3308,7 +3410,8 @@ def p1_grid(dev) -> str:
             worst = max(worst, e / sc)
             count += 1
     return (f"P1 grid: {count} cases (the JAX probe's 4 geometries; ws 3, 25, "
-            f"65 x N mod 4 = 0..3 x cols 1024, 2048; n_out full and -333), "
+            f"65, 101 x N mod 4 = 0..3 x cols 1024, 2048; n_out full and "
+            f"-333; row offsets 0-3), "
             f"worst scaled error vs plain {worst:.3e} (tol {F32_TOL}), all "
             f"bit-equal to K3, 1 launch each")
 
@@ -3667,6 +3770,12 @@ def main() -> int:
     p = device_ms(lambda: cc.correlate_valid_plain(x, w), warmup=1,
                      reps=5)
     timings[("K3", B_FULL)] = (k, p)
+    # f64 at 25 taps (16 B a sample: bytes bound it)
+    xd, wd, ewd = x.double(), w.double(), ew.double()
+    t64 = {"K1 f64": device_ms(lambda: cc.savgol_polynomial_cuda(
+               xd, wd, ewd, 12)),
+           "K3 f64": device_ms(lambda: cc.correlate_valid_cuda(xd, wd))}
+    del xd
     # yardstick: one cuDNN correlation of the same rows, TF32 off (timed
     # here only; the port never calls it)
     tf32 = torch.backends.cudnn.allow_tf32
@@ -3687,11 +3796,16 @@ def main() -> int:
     timings[("Savgol1D.apply", B_FULL)] = (k, p)
     for (name, B), (k, p) in timings.items():
         samples = B * N_FULL
+        b = b3 if name == "K3" else bound(8 * samples, 2 * 25 * samples)
         print(f"time {name} ({B}, {N_FULL}) f32 n=12: kernel {k:.4f} ms = "
               f"{samples / k / 1e6:.2f} Gsamples/s, "
               f"{8 * samples / k / 1e6:.1f} GB/s effective; plain "
-              f"{p:.4f} ms = {samples / p / 1e6:.2f} Gsamples/s "
-              f"[{card}]")
+              f"{p:.4f} ms = {samples / p / 1e6:.2f} Gsamples/s; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
+    b64 = bound(16 * B_FULL * N_FULL, 2 * 25 * B_FULL * N_FULL, "f64")
+    for name, k in t64.items():
+        print(f"time {name} ({B_FULL}, {N_FULL}) n=12: kernel {k:.4f} ms; "
+              f"bound {b64['bound_ms']:.4f} ms ({b64['bound_by']}) [{card}]")
 
     del x
 
@@ -3918,8 +4032,10 @@ def main() -> int:
     t_bank_slice = time.perf_counter()
     bank_kernels = bank_slice(sgt, dev, card)
 
-    # -- 25. the 1D tile kernels at window 101 ------------------------------
+    # -- 25. the exact 1D tile's grid; the 1D tile kernels at window 101 ----
     t_wide = time.perf_counter()
+    print(exact_grid(dev))
+    t_wide101 = time.perf_counter()
     wide = wide_window(dev, card)
     # -- 26-29. the sharded paths on a ring of ranks sharing the card -------
     t_ring = time.perf_counter()
@@ -3949,7 +4065,8 @@ def main() -> int:
           f"{t_bank - t_slice:.1f}), padded/bank phases 21-24 "
           f"{t_wide - t_bank:.1f} s (K2 grid {t_k4 - t_bank:.1f}, K4 grid "
           f"{t_bank_slice - t_k4:.1f}, slice {t_wide - t_bank_slice:.1f}), "
-          f"window-101 phase 25 {t_ring - t_wide:.1f} s, sharded phases "
+          f"exact tile and window-101 phase 25 {t_ring - t_wide:.1f} s "
+          f"(grid {t_wide101 - t_wide:.1f}), sharded phases "
           f"26-29 {t_bf16 - t_ring:.1f} s, bf16 phases 30-34 "
           f"{t_probes - t_bf16:.1f} s (grids {t_bf16_slice - t_bf16:.1f}), "
           f"probes phase 35 {t_p1 - t_probes:.1f} s, P1 phases 36-37 "
@@ -3962,14 +4079,16 @@ def main() -> int:
          "replaces": "savgol_tpu/ops/pallas_conv.py:564",
          "launches": launches["sg1d_poly"], "max_abs_err": k1_err,
          "ms": timings[("K1", B_FULL)][0],
-         "plain_ms": timings[("K1", B_FULL)][1], **b1, "library_ms": None},
+         "plain_ms": timings[("K1", B_FULL)][1], **b1, "library_ms": None,
+         "f64_ms": t64["K1 f64"], "f64_bound_ms": b64["bound_ms"]},
         {"name": "corr1d_valid", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr1d_valid.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1049",
          "launches": launches["corr1d_valid"], "max_abs_err": k3_err,
          "ms": timings[("K3", B_FULL)][0],
          "plain_ms": timings[("K3", B_FULL)][1], **b3,
-         "library_ms": lib_k3},
+         "library_ms": lib_k3, "f64_ms": t64["K3 f64"],
+         "f64_bound_ms": b64["bound_ms"]},
         {"name": "corr2d_valid", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr2d_valid.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1501",
@@ -3997,6 +4116,12 @@ def main() -> int:
                        ws101_plain_ms=wide["t"][key][1],
                        ws101_max_abs_err=wide["errs"][key],
                        ws101_bound_ms=wide["bound"]["bound_ms"])
+            f64_key = {"K1": "K1 f64", "K3": "K3 f64"}.get(key)
+            if f64_key:
+                rec.update(ws101_f64_ms=wide["t64"][f64_key],
+                           ws101_f64_bound_ms=wide["bound64"]["bound_ms"])
+            if key == "K3":
+                rec["ws101_library_ms"] = wide["library_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

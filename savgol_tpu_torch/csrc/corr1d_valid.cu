@@ -7,11 +7,16 @@
 // split it by batch width because of its matrix unit. Thin batches need no
 // row folding here: a row of 1M samples is already ~1024 blocks.
 //
-// Bound: device-memory bytes, as for K1 (sg1d_poly.cu): 4 B read and 4 B
-// written per f32 sample for ws FMAs, a derived ceiling of ~419 Gsamples/s
-// from the H100 SXM data sheet's 3.35 TB/s (not a measurement). The design
-// reads x once per tile of 1024 outputs plus a halo of about ws samples and
-// writes each output once (stencil_tile.cuh).
+// Bound: device-memory bytes at 25 taps, as for K1 (sg1d_poly.cu): 4 B read
+// and 4 B written per f32 sample for ws FMAs, a derived ceiling of ~419
+// Gsamples/s from the H100 SXM data sheet's 3.35 TB/s (not a measurement);
+// the FMAs at 67 TFLOP/s past about 60 taps. The exact instances run K1's
+// tile (sg1d_exact.cuh) staged from in0 = t0 with zeros past N: a block
+// walks over tiles of 3072 outputs with the next tiles' samples in flight
+// (one bulk copy on an mbarrier an interior tile, 16-byte cp.async for a
+// row's end tiles), the taps slide over a register window of 12 outputs
+// a thread, and each warp stores its outputs, cut to [0, n_out), as whole
+// 16-byte units through a shared slot of its own.
 //
 // method="bf16" (corr1d_valid_bf16, corr1d_bf16_kernel below) replaces
 // _corr1d_mxu_call [:1098] on bf16 operands at single-pass precision
@@ -25,47 +30,29 @@
 // bf16 storage each block walking over tiles with the next one's cp.async
 // copies in flight. A window of one tap runs on a band of one chunk.
 #include "sg1d_bf16.cuh"
+#include "sg1d_exact.cuh"
 #include "stencil_tile.cuh"
 
 namespace {
 
-// MaxWs: the widest window of the instance (stencil_tile.cuh). IO:
-// sgt::AsStored (In = T, f32 or f64).
-template <typename IO, typename In, typename T, int MaxWs>
-__global__ void __launch_bounds__(sgt::kThreads, sgt::kMinBlocks)
-corr1d_valid_kernel(const In* __restrict__ x, const T* __restrict__ w,
-                    In* __restrict__ out, long long N, long long n_out,
-                    long long tiles, int ws) {
-  __shared__ sgt::TileSmem<T, MaxWs> s;
-  const long long b = blockIdx.x / tiles;
-  const long long t0 = (blockIdx.x % tiles) * sgt::kTile;
-  const In* __restrict__ xrow = x + b * N;   // 64-bit: B * N passes 2^31
-  In* __restrict__ orow = out + b * n_out;
-
-  sgt::tile_correlate<IO>(xrow, N, t0, w, ws, s);
-
-  for (int i = threadIdx.x; i < sgt::kTile; i += sgt::kThreads) {
-    const long long j = t0 + i;
-    if (j >= n_out) break;
-    IO::put(&orow[j], s.xs[i]);
-  }
+// K3 on the exact tile (sg1d_exact.cuh), f32 or f64: WS a compile-time
+// window, or 0 for any window of 1 to kMaxWs taps; K1's instances, 101
+// and 0 (sg1d_poly.cu).
+template <typename T, int WS>
+__global__ void __launch_bounds__(sgx::kThreads, sgx::kBlocks<T>)
+corr1d_valid_kernel(const sgx::Args<T> a) {
+  sgx::run<T, WS>(a);
 }
 
-template <typename IO, typename In, typename T>
-int launch(const In* x, const T* w, In* out, long long B, long long N,
-           int ws, void* stream) {
+template <typename T>
+int launch(const T* x, const T* w, T* out, long long B, long long N, int ws,
+           void* stream) {
   if (ws < 1 || ws > sgt::kMaxWs || N < ws) return cudaErrorInvalidValue;
-  const long long n_out = N - ws + 1;
-  dim3 grid;
-  long long tiles;
-  const cudaError_t err = sgt::grid_for(B, n_out, &grid, &tiles);
-  if (err != cudaSuccess) return err;
-  const auto kernel = ws <= sgt::kNarrowWs
-                          ? corr1d_valid_kernel<IO, In, T, sgt::kNarrowWs>
-                          : corr1d_valid_kernel<IO, In, T, sgt::kMaxWs>;
-  kernel<<<grid, sgt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, out, N, n_out, tiles, ws);
-  return cudaGetLastError();
+  const sgx::Args<T> a{x, w, nullptr, out, N, N - ws + 1, 0, 0, ws, 0, 0,
+                       sgt::kZero, T(1)};
+  const auto kernel =
+      ws == 101 ? corr1d_valid_kernel<T, 101> : corr1d_valid_kernel<T, 0>;
+  return sgx::launch(kernel, a, B, static_cast<cudaStream_t>(stream));
 }
 
 // method="bf16" on f32 storage: tile t0 = t kTile of a row, its outputs
@@ -199,13 +186,13 @@ int launch_bf16(const In* x, const float* w, In* out, long long B,
 extern "C" int corr1d_valid_f32(const float* x, const float* w, float* out,
                                 long long B, long long N, int ws,
                                 void* stream) {
-  return launch<sgt::AsStored>(x, w, out, B, N, ws, stream);
+  return launch(x, w, out, B, N, ws, stream);
 }
 
 extern "C" int corr1d_valid_f64(const double* x, const double* w,
                                 double* out, long long B, long long N, int ws,
                                 void* stream) {
-  return launch<sgt::AsStored>(x, w, out, B, N, ws, stream);
+  return launch(x, w, out, B, N, ws, stream);
 }
 
 // method="bf16": x and out in f32 (bf16_storage = 0) or bf16 (1) storage,

@@ -1,4 +1,5 @@
-// Launch plumbing shared by the masked kernels (masked1d.cu, masked2d.cu).
+// Launch plumbing shared by the masked kernels (masked1d.cu, masked2d.cu)
+// and K8a/K8b (plane_solve.cu).
 #pragma once
 
 #include <cuda_runtime.h>

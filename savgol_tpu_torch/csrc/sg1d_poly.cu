@@ -18,16 +18,21 @@
 // are then fitted from ew). The caller folds dt_inv into w and ew. f32
 // accumulates in f32, f64 in f64.
 //
-// Bound: device-memory bytes. An f32 sample is read once (4 B) and written
-// once (4 B) for 2n + 1 = 25 FMAs at n = 12, far below the card's FMA rate
-// per byte, so the H100 SXM data sheet's 3.35 TB/s puts the ceiling at
-// 3.35e12 / 8 = ~419 Gsamples/s. That is a derived bound, not a measurement.
-// The design keeps to it by reading x once per tile of 1024 outputs plus a
-// halo of about 2n samples (28 at n = 12, 2.7% extra) and writing each output
-// once; the taps run out of shared memory and registers (stencil_tile.cuh).
-// K2's virtual samples are mapped while the edge tiles stage their halo, so
-// the TPU kernel's strips and the host pad copy before K3 both go: K2 moves
-// the same bytes as K1. Tiles clear of both edges skip the edge logic.
+// Bound: device-memory bytes at the headline's 25 taps. An f32 sample is
+// read once (4 B) and written once (4 B) for 2n + 1 = 25 FMAs at n = 12, so
+// the H100 SXM data sheet's 3.35 TB/s puts the ceiling at 3.35e12 / 8 =
+// ~419 Gsamples/s; past about 60 taps the FMAs at 67 TFLOP/s bound it
+// instead (0.405 ms at 101 taps and the headline's 128 x 2^20). Derived
+// bounds, not measurements. The exact instances run the tile of
+// sg1d_exact.cuh: each block walks over tiles of 3072 outputs (and a halo
+// of about 2n samples) with the next tiles' samples in flight, an interior
+// tile's by one bulk copy (cp.async.bulk on an mbarrier), a row's end
+// tiles' by 16-byte cp.async; each thread slides a register window over 12
+// consecutive outputs (one 16-byte shared load for 48 FMAs), and each warp
+// stores its outputs as whole 16-byte units through a shared slot of its
+// own. K2's virtual samples are mapped while a row's end tiles stage their
+// span, so the TPU kernel's strips and the host pad copy before K3 both
+// go: K2 moves the same bytes as K1.
 //
 // K1's edge outputs (2n per row) read their windows straight from device
 // memory: the trailing window can start up to 2n samples before its output's
@@ -49,78 +54,36 @@
 // 0.03 ms of the band products at the tensor cores' (derived). Samples are
 // staged by 16-byte loads.
 #include "sg1d_bf16.cuh"
+#include "sg1d_exact.cuh"
 #include "stencil_tile.cuh"
 
 namespace {
 
-// mode: sgt::kZero for K1 (edge outputs fitted from ew), a pad mode for K2
-// (ew unused). MaxWs: the widest window of the instance (stencil_tile.cuh).
-// IO: sgt::AsStored (In = T: f32 or f64); method="bf16" runs
-// sg1d_bf16_kernel below.
-template <typename IO, typename In, typename T, int MaxWs>
-__global__ void __launch_bounds__(sgt::kThreads, sgt::kMinBlocks)
-sg1d_poly_kernel(const In* __restrict__ x, const T* __restrict__ w,
-                 const T* __restrict__ ew, In* __restrict__ out, long long N,
-                 long long tiles, int n, T lead_sign, int mode) {
-  __shared__ sgt::TileSmem<T, MaxWs> s;
-  const long long b = blockIdx.x / tiles;
-  const long long t0 = (blockIdx.x % tiles) * sgt::kTile;
-  const int ws = 2 * n + 1;
-  const In* __restrict__ xrow = x + b * N;   // 64-bit: B * N passes 2^31
-  In* __restrict__ orow = out + b * N;
-
-  sgt::tile_correlate<IO>(xrow, N, t0 - n, w, ws, s, mode);
-
-  if (t0 >= n && t0 + sgt::kTile <= N - n) {   // interior tile: no edges
-    for (int i = threadIdx.x; i < sgt::kTile; i += sgt::kThreads)
-      IO::put(&orow[t0 + i], s.xs[i]);
-    return;
-  }
-  if (mode != sgt::kZero) {   // K2's edge tiles: their pad is staged
-    for (int i = threadIdx.x; i < sgt::kTile && t0 + i < N;
-         i += sgt::kThreads)
-      IO::put(&orow[t0 + i], s.xs[i]);
-    return;
-  }
-  for (int i = threadIdx.x; i < sgt::kTile; i += sgt::kThreads) {
-    const long long j = t0 + i;
-    if (j >= N) break;
-    T v = s.xs[i];
-    if (j < n) {
-      const T* __restrict__ e = ew + j * ws;
-      T a = T(0);
-      for (int k = 0; k < ws; ++k)
-        a = sgt::madd(e[k], T(IO::load(xrow[ws - 1 - k])), a);
-      v = lead_sign * a;
-    } else if (j >= N - n) {
-      const T* __restrict__ e = ew + (N - 1 - j) * ws;
-      const In* __restrict__ xt = xrow + (N - ws);
-      T a = T(0);
-      for (int k = 0; k < ws; ++k)
-        a = sgt::madd(e[k], T(IO::load(xt[k])), a);
-      v = a;
-    }
-    IO::put(&orow[j], v);
-  }
+// K1 and K2 on the exact tile (sg1d_exact.cuh), f32 or f64: WS a
+// compile-time window, or 0 for any window. mode: sgt::kZero for K1 (its 2n
+// edge outputs a row fitted from ew), a pad mode for K2 (ew unused).
+// An unrolled instance at scipy's 101 taps, where on an H100 the
+// runtime-width loop took 5-11% longer (probes/variants.py exact:
+// runtime_width); the loop takes every other window, the headline's 25
+// included (an unrolled 25 was within 3% of it either way: unrolled_25).
+template <typename T, int WS>
+__global__ void __launch_bounds__(sgx::kThreads, sgx::kBlocks<T>)
+sg1d_poly_kernel(const sgx::Args<T> a) {
+  sgx::run<T, WS>(a);
 }
 
-template <typename IO, typename In, typename T>
-int launch(const In* x, const T* w, const T* ew, In* out, long long B,
+template <typename T>
+int launch(const T* x, const T* w, const T* ew, T* out, long long B,
            long long N, int n, T lead_sign, int mode, void* stream) {
   const int ws = 2 * n + 1;
   if (n < 1 || ws > sgt::kMaxWs || N < ws || mode < sgt::kZero ||
       mode > sgt::kWrap)
     return cudaErrorInvalidValue;
-  dim3 grid;
-  long long tiles;
-  const cudaError_t err = sgt::grid_for(B, N, &grid, &tiles);
-  if (err != cudaSuccess) return err;
-  const auto kernel = ws <= sgt::kNarrowWs
-                          ? sg1d_poly_kernel<IO, In, T, sgt::kNarrowWs>
-                          : sg1d_poly_kernel<IO, In, T, sgt::kMaxWs>;
-  kernel<<<grid, sgt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, ew, out, N, tiles, n, lead_sign, mode);
-  return cudaGetLastError();
+  const sgx::Args<T> a{x, w, ew, out, N, N, 0, 0, ws, -n,
+                       mode == sgt::kZero ? n : 0, mode, lead_sign};
+  const auto kernel =
+      ws == 101 ? sg1d_poly_kernel<T, 101> : sg1d_poly_kernel<T, 0>;
+  return sgx::launch(kernel, a, B, static_cast<cudaStream_t>(stream));
 }
 
 // method="bf16" on f32 storage (sg1d_bf16.cuh): a tile of sg1b::kTile
@@ -294,16 +257,14 @@ int launch_bf16(const void* x, const float* w, const float* ew, void* out,
 extern "C" int sg1d_poly_f32(const float* x, const float* w, const float* ew,
                              float* out, long long B, long long N, int n,
                              float lead_sign, void* stream) {
-  return launch<sgt::AsStored>(x, w, ew, out, B, N, n, lead_sign, sgt::kZero,
-                               stream);
+  return launch(x, w, ew, out, B, N, n, lead_sign, sgt::kZero, stream);
 }
 
 extern "C" int sg1d_poly_f64(const double* x, const double* w,
                              const double* ew, double* out, long long B,
                              long long N, int n, double lead_sign,
                              void* stream) {
-  return launch<sgt::AsStored>(x, w, ew, out, B, N, n, lead_sign,
-                               sgt::kZero, stream);
+  return launch(x, w, ew, out, B, N, n, lead_sign, sgt::kZero, stream);
 }
 
 // K2: mode is sgt::kEdge, kSymmetric or kWrap.
@@ -311,16 +272,16 @@ extern "C" int sg1d_pad_f32(const float* x, const float* w, float* out,
                             long long B, long long N, int n, int mode,
                             void* stream) {
   if (mode == sgt::kZero) return cudaErrorInvalidValue;
-  return launch<sgt::AsStored>(x, w, static_cast<const float*>(nullptr),
-                               out, B, N, n, 1.0f, mode, stream);
+  return launch(x, w, static_cast<const float*>(nullptr), out, B, N, n, 1.0f,
+                mode, stream);
 }
 
 extern "C" int sg1d_pad_f64(const double* x, const double* w, double* out,
                             long long B, long long N, int n, int mode,
                             void* stream) {
   if (mode == sgt::kZero) return cudaErrorInvalidValue;
-  return launch<sgt::AsStored>(x, w, static_cast<const double*>(nullptr),
-                               out, B, N, n, 1.0, mode, stream);
+  return launch(x, w, static_cast<const double*>(nullptr), out, B, N, n, 1.0,
+                mode, stream);
 }
 
 // method="bf16" of K1 and K2 (the JAX package's _sg1d_poly_mxu_call and

@@ -1,19 +1,20 @@
-// The tap loop of a staged row (row_taps4: the 1D kernels and the row pass
-// of corr2d_sep.cu), the pad-mode index map of every staging loop (1D and
-// 2D), and the shared tile stencil of the 1D kernels (sg1d_poly.cu,
-// corr1d_valid.cu, corr1d_bank.cu).
+// The tap loop of a staged row (row_taps4: K4's stencils, the row pass of
+// corr2d_sep.cu, P1 and P3), the pad-mode index map of every staging loop
+// (1D and 2D), and the tile of 1024 outputs a block that K4
+// (corr1d_bank.cu), P3 (probe_bf16_1d.cu) and P1's tap loop use. K1, K2 and
+// K3 ran this tile until they moved to sg1d_exact.cuh, whose outputs are
+// bit for bit row_taps4's.
 //
 // One block computes TILE consecutive outputs of one row:
 //
 //     acc[i] = sum_{k < ws} w[k] * xv[in0 + i + k],   0 <= i < TILE
 //
-// where in0 is the input index of the tile's first tap (t0 - n for the
-// same-length apply, t0 for the VALID correlation) and xv is the row
+// where in0 is the input index of the tile's first tap and xv is the row
 // extended past [0, N) by the pad mode: zeros, or the samples map_index
 // names, so no padded copy of a row is ever made. The TILE + ws - 1 samples
 // the tile needs (rounded up to whole 16-byte register loads) are staged
-// once in shared memory, so each sample of a row is read from device memory
-// once plus a halo of about ws samples per tile.
+// once in shared memory (stage_row), so each sample of a row is read from
+// device memory once plus a halo of about ws samples per tile.
 //
 // Each thread owns Q = 4 consecutive outputs and runs row_taps4 over the
 // staged span.
@@ -104,13 +105,12 @@ constexpr int kTile = kThreads * kQ;      // outputs per block
 // threads fill the SM's 2048 and cap registers at 32 a thread. The kernels
 // wait on device memory, and more resident blocks keep more loads in flight.
 constexpr int kMinBlocks = 8;
-// The widest window: the JAX package's Pallas cap (_LANES + 1 taps,
-// pallas_conv.py:50), which scipy_compat reaches past SavgolConfig's 65. K1's
-// edge rows are read from device memory, so n <= 64 rows of them cost no
-// shared memory. Windows up to kNarrowWs (2 * MAX_HALF_WINDOW + 1, every
-// SavgolConfig) run an instance whose shared buffers are sized for them,
-// so the common windows keep the smaller footprint; wider ones an instance
-// sized for kMaxWs.
+// The widest window of K1-K3 (sg1d_exact.cuh, sg1d_bf16.cuh) and P1: the
+// JAX package's Pallas cap (_LANES + 1 taps, pallas_conv.py:50), which
+// scipy_compat reaches past SavgolConfig's 65. K1's edge rows are read from
+// device memory, so n <= 64 rows of them cost no shared memory. kNarrowWs
+// (2 * MAX_HALF_WINDOW + 1, every SavgolConfig) is the widest window of K4
+// and P3, whose shared buffers are sized for it.
 constexpr int kMaxWs = 129;
 constexpr int kNarrowWs = 65;
 
@@ -212,27 +212,6 @@ __device__ __forceinline__ void stage_row(const In* __restrict__ xrow,
       v = IO::load(xrow[map_index(g, N, mode)]);
     xs[i] = v;
   }
-}
-
-// Stages xv[in0, in0 + stage) (see stage_row) and w, computes the tile, and
-// leaves acc[i] in s.xs[i] for 0 <= i < kTile. Ends synchronised.
-template <typename IO, typename In, typename T, int MaxWs>
-__device__ void tile_correlate(const In* __restrict__ xrow, long long N,
-                               long long in0, const T* __restrict__ w,
-                               int ws, TileSmem<T, MaxWs>& s,
-                               int mode = kZero) {
-  const int tid = threadIdx.x;
-  stage_row<IO>(xrow, N, in0, ws, mode, s.xs);
-  for (int k = tid; k < ws_pad(MaxWs); k += kThreads)
-    s.w[k] = k < ws ? w[k] : T(0);
-  __syncthreads();
-
-  const int base = tid * kQ;
-  T acc[kQ] = {T(0), T(0), T(0), T(0)};
-  row_taps4(&s.xs[base], s.w, ws, acc);
-  __syncthreads();                       // every thread is done reading xs
-  Vec4<T>::store(&s.xs[base], acc);
-  __syncthreads();
 }
 
 // Blocks cover (row, tile) pairs flattened into gridDim.x, so any batch

@@ -1,10 +1,11 @@
 """P3: attribution of the bf16 VALID 1D correlation on the CUDA-core tile
-(K3's exact tile with bf16 staging, which kernel K3 ran in its bf16 mode
-before that mode moved to the tensor-core tile of ``csrc/sg1d_bf16.cuh``),
+(the row_taps4 tile of ``csrc/stencil_tile.cuh`` with bf16 staging, which
+kernel K3 ran in its bf16 mode before that mode moved to the tensor-core
+tile of ``csrc/sg1d_bf16.cuh``),
 the counterpart of ``benchmarks/probe_bf16_1d.py``.
 
-Three bf16-in / bf16-out kernels at K3's tiles (``csrc/probe_bf16_1d.cu``),
-each removing one cost term of that tile:
+Three bf16-in / bf16-out kernels on that tile (``csrc/probe_bf16_1d.cu``),
+each removing one cost term of it:
 
   * ``copy``: stage a tile, write it back (``out = x``): the device-memory
     bytes alone at these tiles;
@@ -44,7 +45,8 @@ __all__ = ["LAUNCHES", "TILE", "VARIANTS", "reset_launches", "probe_cuda",
 
 LAUNCHES = {"probe_bf16_1d": 0}
 VARIANTS = ("copy", "shift_only", "taps_only")
-# K3's tile width (csrc/stencil_tile.cuh kTile); the wrapper checks it
+# The probes' tile width (csrc/stencil_tile.cuh kTile, the tile K3 ran
+# before the exact tile of csrc/sg1d_exact.cuh); the wrapper checks it
 # against the library's before a launch
 TILE = 1024
 _MAX_WS = 65      # the probes' instance: windows up to kNarrowWs

@@ -1,14 +1,32 @@
-"""Times the stencil kernels K4, K2D-dense, K7 and the bf16 1D kernels of
-one checkout of this package on the card, so that two checkouts can be
-compared in one call, in turns (parent, change, change, parent):
+"""Times the stencil kernels K1-K3, K4, K2D-dense, K7 and the bf16 1D
+kernels of one checkout of this package on the card, so that two checkouts
+can be compared in one call, in turns (parent, change, change, parent):
 
-    python savgol_tpu_torch/probes/stencil_ab.py [--root DIR]
+    python savgol_tpu_torch/probes/stencil_ab.py [--root DIR] [--only exact]
 
 imports ``savgol_tpu_torch`` from DIR (default: the checkout this file is
 in), builds its kernels and prints one JSON record: the card's name and
-power limit, the root, a checksum of each kernel's output and CUDA-event
-medians in ms (L2 flushed) of
+power limit, the root, a checksum of each kernel's output (``sums``, the
+sum of its values) and, for K1-K3 and their entry points, a digest of its
+bits (``digests``: the sum of each output's raw bits times 2 i + 1, i its
+flat index, in wrapping 64-bit integers, so that two checkouts' outputs
+are compared bit for bit), and CUDA-event medians in ms (L2 flushed) of
 
+- the exact 1D kernels (f32 and f64) at the 1D headline's (128,
+  1,048,576) with scipy's windows of 25 and 101 taps (order 4): K1
+  (``sg1d_poly`` in ``csrc/sg1d_poly.cu``), K2 (``sg1d_pad``) in its edge,
+  wrap and symmetric modes, and K3 (``corr1d_valid`` in
+  ``csrc/corr1d_valid.cu``), and the entry points ``Savgol1D.apply`` and
+  ``Savgol1D.apply_valid`` (``SavgolConfig(12, 4)``, f32) with the host's
+  work (``utils.timing.cuda_time_ms``), and the host's time for the small
+  calls that a launch's set-up bounds (``host``): K3's wrapper on (8, 4096)
+  (``utils.timing.host_ms``, chip_smoke.py's host line) and streaming's 64
+  chunks of 8,192 and of 65,536 samples, one K3 launch a chunk (ms a
+  chunk, host clock with the card synchronised, median of five, as
+  chip_smoke.py's phase 38 times one); ``--only exact`` times these alone,
+  and ``--clocks`` adds the card's SM clock, power draw, temperature and
+  throttle reasons while K1 (f32, 25 and 101 taps) runs back to back for
+  two seconds after ten idle ones (``utils.timing.clocks_during``);
 - K4 (``csrc/corr1d_bank.cu``): ``SavgolBank``'s smooth + d1 + d2 bank
   (K = 3, 25 taps, pad 12) on the 1D headline's (128, 1,048,576) in f32 and
   f64, and the sweep's six 65-tap stencils (pad 32) on 4,194,304 samples and
@@ -48,6 +66,10 @@ import importlib.util
 import json
 import pathlib
 import sys
+import time
+
+# the kernels --clocks reads the card's clock beside
+_CLOCKED = ("K1 f32 ws=25", "K1 f32 ws=101")
 
 
 def _own_timing(here: pathlib.Path):
@@ -64,6 +86,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = pathlib.Path(__file__).resolve().parents[2]
     ap.add_argument("--root", default=str(here))
+    ap.add_argument("--only", choices=("exact",),
+                    help="time only the exact 1D kernels and their entry "
+                         "points")
+    ap.add_argument("--clocks", action="store_true",
+                    help="sample the SM clock and power during the f32 "
+                         "exact 1D kernels")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     # one timing rule for every checkout compared: this checkout's
@@ -89,14 +117,79 @@ def main() -> int:
         raise SystemExit(f"imported {sgt.__file__}, not from {root}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1010)
-    ms, sums = {}, {}
+    ms, sums, digests, clocks, host = {}, {}, {}, {}, {}
 
-    def run(name, fn, **kw):
-        sums[name] = fn().double().sum().item()
+    def digest(t):
+        bits = t.contiguous().view(torch.int32 if t.element_size() == 4
+                                   else torch.int64).reshape(-1)
+        i = torch.arange(bits.numel(), device=dev, dtype=torch.int64)
+        return int((bits.to(torch.int64) * (2 * i + 1)).sum().item())
+
+    def run(name, fn, bits=False, **kw):
+        out = fn()
+        sums[name] = out.double().sum().item()
+        if bits:
+            digests[name] = digest(out)
+        del out
         ms[name] = timing.device_ms(fn, **kw)
+        if args.clocks and name in _CLOCKED:
+            time.sleep(10)   # let the card cool from the calls before
+            clocks[name] = timing.clocks_during(fn)
+
+    x = torch.randn(128, 1 << 20, generator=gen, device=dev)
+    # -- K1, K2 and K3 at the 1D headline, f32 and f64, 25 and 101 taps --
+    for dt in (torch.float32, torch.float64):
+        xx = x.to(dt)
+        tag = "f32" if dt == torch.float32 else "f64"
+        for n in (12, 50):
+            cw, ew = (torch.from_numpy(a).to(dev, dt)
+                      for a in _compat_weights_np(n, 4, 0))
+            where = f"{tag} ws={2 * n + 1}"
+            run(f"K1 {where}", lambda: cc.savgol_polynomial_cuda(
+                xx, cw, ew, n), bits=True)
+            for mode in ("edge", "wrap", "symmetric"):
+                run(f"K2 {mode} {where}", lambda: cc.savgol_padded_cuda(
+                    xx, cw, mode, n), bits=True)
+            run(f"K3 {where}", lambda: cc.correlate_valid_cuda(xx, cw),
+                bits=True)
+        del xx
+    f1 = sgt.Savgol1D.create(sgt.SavgolConfig(12, 4), device=dev)
+    for name, fn in (("Savgol1D.apply", lambda: f1.apply(x)),
+                     ("Savgol1D.apply_valid", lambda: f1.apply_valid(x))):
+        out = fn()
+        digests[name] = digest(out)
+        sums[name] = out.double().sum().item()
+        del out
+        ms[name + " with host"] = timing.cuda_time_ms(fn)
+    # -- host time of short K3 launches --
+    from savgol_tpu_torch import stream as ts
+    xsm = x[:8, :4096].contiguous()
+    host["K3 wrapper (8, 4096)"] = timing.host_ms(
+        lambda: cc.correlate_valid_cuda(xsm, f1.center_weights))
+    for C in (8192, 65_536):
+        chunks = torch.randn(64, C, generator=gen, device=dev)
+
+        def chunked():
+            st = ts.chunk_init(12, device=dev)
+            for ch in chunks:
+                st, _, _ = ts.stream_process_chunk(
+                    st, ch, f1.center_weights, f1.edge_weights, f1.dt_inv)
+        chunked()
+        per = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunked()
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t0) / 64 * 1e3)
+        host[f"stream chunk of {C}"] = sorted(per)[2]
+    if args.only == "exact":
+        print(json.dumps({"card": card(), "root": str(root), "ms": ms,
+                          "host": host, "sums": sums, "digests": digests,
+                          "clocks": clocks}))
+        return 0
 
     # -- K4 --
-    x = torch.randn(128, 1 << 20, generator=gen, device=dev)
     bank = sgt.SavgolBank.smooth_and_derivatives(12, 4, 2, device=dev)
     wdt = bank.center_weights * bank.dt_inv[:, None]
     center = savgol_weights_masked([4, 8, 12, 16, 24, 32], [2, 3, 4, 4, 5, 6],
@@ -175,7 +268,8 @@ def main() -> int:
             lambda: c2.correlate2d_sep_cuda(img, uw, vw, "edge"))
 
     print(json.dumps({"card": card(), "root": str(root), "ms": ms,
-                      "sums": sums}))
+                      "host": host, "sums": sums, "digests": digests,
+                      "clocks": clocks}))
     return 0
 
 

@@ -221,6 +221,10 @@ VARIANTS = {
              "0x3f803f80u, 0x3f803f80u, 0x3f803f80u + "
              "static_cast<unsigned>(g & 63));\n")],
     }),
+    # the exact 1D tile (sg1d_exact.cuh) of K1 / K2 (sg1d_poly.cu) and K3
+    # (corr1d_valid.cu, "exact_valid"): see _EXACT
+    "exact": ("sg1d_poly.cu", None),
+    "exact_valid": ("corr1d_valid.cu", None),
     # K7's sweep: every stencil whose ring fits on the runtime-width sweep
     # (no compile-time widths), every stencil on the 64 x 64 tiles, rings
     # past 113 KB (one block an SM) on the tiles, the runtime-width passes
@@ -285,7 +289,135 @@ VARIANTS = {
 
 # variants whose outputs differ from the kernel's by design
 ATTRIBUTION = {"moments_only", "solve_only", "no_loads", "stage_store",
-               "row_only", "col_only", "empty"}
+               "row_only", "col_only", "empty", "no_taps",
+               "no_store", "no_lds"}
+
+_X = "sg1d_exact.cuh"
+_EXACT_Q = "constexpr int kQF32 = 12;\nconstexpr int kQF64 = 10;"
+_EXACT_BLOCKS = ("template <typename T> constexpr int kBlocks = "
+                 "sizeof(T) == 4 ? 4 : 3;")
+_EXACT_STORE = "    store_warps<T, Q>(t.orow + t.o0, ob, acc);\n"
+# the group loop with a prefetch: the next group's taps and samples loaded
+# before this group's FMAs
+_EXACT_PREFETCH = [(_X, '// G groups of 4 taps, w[0, 4 G), on the window r = row[0, Q + 4); leaves r\n// = row[4 G, 4 G + Q + 4).\ntemplate <typename T, int Q, int G>\n__device__ __forceinline__ void groups(const T* __restrict__ row,\n                                       const T* __restrict__ w, T (&r)[Q + 4],\n                                       T (&acc)[Q]) {\n#pragma unroll\n  for (int g = 0; g < G; ++g) {\n    T wv[4];\n    load<T, 4>(w + 4 * g, wv);\n#pragma unroll\n    for (int kk = 0; kk < 4; ++kk)\n#pragma unroll\n      for (int j = 0; j < Q; ++j) acc[j] = madd(wv[kk], r[j + kk], acc[j]);\n#pragma unroll\n    for (int i = 0; i < Q; ++i) r[i] = r[i + 4];\n    load<T, 4>(row + 4 * g + Q + 4, r + Q);\n  }\n}',
+                    "// G groups of 4 taps, w[0, 4 G), on the window r = row[0, Q + 4); leaves r\n// = row[4 G, 4 G + Q + 4). The next group's taps and samples are loaded\n// before this group's FMAs.\ntemplate <typename T, int Q, int G>\n__device__ __forceinline__ void groups(const T* __restrict__ row,\n                                       const T* __restrict__ w, T (&r)[Q + 4],\n                                       T (&acc)[Q]) {\n  if constexpr (G > 0) {\n    T wv[4];\n    load<T, 4>(w, wv);\n#pragma unroll\n    for (int g = 0; g < G; ++g) {\n      T wn[4], next[4];\n      if (g + 1 < G) load<T, 4>(w + 4 * g + 4, wn);\n      load<T, 4>(row + 4 * g + Q + 4, next);\n#pragma unroll\n      for (int kk = 0; kk < 4; ++kk)\n#pragma unroll\n        for (int j = 0; j < Q; ++j) acc[j] = madd(wv[kk], r[j + kk], acc[j]);\n#pragma unroll\n      for (int i = 0; i < Q; ++i) r[i] = r[i + 4];\n#pragma unroll\n      for (int i = 0; i < 4; ++i) r[Q + i] = next[i];\n      if (g + 1 < G) {\n#pragma unroll\n        for (int kk = 0; kk < 4; ++kk) wv[kk] = wn[kk];\n      }\n    }\n  }\n}")]
+
+
+def _exact_q(q32: int, q64: int) -> list:
+    """The exact tile with q outputs a thread (f32, f64)."""
+    return [(_X, _EXACT_Q, f"constexpr int kQF32 = {q32};\n"
+                           f"constexpr int kQF64 = {q64};")]
+
+
+def _exact_variants(kernel_name: str) -> dict:
+    """The exact 1D tile's alternatives, as edits of sg1d_exact.cuh and of
+    the kernel's source: each thread's outputs stored straight from its
+    registers (registers: 16-byte stores where the row is aligned, else one
+    at a time), Q outputs a thread (f32 4 and 20, f64 6 and 14; each an odd
+    multiple of 16 bytes), ring depth (f32 2 stages; 4 in f32 and 3 in
+    f64), blocks an SM (register caps; none at all, or none in f32), every
+    window on the runtime-width loop (runtime_width: no compile-time 101),
+    an unrolled instance at 25 taps too (unrolled_25), the group loop with a
+    prefetch of the next group's taps and samples (prefetch), each block
+    walking one run of consecutive tiles as P1 does (walk_runs) instead of
+    every G-th, blocks of 128 threads (half the tile) with a cap for twice
+    the blocks, interior tiles staged by 16-byte cp.async from every thread
+    instead of one bulk copy (cp_async); attribution: the taps replaced by a
+    copy of the staged samples (no_taps), the stores by one store a block
+    that keeps the sums live (no_store), the tap loop's shared loads by
+    register arithmetic (no_lds: the taps w[0, 4) held in registers, each
+    group's 4 new samples made from the window and the sums, so the FMAs
+    run without shared memory)."""
+    kernel = (f"  const auto kernel =\n      ws == 101 ? {kernel_name}<T, "
+              f"101> : {kernel_name}<T, 0>;")
+    taps = ("  taps<T, Q, WS>(st + Q * threadIdx.x, w, WS > 0 ? WS : a.ws, "
+            "acc);\n")
+    store = "  const long long lo = a.edge, hi = a.n_out - a.edge;"
+    return {
+        "as_is": [],
+        "registers": [(_X, _EXACT_STORE,
+                       "    T* const p = t.orow + t.o0 + Q * threadIdx.x;\n"
+                       "    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {\n"
+                       "      for (int c = 0; c < Q; c += vec<T>()) "
+                       "store16(p + c, acc + c);\n"
+                       "    } else {\n"
+                       "      for (int c = 0; c < Q; ++c) p[c] = acc[c];\n"
+                       "    }\n")],
+        "q4": _exact_q(4, 10),
+        "q20": _exact_q(20, 10),
+        "f64_q6": _exact_q(12, 6),
+        "f64_q14": _exact_q(12, 14),
+        "stages_2_2": [(_X, "constexpr int kStagesF32 = 3;",
+                        "constexpr int kStagesF32 = 2;")],
+        "stages_4_3": [(_X, "constexpr int kStagesF32 = 3;\n"
+                            "constexpr int kStagesF64 = 2;",
+                        "constexpr int kStagesF32 = 4;\n"
+                        "constexpr int kStagesF64 = 3;")],
+        "blocks_3_2": [(_X, _EXACT_BLOCKS,
+                        _EXACT_BLOCKS.replace("? 4 : 3", "? 3 : 2"))],
+        "blocks_5_4": [(_X, _EXACT_BLOCKS,
+                        _EXACT_BLOCKS.replace("? 4 : 3", "? 5 : 4"))],
+        "blocks_6": [(_X, _EXACT_BLOCKS,
+                      _EXACT_BLOCKS.replace("? 4 : 3", "? 6 : 3"))],
+        "no_cap": [("__launch_bounds__(sgx::kThreads, sgx::kBlocks<T>)",
+                    "__launch_bounds__(sgx::kThreads)")],
+        "uncapped_f32": [(_X, _EXACT_BLOCKS,
+                          _EXACT_BLOCKS.replace("? 4 : 3", "? 1 : 3"))],
+        "runtime_width": [(kernel, f"  const auto kernel = "
+                                   f"{kernel_name}<T, 0>;")],
+        "unrolled_25": [(kernel, kernel.replace(
+            "ws == 101", f"ws == 25 ? {kernel_name}<T, 25> : ws == 101"))],
+        "prefetch": _EXACT_PREFETCH,
+        "walk_runs": [
+            (_X, "  const long long step = gridDim.x;\n",
+             "  const long long per = (a.total + gridDim.x - 1) / gridDim.x;\n"
+             "  const long long first = blockIdx.x * per, step = 1;\n"
+             "  const long long end = min(first + per, a.total);\n"),
+            (_X, "    const long long id = blockIdx.x + s * step;\n"
+                 "    if (id < a.total) {",
+             "    const long long id = first + s * step;\n"
+             "    if (id < end) {"),
+            (_X, "  for (long long id = blockIdx.x; id < a.total; id += step) {",
+             "  for (long long id = first; id < end; id += step) {"),
+            (_X, "    if (ahead < a.total) {", "    if (ahead < end) {")],
+        "threads_128": [
+            (_X, "constexpr int kThreads = 256;", "constexpr int kThreads = 128;"),
+            (_X, _EXACT_BLOCKS, _EXACT_BLOCKS.replace("? 4 : 3", "? 8 : 6"))],
+        "cp_async": _EXACT_CP_ASYNC,
+        "no_taps": [(_X, taps, "  for (int j = 0; j < Q; ++j) "
+                     "acc[j] = st[Q * threadIdx.x + j];\n")],
+        "no_store": [(_X, store, "  {\n    T sum = T(0);\n"
+                      "    for (int j = 0; j < Q; ++j) sum += acc[j];\n"
+                      "    if (sum == T(1.25e-30)) t.orow[0] = sum;\n"
+                      "    return;\n  }\n" + store)],
+        "no_lds": [(_X, "    load<T, 4>(w + 4 * g, wv);\n",
+                    "#pragma unroll\n    for (int kk = 0; kk < 4; ++kk) "
+                    "wv[kk] = w[(4 * g + kk) & 3];\n"),
+                   (_X, "    load<T, 4>(row + 4 * g + Q + 4, r + Q);\n",
+                    "#pragma unroll\n    for (int i = 0; i < 4; ++i) "
+                    "r[Q + i] = r[i] + acc[i];\n")],
+    }
+
+
+# interior tiles staged by 16-byte cp.async from every thread instead of one
+# bulk copy (thread 0 arrives on the stage's barrier with no bytes)
+_EXACT_CP_ASYNC = [
+    (_X, "  if (in0 >= 0 && in0 + n <= N) {   // interior: one bulk copy\n"
+         "    if (threadIdx.x == 0)\n"
+         "      bulk_copy(st, xrow + in0, static_cast<unsigned>(n * "
+         "sizeof(T)), bar);\n"
+         "    return;\n"
+         "  }\n",
+     "  if (in0 >= 0 && in0 + n <= N) {   // interior: 16-byte copies\n"
+     "    if (threadIdx.x == 0) bar_arrive(bar, 0);\n"
+     "    for (int c = threadIdx.x; c < chunks; c += kThreads)\n"
+     "      copy16(st + V * c, xrow + in0 + V * c);\n"
+     "    return;\n"
+     "  }\n")]
+
+VARIANTS["exact"] = ("sg1d_poly.cu", _exact_variants("sg1d_poly_kernel"))
+VARIANTS["exact_valid"] = ("corr1d_valid.cu",
+                           _exact_variants("corr1d_valid_kernel"))
 
 
 def _edited(texts: dict, fname: str, edits) -> dict | None:
@@ -569,6 +701,40 @@ def main() -> int:
             checked(kernel, same, cases["K1-bf16 f32 storage"], o1)
             checked(kernel + " pad", same, cases["K2-bf16 wrap f32 storage"],
                     o1)
+        elif kernel in ("exact", "exact_valid"):
+            # the 1D headline (128, 1,048,576), scipy's windows of 25 and
+            # 101 taps (order 4), f32 and f64
+            cases, outs = {}, {}
+            x1 = torch.randn(128, 1 << 20, generator=gen, device=dev)
+            for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+                xx = x1.to(dt)
+                o = torch.empty_like(xx)
+                outs[tag] = o
+                for n in (12, 50):
+                    cw, ew = (torch.from_numpy(a).to(dev, dt).contiguous()
+                              for a in _compat_weights_np(n, 4, 0))
+                    if kernel == "exact":
+                        cases[f"K1 {tag} ws={2 * n + 1}"] = (
+                            lambda xx=xx, o=o, cw=cw, ew=ew, n=n, tag=tag:
+                            lambda L: getattr(L, f"sg1d_poly_{tag}")(
+                                xx.data_ptr(), cw.data_ptr(), ew.data_ptr(),
+                                o.data_ptr(), 128, 1 << 20, n, 1.0,
+                                stream()))()
+                        cases[f"K2 symmetric {tag} ws={2 * n + 1}"] = (
+                            lambda xx=xx, o=o, cw=cw, n=n, tag=tag:
+                            lambda L: getattr(L, f"sg1d_pad_{tag}")(
+                                xx.data_ptr(), cw.data_ptr(), o.data_ptr(),
+                                128, 1 << 20, n, 2, stream()))()
+                    else:
+                        cases[f"K3 {tag} ws={2 * n + 1}"] = (
+                            lambda xx=xx, o=o, cw=cw, tag=tag:
+                            lambda L: getattr(L, f"corr1d_valid_{tag}")(
+                                xx.data_ptr(), cw.data_ptr(), o.data_ptr(),
+                                128, 1 << 20, cw.numel(), stream()))()
+            del x1
+            same = {n: v for n, v in libs.items() if n not in ATTRIBUTION}
+            for name, run in cases.items():
+                checked(f"{kernel} {name}", same, run, outs[name.split()[-2]])
         elif kernel == "sep":
             from savgol_tpu_torch.ops.apply2d import _factors
             cases = {}

@@ -11,6 +11,8 @@ a call's host work outlasts the card's, it is what a caller waits for, and
 that is how entry points are timed. :func:`device_ms` times a kernel
 instead: it also keeps the card busy while the host enqueues the call, so
 its interval is the card's time alone.
+:func:`clocks_during` reads the card's SM clock and power draw while a
+call runs back to back (the data sheet's peaks assume its top clock).
 :func:`host_ms` times the host instead: how long a call takes to enqueue
 its work, which bounds a call whose device work is shorter.
 :func:`cudnn_ms` times a library yardstick under the settings cuDNN can be
@@ -27,7 +29,7 @@ from typing import Callable
 import torch
 
 __all__ = ["cuda_time_ms", "device_ms", "host_ms", "cudnn_ms", "bound",
-           "HBM_BPS", "PEAK_FLOPS"]
+           "clocks_during", "HBM_BPS", "PEAK_FLOPS"]
 
 _FLUSH_BYTES = 256 << 20
 # ~1 ms of the card's time at the H100's 1.98 GHz SM clock
@@ -84,6 +86,50 @@ def device_ms(fn: Callable[[], object], *, warmup: int = 3,
     if not torch.cuda.is_available():
         raise RuntimeError("device_ms needs a CUDA device")
     return _event_ms(fn, warmup, reps, _SPIN_CYCLES)
+
+
+def clocks_during(fn: Callable[[], object], seconds: float = 2.0) -> dict:
+    """The card's SM clock (MHz), power draw (W) and temperature (C) while
+    ``fn()`` runs back to back for about ``seconds``: the medians of
+    ``nvidia-smi``'s samples every 100 ms, the first 0.3 s (before the load)
+    left out, their count, and the OR of the clock-throttle reasons they
+    report (``nvidia-smi -q -d PERFORMANCE`` names the bits: 0x4 the power
+    cap, 0x20 / 0x40 thermal slowdown). Needs a card; the sampler is
+    stopped before it returns."""
+    import subprocess
+    if not torch.cuda.is_available():
+        raise RuntimeError("clocks_during needs a CUDA device")
+    fn()
+    torch.cuda.synchronize()
+    proc = subprocess.Popen(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    rows = [[v.strip() for v in line.split(",")] for line in out.splitlines()
+            if line.count(",") == 3]
+    rows = rows[3:] or rows
+    if not rows:
+        return {"samples": 0}
+    reasons = 0
+    for r in rows:
+        try:
+            reasons |= int(r[3], 16)
+        except ValueError:
+            pass
+    return {"sm_mhz": statistics.median(float(r[0]) for r in rows),
+            "power_w": statistics.median(float(r[1]) for r in rows),
+            "temp_c": statistics.median(float(r[2]) for r in rows),
+            "throttle": hex(reasons), "samples": len(rows)}
 
 
 def host_ms(fn: Callable[[], object], *, warmup: int = 10,

@@ -134,7 +134,7 @@ def test_shape_checks_raise(fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [4096, 4097, 4098, 4099])
-@pytest.mark.parametrize("ws", [3, 25, 65, 129])
+@pytest.mark.parametrize("ws", [3, 25, 65, 101, 129])
 @pytest.mark.parametrize("cols,short", [(2048, 0), (1024, 333), (128, 5)])
 def test_cuda_matches_plain_and_k3(cuda, N, ws, cols, short):
     x, w = _data(16, N, ws, N * ws)
@@ -150,10 +150,12 @@ def test_cuda_matches_plain_and_k3(cuda, N, ws, cols, short):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ws", [25, 101, 7])
 @pytest.mark.parametrize("offset", [1, 2, 3])
-def test_cuda_misaligned_base(cuda, offset):
-    """A contiguous view whose first sample is not 16-byte aligned."""
-    B, N, ws = 8, 3001, 25
+def test_cuda_misaligned_base(cuda, offset, ws):
+    """A contiguous view whose first sample is not 16-byte aligned; K3's
+    compile-time windows (25, 101) and a runtime one."""
+    B, N = 8, 3001
     flat = torch.from_numpy(_data(1, B * N + 4, 1, offset)[0][0]).to(cuda)
     x = flat[offset:offset + B * N].view(B, N)
     w = torch.from_numpy(_data(1, 1, ws, 7)[1]).to(cuda)

@@ -9,6 +9,11 @@ side runs the fused-pad Pallas kernel in interpret mode, its XLA twin, and
 plain version on the card and skips without one (on-card lane:
 ``python -m pytest --noconftest -m cuda tests/test_torch_padded.py``).
 
+K2's schedule on the exact 1D tile (``tests/_exact_plan.py`` with off =
+-n, ``csrc/sg1d_exact.cuh``) is checked on the CPU: the samples a pad mode
+maps lie only in a row's end tiles, and staging each tile with the mode's
+index map and storing by the plan gives ``savgol_padded_plain``.
+
 Tolerance for f32: abs error <= 2e-6 * max(1, max|ref|), for the reason
 given in ``tests/test_torch_conv.py`` (summation order, ``dt_inv`` folded
 into the taps on one side). f64 and scipy comparisons: 1e-9 (scipy's lstsq
@@ -18,6 +23,7 @@ weights carry ~1e-12 of their own error).
 import numpy as np
 import pytest
 import torch
+from _exact_plan import exact_tile_plan
 from scipy.signal import savgol_coeffs as sp_coeffs
 from scipy.signal import savgol_filter as sp_filter
 
@@ -421,6 +427,62 @@ def test_savgol_coeffs_errors():
         tsc.savgol_coeffs(11, 3, pos=11.5)
     with pytest.raises(ValueError, match="use"):
         tsc.savgol_coeffs(11, 3, use="both")
+
+
+# -- K2 on the exact tile's schedule (csrc/sg1d_exact.cuh) -----------------
+
+
+def _k2_plan(N: int, n: int, base: int, B: int, itemsize: int) -> dict:
+    vec = 16 // itemsize
+    return exact_tile_plan(N, 2 * n + 1, -n,
+                              [(base + b * N) % vec for b in range(B)],
+                              itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("pad_mode", ["symmetric", "wrap", "edge"])
+@pytest.mark.parametrize("ws", [3, 25, 101, 129])
+def test_exact_tile_plan_k2(pad_mode, ws, itemsize):
+    """Over N around tile boundaries (every residue mod 4), row offsets 0-3
+    and B in {1, 3, 130}: a tile stages samples past [0, N), the ones the
+    pad mode maps, only at a row's ends (its first tile and its last two),
+    each output is stored once, and staged and stored by the plan in
+    float64 (B = 3) the rows give ``savgol_padded_plain``."""
+    n = ws // 2
+    tile = exact_tile_plan(1, 1, 0, [0], itemsize)["tile"]
+    w = np.random.default_rng(ws).standard_normal(ws)
+    for N in [ws, ws + 1] + [m for t in (tile, 2 * tile)
+                             for m in range(t - 2, t + 2)]:
+        for B in (1, 3, 130):
+            for base in range(4):
+                p = _k2_plan(N, n, base, B, itemsize)
+                seen = {}
+                for i, (b, o0, in0, lo, hi) in enumerate(p["plan"]):
+                    t = i % p["tiles"]
+                    if in0 < 0 or in0 + p["span"] > N:
+                        assert t in (0, p["tiles"] - 2, p["tiles"] - 1)
+                    seen.setdefault(b, []).append((lo, hi))
+                for ranges in seen.values():
+                    stored = sum(hi - lo for lo, hi in ranges if hi > lo)
+                    assert stored == N and ranges[0][0] == 0
+        x = _data((3, N), seed=N + ws, dtype=np.float64)
+        want = cc.savgol_padded_plain(torch.from_numpy(x),
+                                      torch.from_numpy(w), pad_mode,
+                                      n).numpy()
+        for base in (0, 3):
+            p = _k2_plan(N, n, base, 3, itemsize)
+            out = np.full((3, N), np.nan)
+            for b, o0, in0, lo, hi in p["plan"]:
+                # the mode's map of the staged indices (pad_index, the
+                # host twin of csrc map_index) over [-lo, N + hi)
+                lo_pad = max(-in0, 0)
+                src = cc.pad_index(N, lo_pad, max(in0 + p["span"] - N, 0),
+                                   pad_mode, "cpu").numpy()
+                staged = x[b, src[in0 + lo_pad:in0 + lo_pad + p["span"]]]
+                win = np.lib.stride_tricks.sliding_window_view(staged, ws)
+                assert np.isnan(out[b, lo:hi]).all()
+                out[b, lo:hi] = win[np.arange(lo, hi) - o0] @ w
+            np.testing.assert_allclose(out, want, rtol=0, atol=1e-12)
 
 
 # -- on the card -------------------------------------------------------------
