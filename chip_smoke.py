@@ -43,7 +43,9 @@ Then the sharded paths, on one pool of four ranks that share the card
 (``savgol_tpu_torch.parallel.launch``, a ``gloo`` group): the ring
 halo-exchange kernel K13 bit for bit against the neighbours' slices and its
 plain version over rows, halo widths, dtypes and ring sizes, 50 exchanges
-back to back; ``apply_sharded(..., halo="rdma")`` on the 1D headline split
+back to back, on the stream route the ranks take and on the SM route; K13
+in one process with four ring members on four streams (no time-slicer) on
+both routes; ``apply_sharded(..., halo="rdma")`` on the 1D headline split
 four ways against the single-device apply and float64, and
 ``apply2d_sharded`` on the 2D headline by rows and by 2 x 2 tiles, each
 call's launches counted on every rank; float64 gradients through K13; and
@@ -87,6 +89,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -2164,6 +2167,14 @@ def _time(dev, fn, **kw):
     return cuda_time_ms(fn, **kw) if dev.type == "cuda" else float("nan")
 
 
+def _host(dev, fn):
+    """host_ms (enqueue only, 100 calls back to back) on the card; NaN on
+    the CPU."""
+    from savgol_tpu_torch.utils.timing import host_ms
+    return host_ms(fn, warmup=10, reps=100) if dev.type == "cuda" \
+        else float("nan")
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2208,73 +2219,90 @@ def rank_k13_grid(dev_type: str = "cuda"):
     """K13 against the neighbours' slices of a global input and against its
     plain version (through the host), bit for bit, over rows x n x dtype x
     ring size, the row form over ny x C, the ring of one (no launch), and
-    50 exchanges back to back (the epoch's two slots)."""
+    50 exchanges back to back (the epoch's two slots), on each route: the
+    one the ranks take (the stream route: they share the card) and the SM
+    route (``cuda_halo.ROUTE = "sms"``, a rank with a card to itself),
+    with each route's launches counted."""
     from savgol_tpu_torch.ops import cuda_halo as ch
     from savgol_tpu_torch.parallel import halo_exchange_rdma_rows
     from savgol_tpu_torch.parallel.sharded import mesh_axis
 
     dev = torch.device(dev_type)
     cases = 0
-    ch.reset_launches()
-    for P, shape in ((2, (2, 2)), (4, (1, RING))):
-        group, idx, _ = mesh_axis(_rank_mesh(("batch", "seq"), shape, dev),
-                                 "seq")
-        for dtype in (torch.float32, torch.float64):
-            g = torch.Generator(device=dev).manual_seed(P)
-            for rows in (1, 3, 128):
-                for n in (1, 12, 32):
-                    L = 2 * n + 7
-                    x = torch.randn(rows, P * L, generator=g, device=dev,
-                                    dtype=dtype)
-                    lo, ro = ((idx - 1) % P) * L + L - n, ((idx + 1) % P) * L
-                    blk = x[:, idx * L:(idx + 1) * L]
-                    tail, head = blk[:, -n:].contiguous(), blk[:, :n].contiguous()
-                    left, right = ch.halo_exchange_cuda(tail, head, group)
-                    pl, pr = ch.halo_exchange_plain(tail.cpu(), head.cpu(),
-                                                    group)
-                    require(torch.equal(left, x[:, lo:lo + n])
-                            and torch.equal(right, x[:, ro:ro + n])
-                            and torch.equal(pl, left.cpu())
-                            and torch.equal(pr, right.cpu()),
-                            f"K13 P={P} rows={rows} n={n} {dtype} rank {idx}")
-                    cases += 1
-            for ny in (1, 5):
-                for C in (5, 2048):
-                    R = 2 * ny + 3
-                    x = torch.randn(2, P * R, C, generator=g, device=dev,
-                                    dtype=dtype)
-                    lo, ro = ((idx - 1) % P) * R + R - ny, ((idx + 1) % P) * R
-                    top, bot = halo_exchange_rdma_rows(
-                        x[:, idx * R:(idx + 1) * R].contiguous(), ny, group)
-                    require(torch.equal(top, x[:, lo:lo + ny])
-                            and torch.equal(bot, x[:, ro:ro + ny]),
-                            f"K13 rows P={P} ny={ny} C={C} {dtype} rank {idx}")
-                    cases += 1
-    _sync(dev)
-    launched = ch.LAUNCHES["halo_ring"]
-    require(dev.type != "cuda" or launched == cases,
-            f"K13 grid launched {launched} of {cases}")
-    group1, _, size1 = mesh_axis(
-        _rank_mesh(("batch", "seq"), (RING, 1), dev), "seq")
-    t = torch.randn(3, 12, device=dev)
-    left, right = ch.halo_exchange_cuda(t, t + 1, group1)
-    require(size1 == 1 and ch.LAUNCHES["halo_ring"] == launched
-            and torch.equal(left, t) and torch.equal(right, t + 1),
-            "a ring of one must return its own blocks without a launch")
-    group, idx, _ = mesh_axis(
-        _rank_mesh(("batch", "seq"), (1, RING), dev), "seq")
-    x = torch.randn(B_FULL, RING * 64, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(9))
-    lo, ro = ((idx - 1) % RING) * 64 + 52, ((idx + 1) % RING) * 64
-    blk = x[:, idx * 64:(idx + 1) * 64]
-    outs = [ch.halo_exchange_cuda(blk[:, -12:] + i, blk[:, :12] + i, group)
-            for i in range(50)]
-    _sync(dev)
-    for i, (left, right) in enumerate(outs):
-        require(torch.equal(left, x[:, lo:lo + 12] + i)
-                and torch.equal(right, x[:, ro:ro + 12] + i),
-                f"exchange {i} of 50 back to back, rank {idx}")
-    return cases, len(outs)
+    back = 0
+    for route, recv in ((None, 1), ("sms", 0)):
+        ch.ROUTE = route
+        _sync(dev)
+        ch.reset_launches()
+        cases = 0
+        for P, shape in ((2, (2, 2)), (4, (1, RING))):
+            group, idx, _ = mesh_axis(
+                _rank_mesh(("batch", "seq"), shape, dev), "seq")
+            for dtype in (torch.float32, torch.float64):
+                g = torch.Generator(device=dev).manual_seed(P)
+                for rows in (1, 3, 128):
+                    for n in (1, 12, 32):
+                        L = 2 * n + 7
+                        x = torch.randn(rows, P * L, generator=g,
+                                        device=dev, dtype=dtype)
+                        lo = ((idx - 1) % P) * L + L - n
+                        ro = ((idx + 1) % P) * L
+                        blk = x[:, idx * L:(idx + 1) * L]
+                        tail = blk[:, -n:].contiguous()
+                        head = blk[:, :n].contiguous()
+                        left, right = ch.halo_exchange_cuda(tail, head, group)
+                        pl, pr = ch.halo_exchange_plain(tail.cpu(),
+                                                        head.cpu(), group)
+                        require(torch.equal(left, x[:, lo:lo + n])
+                                and torch.equal(right, x[:, ro:ro + n])
+                                and torch.equal(pl, left.cpu())
+                                and torch.equal(pr, right.cpu()),
+                                f"K13 {route} P={P} rows={rows} n={n} "
+                                f"{dtype} rank {idx}")
+                        cases += 1
+                for ny in (1, 5):
+                    for C in (5, 2048):
+                        R = 2 * ny + 3
+                        x = torch.randn(2, P * R, C, generator=g, device=dev,
+                                        dtype=dtype)
+                        lo = ((idx - 1) % P) * R + R - ny
+                        ro = ((idx + 1) % P) * R
+                        top, bot = halo_exchange_rdma_rows(
+                            x[:, idx * R:(idx + 1) * R].contiguous(), ny,
+                            group)
+                        require(torch.equal(top, x[:, lo:lo + ny])
+                                and torch.equal(bot, x[:, ro:ro + ny]),
+                                f"K13 {route} rows P={P} ny={ny} C={C} "
+                                f"{dtype} rank {idx}")
+                        cases += 1
+        _sync(dev)
+        launched = dict(ch.LAUNCHES)
+        require(dev.type != "cuda" or launched == {
+            "halo_send": cases, "halo_recv": recv * cases},
+            f"K13 grid ({route}) launched {launched} for {cases} exchanges")
+        group1, _, size1 = mesh_axis(
+            _rank_mesh(("batch", "seq"), (RING, 1), dev), "seq")
+        t = torch.randn(3, 12, device=dev)
+        left, right = ch.halo_exchange_cuda(t, t + 1, group1)
+        require(size1 == 1 and ch.LAUNCHES == launched
+                and torch.equal(left, t) and torch.equal(right, t + 1),
+                "a ring of one must return its own blocks without a launch")
+        group, idx, _ = mesh_axis(
+            _rank_mesh(("batch", "seq"), (1, RING), dev), "seq")
+        x = torch.randn(B_FULL, RING * 64, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9))
+        lo, ro = ((idx - 1) % RING) * 64 + 52, ((idx + 1) % RING) * 64
+        blk = x[:, idx * 64:(idx + 1) * 64]
+        outs = [ch.halo_exchange_cuda(blk[:, -12:] + i, blk[:, :12] + i,
+                                      group) for i in range(50)]
+        _sync(dev)
+        for i, (left, right) in enumerate(outs):
+            require(torch.equal(left, x[:, lo:lo + 12] + i)
+                    and torch.equal(right, x[:, ro:ro + 12] + i),
+                    f"exchange {i} of 50 back to back ({route}), rank {idx}")
+        back += len(outs)
+    ch.ROUTE = None
+    return cases, back
 
 
 def rank_sharded_1d(dev_type: str = "cuda", shape=(B_FULL, N_FULL)):
@@ -2303,7 +2331,8 @@ def rank_sharded_1d(dev_type: str = "cuda", shape=(B_FULL, N_FULL)):
     args = (xl, f.center_weights, f.edge_weights)
     kw = dict(half_window=12, mesh=m, dt_inv=f.dt_inv, halo="rdma")
     y, launches = _rank_counted(dev, lambda: apply_sharded(*args, **kw),
-                                {"halo_ring": 1, "corr1d_valid": 1},
+                                {"halo_send": 1, "halo_recv": 1,
+                                 "corr1d_valid": 1},
                                 "apply_sharded(halo='rdma')")
     require(y.shape == xl.shape and bool(torch.isfinite(y).all()),
             "sharded output shape / finiteness")
@@ -2335,6 +2364,8 @@ def rank_sharded_1d(dev_type: str = "cuda", shape=(B_FULL, N_FULL)):
 
     t = {"K13": _time(dev, lambda: ch.halo_exchange_cuda(tail, head,
                                                            group), reps=50),
+         "K13 host": _host(dev, lambda: ch.halo_exchange_cuda(tail, head,
+                                                              group)),
          "K13 plain": _time(dev, plain_staged, reps=20),
          "apply_sharded": _time(dev, lambda: apply_sharded(*args, **kw))}
     t["Savgol1D.apply alone"] = _alone(idx == 0, lambda: _time(
@@ -2361,9 +2392,10 @@ def rank_sharded_2d(dev_type: str = "cuda", shape=IMG_FULL):
     out = {}
     for name, names, shape, spec, extra, want in (
             ("rows", ("batch", "seq"), (1, RING), (None, "seq", None), {},
-             {"halo_ring": 1, "corr2d_valid": 1}),
+             {"halo_send": 1, "halo_recv": 1, "corr2d_valid": 1}),
             ("tiled", ("seq", "cols"), (2, 2), (None, "seq", "cols"),
-             {"col_axis": "cols"}, {"halo_ring": 2, "corr2d_valid": 1})):
+             {"col_axis": "cols"},
+             {"halo_send": 2, "halo_recv": 2, "corr2d_valid": 1})):
         m = _rank_mesh(names, shape, dev)
         xl = shard(x, m, spec)
         # (a CPU rehearsal tiles by point-to-point sends: K13 needs CUDA
@@ -2395,8 +2427,8 @@ def rank_sharded_2d(dev_type: str = "cuda", shape=IMG_FULL):
 
 def rank_sharded_grads(dev_type: str = "cuda"):
     """f64 gradients of sum(y ** 2) through K13 (forward and backward, one
-    launch each) against the single-device ones: 1D POLYNOMIAL and
-    PERIODIC, 2D rows REFLECT."""
+    exchange each: halo_send and halo_recv) against the single-device ones:
+    1D POLYNOMIAL and PERIODIC, 2D rows REFLECT."""
     import savgol_tpu_torch as sgt
     from savgol_tpu_torch.ops import cuda_halo as ch
     from savgol_tpu_torch.parallel import apply2d_sharded, apply_sharded, shard
@@ -2428,11 +2460,12 @@ def rank_sharded_grads(dev_type: str = "cuda"):
                   lambda v: f2.apply(v, boundary="reflect")))
     for name, xg, spec, sharded, single in cases:
         xl = shard(xg, m, spec).requires_grad_()
-        before = ch.LAUNCHES["halo_ring"]
+        before = dict(ch.LAUNCHES)
         g, = torch.autograd.grad(sharded(xl).square().sum(), xl)
         _sync(dev)
-        require(dev.type != "cuda" or ch.LAUNCHES["halo_ring"] == before + 2,
-                f"{name}: K13 must run once forward and once backward")
+        require(dev.type != "cuda" or all(
+            ch.LAUNCHES[k] == before[k] + 2 for k in before),
+            f"{name}: K13 must run once forward and once backward")
         xs = xg.clone().requires_grad_()
         gs, = torch.autograd.grad(single(xs).square().sum(), xs)
         e = (g - shard(gs, m, spec)).abs().max().item()
@@ -2444,19 +2477,21 @@ def rank_sharded_grads(dev_type: str = "cuda"):
 def sharded_phases(card, dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
                    shape2d=IMG_FULL) -> dict:
     """Phases 26-29 on one pool of RING ranks sharing the card: the K13
-    grid, the 1D and 2D headlines sharded with ``halo="rdma"``, and the
-    gradients. Returns K13's record for the kernels line."""
+    grid, the 1D and 2D headlines sharded with ``halo="rdma"``, the
+    gradients and bf16; then phase 29b, K13 in one process. Returns K13's
+    record for the kernels line."""
     from savgol_tpu_torch.parallel.launch import Pool
 
     t0 = time.perf_counter()
     with Pool(RING, device=dev_type) as pool:
         cases, back = pool.run(rank_k13_grid, dev_type)[0]
-        print(f"K13 grid: {cases} cases a rank (rows 1/3/128 x n 1/12/32 x "
-              f"f32/f64 on rings of 2 and {RING}; row blocks ny 1/5 x C "
-              f"5/2048), bit for bit against the neighbours' slices and "
-              f"the plain version; a ring of one launches nothing; {back} "
-              f"exchanges back to back, each exact ({RING} ranks on one "
-              f"card)")
+        print(f"K13 grid: {cases} cases a rank and route (rows 1/3/128 x n "
+              f"1/12/32 x f32/f64 on rings of 2 and {RING}; row blocks ny "
+              f"1/5 x C 5/2048) on the stream route (halo_send + halo_recv) "
+              f"and the SM route (halo_send), bit for bit against the "
+              f"neighbours' slices and the plain version; a ring of one "
+              f"launches nothing; {back} exchanges back to back, each exact "
+              f"({RING} ranks on one card)")
         r1 = pool.run(rank_sharded_1d, dev_type, shape1d)
         t_1d = time.perf_counter()
         errs = {b: max(r["errs"][b] for r in r1) for b in r1[0]["errs"]}
@@ -2504,21 +2539,66 @@ def sharded_phases(card, dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
               + ", ".join(f"{r['t']['1D']:.4f}" for r in rb) + " ms, 2D rows "
               + ", ".join(f"{r['t']['2D rows']:.4f}" for r in rb)
               + f" ms [{card}]")
+    t_one = time.perf_counter()
+    one = one_process_phase(card) if dev_type == "cuda" else None
     t_end = time.perf_counter()
     print(f"wall time sharded phases: pool start, K13 grid and 1D "
           f"{t_1d - t0:.1f} s, 2D {t_2d - t_1d:.1f} s, gradients "
-          f"{t_grads - t_2d:.1f} s, bf16 and shutdown {t_end - t_grads:.1f} "
-          f"s")
+          f"{t_grads - t_2d:.1f} s, bf16 and shutdown {t_one - t_grads:.1f} "
+          f"s, one process {t_end - t_one:.1f} s")
     halo_bytes = RING * 4 * shape1d[0] * 12 * 4
-    return {"name": "halo_ring", "route": "cuda",
-            "source": "savgol_tpu_torch/csrc/halo_ring.cu",
-            "replaces": "savgol_tpu/parallel/ici_halo.py:39",
-            "launches": r1[0]["launches"].get("halo_ring", 0),
-            "max_abs_err": max(r["k13_err"] for r in r1),
-            "ms": t1["K13"][0], "plain_ms": t1["K13 plain"][0],
-            **bound(halo_bytes, 0), "library_ms": None,
-            "ms_by_rank": t1["K13"], "ranks_sharing_one_card": RING,
-            "rows_2d_ms": r2[0]["K13 rows"]}
+    per_exchange = {k: v for k, v in r1[0]["launches"].items()
+                    if k.startswith("halo_")}
+    rec = {"name": "halo_ring", "route": "cuda",
+           "source": "savgol_tpu_torch/csrc/halo_ring.cu",
+           "replaces": "savgol_tpu/parallel/ici_halo.py:39",
+           "launches": per_exchange.get("halo_send", 0),
+           "launches_per_exchange": per_exchange,
+           "max_abs_err": max(r["k13_err"] for r in r1),
+           "ms": t1["K13"][0], "plain_ms": t1["K13 plain"][0],
+           **bound(halo_bytes, 0), "library_ms": None,
+           "ms_by_rank": t1["K13"], "ranks_sharing_one_card": RING,
+           "rows_2d_ms": r2[0]["K13 rows"],
+           "rows_2d_ms_by_rank": [r["K13 rows"] for r in r2],
+           "rows_2d_bound_ms": bound(
+               RING * 4 * shape2d[0] * 5 * shape2d[2] * 4, 0)["bound_ms"]}
+    if one is not None:
+        rec.update(one_process_ms=one["b"]["1d"]["ms"],
+                   one_process_rows_2d_ms=one["b"]["rows"]["ms"],
+                   one_process_stream_route_ms=one["b stream route"]["1d"][
+                       "ms"],
+                   one_process_stream_route_rows_2d_ms=one[
+                       "b stream route"]["rows"]["ms"])
+    return rec
+
+
+def one_process_phase(card) -> dict:
+    """Phase 29b: K13 in one process and one context, four ring members on
+    four streams (``probes/halo_ab.py --only b``, in a process of its own so
+    that its streams get hardware queues of their own): the exchange's time
+    without the time-slicer, on the SM route (a rank with a card to itself)
+    and on the stream route, at the 1D headline and 2D rows halos, every
+    member's outputs bit for bit the neighbours' slices over 20 exchanges
+    back to back."""
+    probe = (pathlib.Path(__file__).resolve().parent / "savgol_tpu_torch"
+             / "probes" / "halo_ab.py")
+    done = subprocess.run([sys.executable, str(probe), "--only", "b"],
+                          capture_output=True, text=True, timeout=600)
+    require(done.returncode == 0,
+            f"halo_ab.py --only b exited {done.returncode}: "
+            f"{done.stderr[-3000:]}")
+    rec = json.loads(done.stdout.strip().splitlines()[-1])
+    for route in ("b", "b stream route"):
+        for size, r in rec[route].items():
+            require(r["exact"], f"K13 one process {route} {size}: outputs "
+                                "are not the neighbours' slices")
+    print("time K13 exchange in one process, 4 members on 4 streams (no "
+          "time-slicer; outputs bit for bit over 20 back to back): SM route "
+          + ", ".join(f"{k} {v['ms']:.4f}" for k, v in rec["b"].items())
+          + " ms; stream route " + ", ".join(
+              f"{k} {v['ms']:.4f}" for k, v in rec["b stream route"].items())
+          + f" ms [{card}]")
+    return rec
 
 
 # -- 30-35. method="bf16" and the attribution probes P2, P3 -------------------
@@ -3267,7 +3347,8 @@ def rank_sharded_bf16(dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
               method="bf16")
     args = (xl, f.center_weights, f.edge_weights)
     y, l1 = _rank_counted(dev, lambda: apply_sharded(*args, **kw),
-                          {"halo_ring": 1, "corr1d_valid": 1},
+                          {"halo_send": 1, "halo_recv": 1,
+                           "corr1d_valid": 1},
                           "apply_sharded(method='bf16')")
     c64, e64 = (torch.from_numpy(a).to(dev)
                 for a in savgol_weights_np(cfg, np.float64))
@@ -3289,7 +3370,8 @@ def rank_sharded_bf16(dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
                halo="rdma" if dev.type == "cuda" else "ppermute")
     y2, l2 = _rank_counted(dev, lambda: apply2d_sharded(il, f2.weights,
                                                         **kw2),
-                           {"halo_ring": 1, "corr2d_valid": 1},
+                           {"halo_send": 1, "halo_recv": 1,
+                            "corr2d_valid": 1},
                            "apply2d_sharded(method='bf16')")
     w64 = torch.from_numpy(savgol2d_weights_np(
         sgt.Savgol2DConfig(5, 5, 3), np.float64)).to(dev)

@@ -111,10 +111,16 @@ _SIGNATURES = {
        for x in ("f32", "f64") for t in ("32", "64")},
     # bytes a side -> blocks of the exchange
     "halo_ring_blocks": [_LL],
-    # tail, head, right buffer, left buffer, own buffer, out left, out right,
-    # bytes a side, slot stride, blocks, epoch, timeout ns, stream
-    "halo_ring": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, ctypes.c_ulonglong,
-                  _LL, _P],
+    # device -> 0 where it takes the exchange's stream memory operations
+    "halo_ring_check": [_I],
+    # tail, head, right buffer, left buffer, own buffer, out left, out
+    # right, bytes a side, slot stride, blocks, epoch, timeout ns (0: the
+    # stream route, halo_recv follows), stream
+    "halo_send": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I,
+                  ctypes.c_ulonglong, _LL, _P],
+    # own buffer, out left, out right, bytes a side, slot stride, blocks,
+    # epoch, timeout ns, stream
+    "halo_recv": [_P, _P, _P, _LL, _LL, _I, ctypes.c_ulonglong, _LL, _P],
 }
 
 

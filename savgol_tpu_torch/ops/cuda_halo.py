@@ -12,12 +12,19 @@ neighbour's ``tail`` and the right neighbour's ``head``, with wrap-around.
   module raises rather than hand it one.
 * The kernel takes CUDA tensors. Each rank shares one device buffer (two
   receive slots of each side and two arrival words) with its neighbours
-  once, through CUDA IPC handles, and one launch stores its blocks into the
-  neighbours' slots, waits for theirs and copies its own out. The ranks may
-  share one card (NCCL refuses that) or hold one each.
+  once, through CUDA IPC handles. ``halo_send`` stores this rank's blocks
+  into the neighbours' slots and signals them. A rank that has its card to
+  itself then waits for its neighbours on the SMs in the same launch and
+  copies its slots out: one launch an exchange (the SM route). A rank that
+  shares its card with another rank of the ring (several processes on one
+  card, which the card time-slices) leaves the wait to its stream's front
+  end, where it holds no SM, and ``halo_recv`` copies the slots out: two
+  launches an exchange (the stream route). The ring's ranks tell each
+  other their cards when the buffers are shared, and each picks its route.
 
 A ring of one is the identity and launches nothing. A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.
+plain version; a CUDA tensor launches the kernels or raises, and a device
+without 64-bit stream memory operations raises when its ring is made.
 """
 
 from __future__ import annotations
@@ -28,19 +35,37 @@ import torch.distributed as dist
 from savgol_tpu_torch._build import library
 from savgol_tpu_torch.ops.cuda_conv import _plain_or_cuda, _raise_on_error
 
-__all__ = ["LAUNCHES", "reset_launches", "release", "halo_exchange_cuda",
-           "halo_exchange_plain"]
+__all__ = ["LAUNCHES", "TIMEOUT_S", "ROUTE", "reset_launches", "release",
+           "halo_exchange_cuda", "halo_exchange_plain"]
 
-# Kernel launches since the last reset_launches(). Only the line that
-# launches the kernel adds to its count.
-LAUNCHES = {"halo_ring": 0}
+# Kernel launches since the last reset_launches(), by kernel. Only the line
+# that launches a kernel adds to its count: an exchange launches halo_send,
+# and halo_recv on the stream route.
+LAUNCHES = {"halo_send": 0, "halo_recv": 0}
 
-# A wait for the neighbours past this traps the kernel (csrc/halo_ring.cu):
-# ranks that share one card wait for each other's time slices, well under it.
+# A wait for the neighbours past this fails the exchange: halo_send traps on
+# the SM route, the library's watchdog releases the stream's wait and
+# halo_recv traps on the stream route (csrc/halo_ring.cu). Ranks that share
+# one card wait for each other's time slices, well under it. Read at each
+# exchange.
 TIMEOUT_S = 10.0
 
-_FLAG_BYTES = 256    # csrc/halo_ring.cu kFlagBytes
+# None: each rank's route as its ring's cards decide (the stream route where
+# another rank of the ring shares its card); "sms" or "stream": that route
+# for every exchange. Read at each exchange; the routes share one protocol,
+# so the ranks of a ring may take different ones.
+ROUTE = None
+
+_FLAG_BYTES = 512    # csrc/halo_ring.cu kFlagBytes
+_PARITIES = 2        # csrc/halo_ring.cu kParities
 _ALIGN = 256
+# halo_ring_check's answers other than 0
+_UNSUPPORTED = {
+    1: "cuStreamBatchMemOp or cuDeviceGetAttribute was not found",
+    2: "the device does not support 64-bit stream memory operations "
+       "(CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS is 0)",
+    3: "cuDeviceGetAttribute could not say whether the device supports "
+       "64-bit stream memory operations"}
 
 # (group, device, bytes a side) -> _Ring
 _RINGS: dict = {}
@@ -110,20 +135,32 @@ class _Ring:
 
         size, _, _ = _neighbours(group)
         me = dist.get_rank(group)
+        card = str(torch.cuda.get_device_properties(device).uuid)
+        lib = library()
+        why = _UNSUPPORTED.get(lib.halo_ring_check(device.index))
+        if why is not None:
+            # no fallback: the stream route waits with stream memory
+            # operations
+            raise RuntimeError(f"halo_exchange_cuda: {device}: {why}; kernel "
+                               "K13 has no other way to wait")
         self.stride = -(-nbytes // _ALIGN) * _ALIGN
-        self.blocks = library().halo_ring_blocks(nbytes)
-        self.buf = torch.zeros(_FLAG_BYTES + 4 * self.stride,
+        self.blocks = lib.halo_ring_blocks(nbytes)
+        self.buf = torch.zeros(_FLAG_BYTES + 2 * _PARITIES * self.stride,
                                dtype=torch.uint8, device=device)
-        # the zeroed arrival words must land before a neighbour's first add
+        # the zeroed arrival words must land before a neighbour's first signal
         torch.cuda.synchronize(device)
-        handles = [None] * size
-        dist.all_gather_object(handles, reduce_tensor(self.buf), group=group)
+        shared = [None] * size
+        dist.all_gather_object(shared, (reduce_tensor(self.buf), card),
+                               group=group)
         peers = {}
         for r in ((me - 1) % size, (me + 1) % size):
             if r not in peers:
-                peers[r] = _open_peer(handles[r])
+                peers[r] = _open_peer(shared[r][0])
         self.left = peers[(me - 1) % size]
         self.right = peers[(me + 1) % size]
+        # another rank on this card: the card time-slices our contexts
+        self.route = ("stream" if sum(c == card for _, c in shared) > 1
+                      else "sms")
         self.epoch = 0
         self.stream = None
 
@@ -146,10 +183,11 @@ def halo_exchange_cuda(tail: torch.Tensor, head: torch.Tensor,
                        group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(left, right)`` of a ring exchange of ``tail`` and ``head``.
 
-    CUDA tensors: kernel K13, one launch on the current stream, no
-    synchronisation. The first call of a ring with a given block size
-    shares the buffers (a collective on ``group``). All ranks must call with
-    blocks of the same size, in the same order. CPU tensors:
+    CUDA tensors: kernel K13 on the current stream, no synchronisation:
+    ``halo_send`` on the SM route, ``halo_send`` and ``halo_recv`` on the
+    stream route (:data:`ROUTE`). The first call of a ring with a given
+    block size shares the buffers (a collective on ``group``). All ranks
+    must call with blocks of the same size, in the same order. CPU tensors:
     :func:`halo_exchange_plain`.
     """
     name = "halo_exchange_cuda"
@@ -172,13 +210,23 @@ def halo_exchange_cuda(tail: torch.Tensor, head: torch.Tensor,
     ring.stream = stream
     ring.epoch += 1
     lib = library()
+    timeout_ns = int(TIMEOUT_S * 1e9)
+    on_sms = (ROUTE or ring.route) == "sms"
     with torch.cuda.device(tail.device):
-        err = lib.halo_ring(tail.data_ptr(), head.data_ptr(),
+        err = lib.halo_send(tail.data_ptr(), head.data_ptr(),
                             ring.right.data_ptr(), ring.left.data_ptr(),
                             ring.buf.data_ptr(), left.data_ptr(),
                             right.data_ptr(), nbytes, ring.stride,
-                            ring.blocks, ring.epoch, int(TIMEOUT_S * 1e9),
+                            ring.blocks, ring.epoch,
+                            timeout_ns if on_sms else 0, stream.cuda_stream)
+        _raise_on_error(err, name)
+        LAUNCHES["halo_send"] += 1
+        if on_sms:
+            return left, right
+        err = lib.halo_recv(ring.buf.data_ptr(), left.data_ptr(),
+                            right.data_ptr(), nbytes, ring.stride,
+                            ring.blocks, ring.epoch, timeout_ns,
                             stream.cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["halo_ring"] += 1
+        _raise_on_error(err, name)
+        LAUNCHES["halo_recv"] += 1
     return left, right

@@ -47,7 +47,7 @@ import torch.distributed as dist
 from savgol_tpu_torch._device import card_unless_named
 
 __all__ = ["Pool", "Sharded", "Full", "mesh", "run_sharded", "run_error",
-           "run_halo"]
+           "run_halo", "run_broken_ring"]
 
 # how long a collective of a rank waits for the others before it fails,
 # and how long Pool.run waits for every rank's answer
@@ -271,15 +271,18 @@ def run_error(entry: str, axis_names: tuple, shape: tuple, args: list,
 
 def run_halo(axis_names: tuple, shape: tuple, x, spec, n: int, rows: bool,
              cotangents=None, seq_axis: str = "seq",
-             device: Optional[str] = None):
+             device: Optional[str] = None, route: Optional[str] = None):
     """SPMD body: ``halo_exchange_rdma`` (``rows=False``, last axis) or
     ``halo_exchange_rdma_rows`` of this rank's block of the global numpy
     ``x`` over the ring of mesh axis ``seq_axis``. Returns the gathered
     ``(left, right)`` halos (cut like ``x``), the gradient of
     ``sum(left * cl) + sum(right * cr)`` for global ``cotangents`` ``(cl,
-    cr)`` (None without them), K13's launches in the call, and, for CUDA
-    tensors, whether the plain version (through the host on a ``gloo``
-    group) gives the same halos bit for bit (None on the CPU)."""
+    cr)`` (None without them), K13's exchanges in the call (its launches
+    of ``halo_send``, which those of ``halo_recv`` equal on the stream route
+    and leave at 0 on the SM route; the pair of counts otherwise), and, for
+    CUDA tensors, whether the plain version (through the host on a ``gloo``
+    group) gives the same halos bit for bit (None on the CPU). ``route``
+    sets ``cuda_halo.ROUTE`` for the call (None: each rank's own)."""
     from savgol_tpu_torch.ops import cuda_halo
     from savgol_tpu_torch.parallel.ici_halo import (halo_exchange_rdma,
                                                     halo_exchange_rdma_rows)
@@ -291,17 +294,23 @@ def run_halo(axis_names: tuple, shape: tuple, x, spec, n: int, rows: bool,
     xl = shard(torch.as_tensor(np.asarray(x), device=device), m, spec)
     xl.requires_grad_(cotangents is not None)
     fn = halo_exchange_rdma_rows if rows else halo_exchange_rdma
-    before = cuda_halo.LAUNCHES["halo_ring"]
-    left, right = fn(xl, n, group)
-    grad = None
-    if cotangents is not None:
-        cl, cr = (shard(torch.as_tensor(np.asarray(c), device=device), m,
-                        spec) for c in cotangents)
-        loss = (left * cl).sum() + (right * cr).sum()
-        grad = gather(torch.autograd.grad(loss, xl)[0], m, spec).numpy()
+    before = dict(cuda_halo.LAUNCHES)
+    cuda_halo.ROUTE = route
+    try:
+        left, right = fn(xl, n, group)
+        grad = None
+        if cotangents is not None:
+            cl, cr = (shard(torch.as_tensor(np.asarray(c), device=device), m,
+                            spec) for c in cotangents)
+            loss = (left * cl).sum() + (right * cr).sum()
+            grad = gather(torch.autograd.grad(loss, xl)[0], m, spec).numpy()
+    finally:
+        cuda_halo.ROUTE = None
     if device == "cuda":
         torch.cuda.synchronize()
-    launches = cuda_halo.LAUNCHES["halo_ring"] - before
+    sends, recvs = (cuda_halo.LAUNCHES[k] - before[k]
+                    for k in ("halo_send", "halo_recv"))
+    launches = sends if recvs in (0, sends) else (sends, recvs)
     plain_equal = None
     if xl.device.type == "cuda":
         C = xl.shape[-1] if rows else 1
@@ -315,3 +324,34 @@ def run_halo(axis_names: tuple, shape: tuple, x, spec, n: int, rows: bool,
     return (gather(left.detach(), m, spec).numpy(),
             gather(right.detach(), m, spec).numpy(), grad, launches,
             plain_equal)
+
+
+def run_broken_ring(skip_rank: int, timeout_s: float,
+                    route: Optional[str] = None):
+    """SPMD body on a CUDA pool: one K13 exchange over the pool's group,
+    then a second that rank ``skip_rank`` leaves out, with
+    ``cuda_halo.TIMEOUT_S`` set to ``timeout_s`` and ``cuda_halo.ROUTE`` to
+    ``route``. Returns ``(what, seconds, message)``: "skipped" on
+    ``skip_rank``; elsewhere "raised" or "returned" and the host seconds
+    from the second exchange's call to the end of the synchronise after it.
+    A broken ring must raise there (``halo_send`` traps on the SM route; on
+    the stream route the watchdog releases the wait and ``halo_recv``
+    traps), never hang. The card's context of a rank that raised is lost,
+    so end the pool after."""
+    from savgol_tpu_torch.ops import cuda_halo
+
+    cuda_halo.TIMEOUT_S = timeout_s
+    cuda_halo.ROUTE = route
+    t = torch.arange(12.0, device="cuda") + dist.get_rank()
+    cuda_halo.halo_exchange_cuda(t, t + 100, dist.group.WORLD)
+    torch.cuda.synchronize()
+    dist.barrier()
+    if dist.get_rank() == skip_rank:
+        return "skipped", 0.0, ""
+    start = time.monotonic()
+    try:
+        cuda_halo.halo_exchange_cuda(t, t + 100, dist.group.WORLD)
+        torch.cuda.synchronize()
+    except Exception as e:     # noqa: BLE001 - the error is the result
+        return "raised", time.monotonic() - start, str(e)
+    return "returned", time.monotonic() - start, ""

@@ -1,9 +1,9 @@
-"""Times design alternatives of eight kernels against the kernels as they
+"""Times design alternatives of nine kernels against the kernels as they
 stand, in turns, in one process on the card:
 
     python -m savgol_tpu_torch.probes.variants [dense] [bf16] [k8a] [k11]
-        [k8b] [sg1d] [sep] [k12] [census] [--root DIR] [--only NAME ...]
-        [--dry-run]
+        [k8b] [sg1d] [sep] [k12] [k13] [census] [--root DIR]
+        [--only NAME ...] [--dry-run]
 
 Each alternative is this checkout's source with a few lines replaced
 (``VARIANTS``; an edit may name a header the source includes): the exact
@@ -25,7 +25,9 @@ with rings past 113 KB on the tiles, with the runtime-width passes
 unrolled less, without its L1 prefetch, with an L2 one, other register
 caps and shorter bands; K12 (``csrc/resample.cu``) with one, four or
 eight rows a thread in its compile-time-m form and two in its runtime
-one, blocks of 128 queries and no register cap. Attribution
+one, blocks of 128 queries and no register cap; K13's stream route
+(``csrc/halo_ring.cu``) with ``halo_send`` waiting 5 or 20 us on the SMs
+before the stream's wait, and with 32-bit wait operations. Attribution
 edits sit beside
 them: K11's moment pass alone (the solve replaced by c = r) and its solve
 alone (moments set from the centre sample, no tap loop), K8b's solve alone
@@ -33,7 +35,10 @@ alone (moments set from the centre sample, no tap loop), K8b's solve alone
 its band products replaced by a copy (``stage_store``) or its device
 loads by constants (``no_loads``), K12 with its plane loads replaced by
 values made from the centre (``no_loads``) or every thread returning at
-once (``empty``: the launch alone), and K7 with its column pass cut to one
+once (``empty``: the launch alone), K13's stream route without the
+stream's wait (``no_wait``) or ``halo_recv``'s launch (``no_recv``) (and,
+with exact outputs, without the watchdog's events, ``no_events``), and K7
+with its column pass cut to one
 tap (``row_only``), its row pass to one group of four (``col_only``) or
 both (``stage_store``): their outputs differ from the kernel's by design,
 so no checksum holds them. Each is built with ``nvcc -shared -Xptxas -v``
@@ -54,7 +59,13 @@ positions, k = 5, f32 and f64 pairs), and the bf16 1D tile at the 1D
 headline (128, 1,048,576), n = 12 (K1-bf16 both storages, K2-bf16
 symmetric in bf16 and wrap in f32 storage), and K12 at the resample row
 (8 x 131,072 planes, 131,072 queries; m = 4, 7 and 9, B = 1, 8 and 17,
-f32 and f64). An alternative whose lines
+f32 and f64), and K13 in both harnesses of ``probes/halo_ab.py`` at its
+1D headline and 2D rows halos: one process with four ring members on four
+streams on the stream route (``device_ms``, every member's outputs checked
+bit for bit but under the attribution edits), and
+four spawned ranks that share the card, each loading every build and
+timing it in turns on ``cuda_time_ms`` (``ms`` under ``k13 four ranks``,
+the medians of four rounds by rank). An alternative whose lines
 the source no longer has is reported as stale and not built.
 
 ``census`` builds every source of the checkout to a cubin with ``-Xptxas
@@ -75,6 +86,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -101,6 +113,15 @@ _WIDTHS = "".join(
     "mode, s);\n" for w in (3, 5, 7, 9, 11, 13, 15, 17))
 
 _SG1D_BOUNDS = "(sg1b::kThreads, KC < 9 ? 5 : 4)"
+
+
+def _k13_spin(ns: int) -> tuple:
+    """K13's halo_send waiting at most ``ns`` on the SMs on the stream
+    route."""
+    return ("constexpr long long kStreamRouteSpinNs = 0;",
+            f"constexpr long long kStreamRouteSpinNs = {ns};")
+
+
 _SEP_COL_ONE_TAP = ("  for (int i = 0; i < kQRS + H - 1; ++i) {",
                     "  for (int i = 0; i < kQRS; ++i) {")
 _SEP_ROW_FOUR_TAPS = ("  for (int q = 0; q < (W + 3) / 4; ++q) {",
@@ -285,12 +306,44 @@ VARIANTS = {
                       "        p[r][k] = T(k + 1) + T(c & 7);")],
         "empty": [("  if (q >= Nq) return;", "  if (q >= 0) return;")],
     }),
+    # K13's stream route: halo_send waiting 5 us or 20 us on the SMs before
+    # the stream's wait (one look as it is); a 32-bit wait operation;
+    # attribution: without the watchdog's two events (no_events, exact),
+    # without the stream's wait (no_wait) or halo_recv's launch (no_recv).
+    # Timed in both harnesses of probes/halo_ab.py.
+    "k13": ("halo_ring.cu", {
+        "as_is": [],
+        "spin_5us": [_k13_spin(5000)],
+        "spin_20us": [_k13_spin(20000)],
+        "wait32": [
+            ("  op.waitValue.operation = CU_STREAM_MEM_OP_WAIT_VALUE_64;",
+             "  op.waitValue.operation = CU_STREAM_MEM_OP_WAIT_VALUE_32;"),
+            ("  op.waitValue.value64 = value;",
+             "  op.waitValue.value = static_cast<cuuint32_t>(value);")],
+        "no_events": [
+            ("  if (err == cudaSuccess) err = cudaEventRecord(p.waiting, s);\n",
+             ""),
+            ("  if (err == cudaSuccess) err = cudaEventRecord(p.done, s);\n",
+             ""),
+            ("  dog.watch(p);\n", "")],
+        "no_wait": [
+            ("  const int r = batch(reinterpret_cast<CUstream>(s), ops, "
+             "kWords);\n", "  const int r = 0;\n")],
+        "no_recv": [
+            ("  halo_recv_kernel<<<blocks, kThreads, 0, s>>>(\n"
+             "      static_cast<const char*>(my_buf), static_cast<char*>"
+             "(out_left),\n"
+             "      static_cast<char*>(out_right), nbytes, slot(epoch, 0, "
+             "stride),\n"
+             "      slot(epoch, 1, stride), chunk_of(nbytes, blocks), epoch, "
+             "target);\n", "")],
+    }),
 }
 
 # variants whose outputs differ from the kernel's by design
 ATTRIBUTION = {"moments_only", "solve_only", "no_loads", "stage_store",
                "row_only", "col_only", "empty", "no_taps",
-               "no_store", "no_lds"}
+               "no_store", "no_lds", "no_wait", "no_recv"}
 
 _X = "sg1d_exact.cuh"
 _EXACT_Q = "constexpr int kQF32 = 12;\nconstexpr int kQF64 = 10;"
@@ -572,6 +625,52 @@ def _in_turns(cases: dict, libs: dict, rounds: int = 4) -> dict:
                    for name, t in by.items()} for case, by in times.items()}
 
 
+def k13_rank(paths: dict, reps: int = 20, rounds: int = 4) -> dict:
+    """Harness (a) for the K13 builds, a rank's body: each build at
+    ``paths`` loaded with the package's C signatures and put under
+    ``ops.cuda_halo`` in turn (its rings made anew), one exchange at each of
+    ``probes.halo_ab.HALOS`` timed on ``cuda_time_ms``, in ``rounds``
+    rounds whose order alternates. {case: {build: [ms a round]}}."""
+    import torch
+    import torch.distributed as dist
+
+    from savgol_tpu_torch import _build
+    from savgol_tpu_torch.ops import cuda_halo as ch
+    from savgol_tpu_torch.probes.halo_ab import HALOS
+    from savgol_tpu_torch.utils.timing import cuda_time_ms
+
+    libs = {}
+    for name, path in paths.items():
+        lib = libs[name] = ctypes.CDLL(path)
+        for fn, args in _build._SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = ctypes.c_int
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(dist.get_rank())
+    halos = {n: [torch.randn(s, generator=gen, device=dev) for _ in "th"]
+             for n, s in HALOS.items()}
+    times: dict = {}
+    try:
+        for r in range(rounds):
+            for name in list(libs) if r % 2 == 0 else list(libs)[::-1]:
+                torch.cuda.synchronize()
+                ch.release()
+                dist.barrier()
+                ch.library = lambda lib=libs[name]: lib
+                for size, (t, h) in halos.items():
+                    times.setdefault(f"K13 {size} four ranks", {}).setdefault(
+                        name, []).append(cuda_time_ms(
+                            lambda: ch.halo_exchange_cuda(t, h, dist.group.WORLD),
+                            reps=reps))
+    finally:
+        torch.cuda.synchronize()
+        ch.release()
+        ch.library = _build.library
+        dist.barrier()
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernels", nargs="*", default=list(VARIANTS))
@@ -590,6 +689,10 @@ def main() -> int:
             print(kernel, sorted(paths), "stale:", stale)
         return 0
 
+    if "k13" in kernels:
+        # before this process's first CUDA call: four ring members on four
+        # streams need a hardware queue each (halo_ab.py)
+        os.environ["CUDA_DEVICE_MAX_CONNECTIONS"] = "32"
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -846,6 +949,32 @@ def main() -> int:
                     keep[0][5])
             checked(kernel + " k=8", same,
                     cases["K8b f32 pairs k=8 8x131072"], keep[2][5])
+        elif kernel == "k13":
+            from savgol_tpu_torch.parallel.launch import Pool
+            from savgol_tpu_torch.probes.halo_ab import HALOS, Members
+            # the ranks take the default hardware queues, as in chip_smoke.py
+            os.environ.pop("CUDA_DEVICE_MAX_CONNECTIONS", None)
+            with Pool(4, device="cuda") as pool:
+                ranks = pool.run(k13_rank, {
+                    n: str(p.with_suffix(".so")) for n, p in paths.items()})
+            record["ms"]["k13 four ranks"] = {
+                case: {name: [statistics.median(r[case][name]) for r in ranks]
+                       for name in by} for case, by in ranks[0].items()}
+            names = {id(lib): name for name, lib in libs.items()}
+            keep = {}
+            for size, shape in HALOS.items():
+                for name, lib in libs.items():
+                    m = keep[(name, size)] = Members(lib, shape,
+                                                     route="stream")
+                    for _ in range(3):
+                        m.exchange()
+                    if name not in ATTRIBUTION and not m.exact():
+                        raise SystemExit(f"k13/{name} {size}: outputs are "
+                                         "not the neighbours' slices")
+            cases = {f"K13 {size} one process":
+                     (lambda size: lambda L: keep[(names[id(L)],
+                                                   size)].exchange())(size)
+                     for size in HALOS}
         elif kernel == "k12":
             # the resample row: (8, 131,072) planes, 131,072 sorted queries
             # over the span of t, centres clamped to full windows of 25

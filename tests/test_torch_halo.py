@@ -13,15 +13,19 @@ bit for bit (``assert_array_equal``); the gradients, sums of at most two
 cotangents, within 1e-12 where JAX adds them in another order.
 
 The tests marked ``cuda`` hold K13 against its plain version on one card,
-two ranks sharing it, and skip without one (on-card lane:
+two ranks sharing it, and show that a broken ring fails instead of
+hanging; they skip without one (on-card lane:
 ``python -m pytest --noconftest -m cuda tests/test_torch_halo.py``).
 """
+
+import time
+
 
 import numpy as np
 import pytest
 import torch
 
-from savgol_tpu_torch.parallel.launch import Pool, run_halo
+from savgol_tpu_torch.parallel.launch import Pool, run_broken_ring, run_halo
 
 P4 = 4
 # (mesh shape, ring size): the "seq" axis of a ("batch", "seq") mesh over
@@ -203,3 +207,50 @@ def test_cuda_k13_matches_plain(cuda, cuda_pool, rows, n, rows_per, dtype):
         np.testing.assert_array_equal(right, want_r)
         assert launches == 2 and plain
         assert grad.shape == x.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("rows,n,rows_per", [(False, 12, 3),
+                                             (True, 5, 2048)])
+def test_cuda_k13_sm_route_matches_plain(cuda, cuda_pool, rows, n, rows_per,
+                                         dtype):
+    """K13's SM route (one launch, the wait on the SMs: the route of a rank
+    with a card to itself), forced on the two ranks sharing the card: the
+    same halos, bit for bit, and no halo_recv launch."""
+    rng = np.random.default_rng(n + 1)
+    shape = (1, 2 * 8 * n, rows_per) if rows else (rows_per, 2 * 4 * n)
+    x = rng.standard_normal(shape).astype(dtype)
+    outs = cuda_pool.run(run_halo, ("seq",), (2,), x, _spec(rows), n, rows,
+                         None, "seq", "cuda", "sms")
+    want_l, want_r = _expected(x, n, 2, rows)
+    for left, right, _, launches, plain in outs:
+        np.testing.assert_array_equal(left, want_l)
+        np.testing.assert_array_equal(right, want_r)
+        assert launches == 1 and plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "sms"])
+def test_cuda_k13_broken_ring_fails_fast(cuda, route):
+    """On a pool of two ranks sharing the card, rank 1 leaves out the second
+    exchange: rank 0's next synchronise must raise within ``TIMEOUT_S``
+    (lowered to 2 s) + 15 s, on the route the ranks take (the stream route:
+    the watchdog releases the wait and halo_recv traps) and on the SM route
+    (halo_send traps); the pool then closes, no rank hung."""
+    timeout_s = 2.0
+    pool = Pool(2, device="cuda")
+    procs = list(pool._procs)
+    try:
+        start = time.monotonic()
+        (what0, sec0, msg0), (what1, _, _) = pool.run(run_broken_ring, 1,
+                                                      timeout_s, route)
+        took = time.monotonic() - start
+    finally:
+        pool.close(kill=True)
+    assert what1 == "skipped"
+    assert what0 == "raised", (what0, msg0)
+    assert timeout_s <= sec0 <= timeout_s + 15.0, sec0
+    # the whole call: the first exchange shares the buffers, then the second
+    assert took <= timeout_s + 30.0, took
+    assert not any(p.is_alive() for p in procs)
