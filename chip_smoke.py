@@ -76,6 +76,14 @@ f64): the push protocol over 8,192 samples against ``Savgol1D.apply`` and
 its host time a push, ``stream_apply`` (one K3 launch) against float64, 64
 chunks of 8,192 and of 65,536 samples (one K3 launch a chunk) against the
 batch apply with their throughput, and checkpoints resumed bit for bit.
+Then the modules with no kernel of their own (phase 39): the weight
+generators on the card (``savgol_weights``, ``savgol2d_weights``) against
+the host float64 tables and bit for bit with TF32 allowed,
+``Savgol1D.create_on_device(...).apply`` at the 1D headline (one K1 launch),
+the host C++ engine (``savgol_tpu_torch.native``) against the card's 1D and
+2D applies, ``utils.profiling.benchmark_chained`` beside K1's device time,
+and the device idle share of one headline apply and of one stream chunk
+(and of 20 of each back to back) from a ``utils.profiling.trace``.
 Beside each kernel's time it prints its bound (bytes or operations
 at the data sheet's rates) and, where one PyTorch call computes the same
 function, that call's time. Every phase prints one line; any failure raises
@@ -96,6 +104,18 @@ import time
 
 import numpy as np
 import torch
+
+# every bound printed beside a kernel's time: the least time the card could
+# take for its work (bytes at the memory rate, operations at the data
+# sheet's peak of their type)
+from savgol_tpu_torch.utils.roofline import (
+    nonuniform_dd_flops, nonuniform_flops, speed_of_light_1d,
+    speed_of_light_2d, speed_of_light_bank_1d, speed_of_light_bank_2d,
+    speed_of_light_halo, speed_of_light_masked_1d, speed_of_light_masked_2d,
+    speed_of_light_nonuniform, speed_of_light_nonuniform_dd,
+    speed_of_light_nonuniform_planes, speed_of_light_plane_solve,
+    speed_of_light_plane_solve_dd, speed_of_light_resample,
+    speed_of_light_separable_2d, speed_of_light_valid_1d)
 
 B_FULL, N_FULL = 128, 1 << 20
 F32_TOL = 2e-6      # scaled by max(1, max|ref|): summation order, dt folding
@@ -174,92 +194,6 @@ K11_HOLES = (0.0, 0.1, 0.5)
 # scaled) for kernel vs plain in f32, and :519 / :460 (1e-4 scaled) for the
 # bench rows against f64 and auto against direct
 NONUNI_F32_TOL, NONUNI_F64_TOL, NONUNI_SLICE_TOL = 1e-5, 1e-12, 1e-4
-
-# the least time the card could take for a kernel's work: the larger of its
-# bytes (each input read once, each output written once) over the memory
-# rate and its operations (an fma counted as two) over the dense peak rate
-# of their type (H100 SXM data sheet): f32 and f64 outside the tensor
-# cores, bf16 products summed in f32 on them
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
-
-
-def bound(nbytes: float, flops, kind: str = "f32") -> dict:
-    """{"bound_ms", "bound_by"} for a kernel moving ``nbytes`` and doing
-    ``flops`` operations of type ``kind`` (or a {kind: flops} mapping, the
-    times of the types added)."""
-    ops = flops if isinstance(flops, dict) else {kind: flops}
-    t_b = nbytes / HBM_BPS * 1e3
-    t_o = sum(f / PEAK_FLOPS[k] for k, f in ops.items()) * 1e3
-    return {"bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
-
-
-def plain_chol_flops(k: int) -> int:
-    """The least k x k SPD solve: the Cholesky factor (square roots and
-    reciprocals of the diagonal counted as one operation each) and two
-    triangular substitutions."""
-    factor = sum(2 * j + 2 + (k - 1 - j) * (2 * j + 1) for j in range(k))
-    return factor + 2 * k * k
-
-
-def chol_flops(k: int) -> int:
-    """plane_chol.cuh chol_solve: the factor, two solves (the second for
-    the refinement) and the compensated residual."""
-    return plain_chol_flops(k) + 2 * k * k + 11 * k * k + k
-
-
-# double-word operations in FP64 flops (an fma two), as plane_chol.cuh
-# writes them
-DD_TWO_SUM, DD_ADD, DD_MUL, DD_SQRT, DD_DIV = 6, 11, 10, 13, 51
-
-
-def dd_chol_flops(k: int) -> int:
-    """plane_chol.cuh dd_chol_solve: the factor and two substitutions."""
-    factor = sum(j * (DD_MUL + DD_ADD) + DD_SQRT + DD_DIV
-                 + (k - 1 - j) * (j * (DD_MUL + DD_ADD) + DD_MUL)
-                 for j in range(k))
-    return factor + 2 * sum(i * (DD_MUL + DD_ADD) + DD_MUL for i in range(k))
-
-
-def nonuniform_flops(n: int, m: int) -> dict:
-    """The operations one float32 K11 output needs, by type: the design in
-    float32 (pass 1's offset and max, then the offset, u/s and w*x a tap),
-    and in FP64 a tap's 2m powers and its 2m+1 moment and m+1 rhs
-    multiply-adds, then the plain k = m+1 solve. FP64 sums (eps 2^-53) meet
-    the float32 contract, which the plain version's double-word float32
-    (eps ~2^-48) sets."""
-    ws = 2 * n + 1
-    tap = 2 * m + 2 * (2 * m + 1) + 2 * (m + 1)
-    return {"f32": 5 * ws, "f64": ws * tap + plain_chol_flops(m + 1)}
-
-
-def nonuniform_dd_flops(n: int, m: int) -> int:
-    """FP64 flops K11 spends on one output (nonuniform.cu, double-word for
-    both dtypes): a tap's 3m+2 terms gathered (a TwoSum and two adds, the
-    first term of each chain one add) and its 3m chain steps (a product and
-    two fmas, the first step of each chain one fma), the 3m+2 sums
-    renormalized once (a TwoSum each), then the double-word solve."""
-    terms, steps = 3 * m + 2, 3 * m
-    tap = terms * (DD_TWO_SUM + 2) - 2 + steps * 5 - (4 if m else 0)
-    return (2 * n + 1) * tap + terms * DD_TWO_SUM + dd_chol_flops(m + 1)
-
-
-def k10_flops(nx: int, ny: int, m: int) -> float:
-    """FP64 flops of one K10 pixel (masked2d.cu): vertical profiles shared
-    by a 32-wide tile row, moment and rhs correlations, the Gram assembly
-    from the comb entries past rounding noise (the kernel's tables), the
-    solve and the extraction."""
-    from savgol_tpu_torch.ops.cuda_masked2d import _COMB_ZERO, tensor_tables_2d
-    tab = tensor_tables_2d(nx, ny, m)
-    wx, wy = 2 * nx + 1, 2 * ny + 1
-    sy = tab["PhiY"].shape[1]
-    P, M = len(tab["basis"]), len(tab["moments"])
-    share = (32 + 2 * nx) / 32
-    fmas = ((sy + m + 1) * wy * share + (M + P) * wx
-            + int((np.abs(tab["comb"]) > _COMB_ZERO).sum()) + P)
-    return 2 * fmas + wy * share + wx + chol_flops(P)
-
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
@@ -998,15 +932,10 @@ def masked_slice(sgt, dev, card) -> list:
     lib_k8b = device_ms(lambda: torch.linalg.solve_ex(Gq, rq.contiguous()))
     del Gq, rq
     pos_a, pos_b = img.numel(), 8 * MASKED_1D[1]
-    b8a = bound(pos_a * (4 * (55 + 10 + 10) + 2), pos_a * chol_flops(10))
-    # K8b on float32 pairs: a plain FP64 solve of hi + lo meets its contract
-    b8b = bound(pos_b * (8 * (15 + 5) + 4 * 5 + 2),
-                pos_b * plain_chol_flops(5), "f64")
-    nb, nn = MASKED_1D
-    b9 = bound(2 * 4 * nb * (nn + 24) + 4 * nb * nn,
-               nb * nn * (2 * 20 * 25 + 25 + chol_flops(5) + 10))
-    b10 = bound(2 * 4 * xv2.numel() + 4 * img.numel(),
-                img.numel() * k10_flops(5, 5, 3), "f64")
+    b8a = speed_of_light_plane_solve(10, positions=pos_a).fields
+    b8b = speed_of_light_plane_solve_dd(5, positions=pos_b).fields
+    b9 = speed_of_light_masked_1d(4, shape=MASKED_1D).fields
+    b10 = speed_of_light_masked_2d(11, 11, 3, shape=tuple(img.shape)).fields
     print(f"library: torch.linalg.solve_ex (P=10, {pos_a} f32 systems) "
           f"{lib_k8a:.4f} ms, (k=5, {pos_b} f64) {lib_k8b:.4f} ms; bounds: "
           + ", ".join(f"{k} {b['bound_ms']:.4f} ms ({b['bound_by']})"
@@ -1447,18 +1376,15 @@ def nonuniform_slice(sgt, dev, card) -> list:
     del xh1, th1, wh1
     head = B_FULL * N_FULL
     fl = nonuniform_flops(12, 4)
-
-    def per(samples):
-        return {k: v * samples for k, v in fl.items()}
-    b11 = bound(16 * B * N, per(B * N))
-    b11p = bound((4 + 4 + 4 * 7) * B * N + 4 * N, per(B * N))
+    b11 = speed_of_light_nonuniform(12, 4, shape=(B, N)).fields
+    b11p = speed_of_light_nonuniform_planes(12, 4, shape=(B, N)).fields
     uniq = int(torch.unique(ctr).numel())
-    b12 = bound(4 * 7 * B * uniq + 4 * uniq + (8 + 4) * N + 4 * B * N,
-                B * N * 2 * 10)
-    b11h = bound(16 * head, per(head))
+    b12 = speed_of_light_resample(4, rows=B, queries=N, centres=uniq).fields
+    b11h = speed_of_light_nonuniform(12, 4, shape=(B_FULL, N_FULL)).fields
     # the FP64 floor of the double-word work K11 chose (not its bound)
     fdd = nonuniform_dd_flops(12, 4)
-    floor11 = fdd * B * N / PEAK_FLOPS["f64"] * 1e3
+    floor11 = speed_of_light_nonuniform_dd(12, 4, shape=(B, N)
+                                           ).fields["bound_ms"]
     print(f"time K11 alone ({B_FULL}, {N_FULL}) f32 n=12 m=4: {k11_head:.4f} "
           f"ms = {head / k11_head / 1e6:.3f} Gs/s, {fdd} FP64 flops a sample "
           f"spent (double-word) = {fdd * head / k11_head / 1e9:.2f} TFLOP/s; "
@@ -1934,13 +1860,13 @@ def bank_slice(sgt, dev, card) -> list:
         lib["sweep 128x1M"] = device_ms(lambda: F.conv1d(
             x3, center.view(6, 1, 65), padding=32), warmup=1, reps=5)
     torch.backends.cudnn.allow_tf32 = tf32
-    samples = B_FULL * N_FULL
     taps = sum(2 * n + 1 for n in SWEEP_NS)
-    b2 = bound(8 * samples, 2 * 25 * samples)
-    b4 = bound(16 * samples, 3 * 2 * 25 * samples)
-    b4_64 = bound(32 * samples, 3 * 2 * 25 * samples, "f64")
-    b_sw = bound(28 * SWEEP_X[0], 2 * taps * SWEEP_X[0])
-    b_swh = bound(28 * samples, 2 * taps * samples)
+    b2 = speed_of_light_1d((B_FULL, N_FULL)).fields
+    b4 = speed_of_light_bank_1d((12,) * 3, shape=(B_FULL, N_FULL)).fields
+    b4_64 = speed_of_light_bank_1d((12,) * 3, shape=(B_FULL, N_FULL),
+                                   dtype="float64").fields
+    b_sw = speed_of_light_bank_1d(SWEEP_NS, shape=SWEEP_X).fields
+    b_swh = speed_of_light_bank_1d(SWEEP_NS, shape=(B_FULL, N_FULL)).fields
     print(f"library: nn.Conv1d circular {lib['wrap']:.4f} ms, replicate "
           f"{lib['edge']:.4f} ms (symmetric: none); F.conv1d 3 channels "
           f"{lib['bank']:.4f} ms, 6 x 65 taps on {SWEEP_X} {lib['sweep']:.4f} "
@@ -2124,10 +2050,10 @@ def wide_window(dev, card) -> dict:
                xd, cwd, ewd, n)),
            "K3 f64": device_ms(lambda: cc.correlate_valid_cuda(xd, cwd))}
     del xd
-    samples = B_FULL * N_FULL
-    b101 = bound(8 * samples, 2 * ws * samples)
-    b25 = bound(8 * samples, 2 * 25 * samples)
-    b101_64 = bound(16 * samples, 2 * ws * samples, "f64")
+    b101 = speed_of_light_1d((B_FULL, N_FULL), half_window=ws // 2).fields
+    b25 = speed_of_light_1d((B_FULL, N_FULL)).fields
+    b101_64 = speed_of_light_1d((B_FULL, N_FULL), dtype="float64",
+                                half_window=ws // 2).fields
     print(f"window {ws}: K1 / K2 / K3 vs plain at ({B_FULL}, {N_FULL}) "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (tol {F32_TOL} scaled); scipy_compat numpy in all five modes "
@@ -2546,7 +2472,6 @@ def sharded_phases(card, dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
           f"{t_1d - t0:.1f} s, 2D {t_2d - t_1d:.1f} s, gradients "
           f"{t_grads - t_2d:.1f} s, bf16 and shutdown {t_one - t_grads:.1f} "
           f"s, one process {t_end - t_one:.1f} s")
-    halo_bytes = RING * 4 * shape1d[0] * 12 * 4
     per_exchange = {k: v for k, v in r1[0]["launches"].items()
                     if k.startswith("halo_")}
     rec = {"name": "halo_ring", "route": "cuda",
@@ -2556,12 +2481,13 @@ def sharded_phases(card, dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
            "launches_per_exchange": per_exchange,
            "max_abs_err": max(r["k13_err"] for r in r1),
            "ms": t1["K13"][0], "plain_ms": t1["K13 plain"][0],
-           **bound(halo_bytes, 0), "library_ms": None,
+           **speed_of_light_halo(RING, (shape1d[0], 12)).fields,
+           "library_ms": None,
            "ms_by_rank": t1["K13"], "ranks_sharing_one_card": RING,
            "rows_2d_ms": r2[0]["K13 rows"],
            "rows_2d_ms_by_rank": [r["K13 rows"] for r in r2],
-           "rows_2d_bound_ms": bound(
-               RING * 4 * shape2d[0] * 5 * shape2d[2] * 4, 0)["bound_ms"]}
+           "rows_2d_bound_ms": speed_of_light_halo(
+               RING, (shape2d[0], 5, shape2d[2])).fields["bound_ms"]}
     if one is not None:
         rec.update(one_process_ms=one["b"]["1d"]["ms"],
                    one_process_rows_2d_ms=one["b"]["rows"]["ms"],
@@ -3090,12 +3016,12 @@ def bf16_slice_1d(sgt, dev, card) -> list:
         with torch.no_grad():
             conv.weight.copy_(w3)
             lib_pad[mode] = device_ms(lambda: conv(x3))
-    b_bf = bound(4 * samples, 2 * 25 * samples, "bf16")
-    b_f32 = bound(8 * samples, 2 * 25 * samples, "bf16")
-    b3 = bound(2 * samples + 2 * B_FULL * (N_FULL - 24),
-               2 * 25 * B_FULL * (N_FULL - 24), "bf16")
-    b3f = bound(4 * samples + 4 * B_FULL * (N_FULL - 24),
-                2 * 25 * B_FULL * (N_FULL - 24), "bf16")
+    b_bf = speed_of_light_1d((B_FULL, N_FULL), dtype="bfloat16",
+                             method="bf16").fields
+    b_f32 = speed_of_light_1d((B_FULL, N_FULL), method="bf16").fields
+    b3 = speed_of_light_valid_1d((B_FULL, N_FULL), dtype="bfloat16",
+                                 method="bf16").fields
+    b3f = speed_of_light_valid_1d((B_FULL, N_FULL), method="bf16").fields
     print(f"bf16 1D slice ({B_FULL}, {N_FULL}) n=12 m=4: launches "
           + ", ".join(f"{k} {nz(v)}" for k, v in launches.items())
           + "; vs f64 scaled " + ", ".join(f"{k} {v:.3e}"
@@ -3246,12 +3172,15 @@ def bf16_slice_2d(sgt, dev, card) -> list:
     # FMAs at the f32 peak of the CUDA cores, which the exact K2D-dense runs
     # on (the bf16 mode runs on the tensor cores), are kept beside it as
     # cuda_core_ms
-    fma = 2 * 121 * pix
-    b_bf = bound(4 * pix, fma, "bf16")
-    b_f32 = bound(8 * pix, fma, "bf16")
-    b_k3 = bound(2 * pix + 3 * 2 * pix, 3 * fma, "bf16")
-    core = {"cuda_core_ms": fma / PEAK_FLOPS["f32"] * 1e3}
-    core3 = {"cuda_core_ms": 3 * fma / PEAK_FLOPS["f32"] * 1e3}
+    b_bf = speed_of_light_2d(11, shape=IMG_FULL, dtype="bfloat16",
+                             method="bf16").fields
+    b_f32 = speed_of_light_2d(11, shape=IMG_FULL, method="bf16").fields
+    b_k3 = speed_of_light_bank_2d(11, 3, shape=IMG_FULL, dtype="bfloat16",
+                                  method="bf16").fields
+    core = {"cuda_core_ms": speed_of_light_2d(
+        11, shape=IMG_FULL, dtype="bfloat16").ops_bound_s * 1e3}
+    core3 = {"cuda_core_ms": speed_of_light_bank_2d(
+        11, 3, shape=IMG_FULL, dtype="bfloat16").ops_bound_s * 1e3}
     print(f"bf16 2D slice {IMG_FULL} 11x11 order 3 CONSTANT: launches "
           + ", ".join(f"{k} {nz(v)}" for k, v in launches.items())
           + "; vs f64 scaled " + ", ".join(f"{k} {v:.3e}"
@@ -3679,6 +3608,234 @@ def stream_phase(dev, card) -> str:
                  "torch.save / torch.load on the card")
     return "stream: " + "; ".join(parts) + f" [{card}]"
 
+# phase 39, the host-side modules: the on-device weight generators at (n, m,
+# d) and (nx, ny, order, dx, dy); the last 2D geometry in f64 only, as
+# tests/test_weights.py:308-313 runs it (its f32 normal matrix is too
+# ill-conditioned); (5, 1, 3) is degenerate (y^3 == y on {-1, 0, 1})
+W1D = ((2, 2, 0), (12, 4, 0), (12, 4, 1), (12, 4, 2), (32, 10, 4))
+W2D = ((5, 5, 3, 0, 0), (4, 3, 3, 1, 1), (8, 8, 4, 0, 1), (3, 3, 2, 0, 0))
+W2D_F64_ONLY = ((16, 16, 6, 1, 0),)
+W2D_DEGENERATE = (5, 1, 3)
+# gates against the host f64 tables: tests/test_weights.py:230-235 (f32 1D
+# center 2e-6, edges 2e-5), f64 1e-12; 2D f32 1e-5 and f64 1e-9, both
+# scaled by the table's largest weight
+W1D_CENTER_F32, W1D_EDGE_F32, W2D_F32, W2D_F64 = 2e-6, 2e-5, 1e-5, 1e-9
+NATIVE_ROWS = 8                # the headline's rows the host engine filters
+STREAM_TRACED = 65_536         # the stream chunk traced (CHUNKS' larger)
+
+
+def tf32_bit_equal(make, what: str) -> None:
+    """make() again with TF32 allowed for matmuls: every tensor the same
+    bits (the generators form their sums without matmul)."""
+    base = make()
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        again = make()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for key, b in base.items():
+        for u, v in zip(b if isinstance(b, tuple) else (b,),
+                        again[key] if isinstance(b, tuple) else (again[key],)):
+            require(torch.equal(u, v), f"{what} {key}: TF32 changed bits")
+
+
+def idle_share(path) -> tuple[float, list, float]:
+    """From a ``profiling.trace`` Chrome trace holding calls under
+    ``record_function("traced call")`` (which ends after a synchronise):
+    the share of that window in which the card ran nothing, the names of
+    the kernels that started in it, and the window in ms. The window runs
+    from the first call's start on the host to the synchronise's end; the
+    card is busy in the union of its kernel, memcpy and memset events."""
+    with open(path) as fh:
+        ev = json.load(fh)["traceEvents"]
+    call = next(e for e in ev if e.get("name") == "traced call"
+                and e.get("cat") == "user_annotation")
+    t0, t1 = call["ts"], call["ts"] + call["dur"]
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                   for e in ev if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, t0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy, end = busy + b - a, b
+    kernels = [e["name"] for e in ev if e.get("cat") == "kernel"
+               and t0 <= e["ts"] < t1]
+    return 1.0 - busy / (t1 - t0), kernels, (t1 - t0) / 1e3
+
+
+def host_modules_phase(sgt, dev, card) -> dict:
+    """Phase 39, the modules with no kernel of their own on the card: (a)
+    ``savgol_weights`` in f32 and f64 against the host f64 tables, and bit
+    for bit with TF32 allowed; (b) ``Savgol1D.create_on_device(...).apply``
+    at the 1D headline, one K1 launch, against the f64 apply of the same
+    weights, timed beside ``create(...).apply``; (c) ``savgol2d_weights``
+    likewise, and a degenerate geometry raising before any tensor is made;
+    (d) the host engine (``savgol_tpu_torch.native``) against the card's
+    ``Savgol1D`` / ``Savgol2D`` at the headlines; (e) ``benchmark_chained``
+    on ``Savgol1D.apply`` at the headline beside K1's device time, and the
+    device idle share of one headline apply and of one stream chunk, and of
+    20 of each back to back, from ``profiling.trace``."""
+    import os
+    import tempfile
+    from savgol_tpu_torch import _build, native
+    from savgol_tpu_torch import stream as ts
+    from savgol_tpu_torch.ops import cuda_conv as cc
+    from savgol_tpu_torch.ops import weights as tw
+    from savgol_tpu_torch.utils import profiling
+    from savgol_tpu_torch.utils.timing import cuda_time_ms, device_ms
+
+    parts = []
+    dtypes = (torch.float32, torch.float64)
+
+    # (a) 1D weights on the card
+    def weights_1d():
+        return {(cfg, dt): tw.savgol_weights(*cfg, dt, device=dev)
+                for cfg in W1D for dt in dtypes}
+
+    worst = dict.fromkeys(dtypes, 0.0)
+    for (cfg, dt), (c, e) in weights_1d().items():
+        ch, eh = (torch.from_numpy(a) for a in tw.savgol_weights_np(
+            sgt.SavgolConfig(*cfg), np.float64))
+        ec = (c.cpu().double() - ch).abs().max().item()
+        ee = (e.cpu().double() - eh).abs().max().item()
+        tc, te = ((F64_TOL, F64_TOL) if dt == torch.float64
+                  else (W1D_CENTER_F32, W1D_EDGE_F32))
+        require(c.is_cuda and c.dtype == dt and e.shape == eh.shape
+                and ec <= tc and ee <= te,
+                f"savgol_weights{cfg} {dt}: center {ec:.3e}, edges {ee:.3e}")
+        worst[dt] = max(worst[dt], ec, ee)
+    tf32_bit_equal(weights_1d, "savgol_weights")
+    parts.append(f"(a) savgol_weights {len(W1D)} configs vs host f64: f32 "
+                 f"{worst[torch.float32]:.3e} (gates {W1D_CENTER_F32} / "
+                 f"{W1D_EDGE_F32}), f64 {worst[torch.float64]:.3e} (gate "
+                 f"{F64_TOL}); bit-equal with TF32 allowed")
+
+    # (b) create_on_device at the 1D headline: one K1 launch
+    cfg = sgt.SavgolConfig(12, 4)
+    f_dev = sgt.Savgol1D.create_on_device(cfg, device=dev)
+    f_host = sgt.Savgol1D.create(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(39)
+    x = torch.randn(B_FULL, N_FULL, generator=gen, device=dev)
+    y, got = counted_all(lambda: f_dev.apply(x), {"sg1d_poly": 1},
+                         "Savgol1D.create_on_device(...).apply")
+    launches = got["sg1d_poly"]
+    f64 = sgt.Savgol1D(cfg, f_dev.center_weights.double(),
+                       f_dev.edge_weights.double(), f_dev.dt_inv.double())
+    e_dev = (y.double() - f64.apply(x.double())).abs().max().item()
+    require(y.shape == x.shape and bool(torch.isfinite(y).all())
+            and e_dev <= GATE_ABS,
+            f"create_on_device apply vs f64 of its weights: {e_dev:.3e}")
+    del y
+    t_dev = cuda_time_ms(lambda: f_dev.apply(x))
+    t_host = cuda_time_ms(lambda: f_host.apply(x))
+    parts.append(f"(b) Savgol1D.create_on_device(SavgolConfig(12, 4)).apply "
+                 f"({B_FULL}, {N_FULL}) f32: {launches} sg1d_poly, vs "
+                 f"the f64 apply of its weights {e_dev:.3e} (gate "
+                 f"{GATE_ABS}), {t_dev:.4f} ms; create(...).apply "
+                 f"{t_host:.4f} ms")
+
+    # (c) 2D weights on the card
+    def weights_2d():
+        return {(g, dt): tw.savgol2d_weights(*g, dtype=dt, device=dev)
+                for g in W2D + W2D_F64_ONLY for dt in dtypes
+                if dt == torch.float64 or g not in W2D_F64_ONLY}
+
+    worst = dict.fromkeys(dtypes, 0.0)
+    for (g, dt), w in weights_2d().items():
+        wh = torch.from_numpy(tw.savgol2d_weights_np(
+            sgt.Savgol2DConfig(*g), np.float64))
+        e = (w.cpu().double() - wh).abs().max().item() / wh.abs().max().item()
+        tol = W2D_F64 if dt == torch.float64 else W2D_F32
+        require(w.is_cuda and w.shape == wh.shape and e <= tol,
+                f"savgol2d_weights{g} {dt}: {e:.3e} scaled")
+        worst[dt] = max(worst[dt], e)
+    tf32_bit_equal(weights_2d, "savgol2d_weights")
+    held = torch.cuda.memory_allocated(dev)
+    try:
+        tw.savgol2d_weights(*W2D_DEGENERATE, device=dev)
+        raised = False
+    except np.linalg.LinAlgError:
+        raised = True
+    require(raised and torch.cuda.memory_allocated(dev) == held,
+            f"savgol2d_weights{W2D_DEGENERATE} must raise LinAlgError "
+            "before any tensor is made")
+    parts.append(f"(c) savgol2d_weights {len(W2D)} geometries f32 "
+                 f"{worst[torch.float32]:.3e} scaled (gate {W2D_F32}), "
+                 f"+{W2D_F64_ONLY[0]} f64 {worst[torch.float64]:.3e} (gate "
+                 f"{W2D_F64}) vs host f64; bit-equal with TF32 allowed; "
+                 f"{W2D_DEGENERATE} raises LinAlgError, nothing allocated")
+
+    # (d) the host engine against the card
+    t0 = time.perf_counter()
+    native.load_library()
+    t_build = time.perf_counter() - t0
+    rows = x[:NATIVE_ROWS]
+    got = native.HostSavgol1D(cfg).apply_batch(rows.cpu().numpy(),
+                                               n_threads=0)
+    want = f_host.apply(rows).cpu().numpy()
+    e1 = float(np.abs(got - want).max())
+    s1 = max(1.0, float(np.abs(want).max()))
+    require(e1 <= GATE_ABS * s1, f"HostSavgol1D vs Savgol1D.apply: {e1:.3e}")
+    cfg2 = sgt.Savgol2DConfig(5, 5, 3)
+    img = torch.randn(IMG_FULL[1:], generator=gen, device=dev)
+    got2 = native.HostSavgol2D(cfg2).apply(img.cpu().numpy())
+    want2 = sgt.Savgol2D.create(cfg2, device=dev).apply(img).cpu().numpy()
+    e2 = float(np.abs(got2 - want2).max())
+    s2 = max(1.0, float(np.abs(want2).max()))
+    require(e2 <= F32_TOL_2D * s2, f"HostSavgol2D vs Savgol2D.apply: {e2:.3e}")
+    del img
+    parts.append(f"(d) native built in {t_build:.1f} s; HostSavgol1D on "
+                 f"{NATIVE_ROWS} headline rows vs Savgol1D.apply {e1:.3e} "
+                 f"(gate {GATE_ABS} x {s1:.2f}), HostSavgol2D 11x11 order 3 "
+                 f"on {IMG_FULL[1:]} vs Savgol2D.apply {e2:.3e} (gate "
+                 f"{F32_TOL_2D} x {s2:.2f})")
+
+    # (e) the chained k-difference beside K1's device time; idle shares
+    k1_ms = device_ms(lambda: cc.savgol_polynomial_cuda(
+        x, f_host.center_weights, f_host.edge_weights, 12))
+    per, ratio, _ = profiling.benchmark_chained(
+        lambda v: f_host.apply(v), x, iters=5, k=4,
+        feedback=lambda y, template: y, return_info=True)
+    lo, hi = profiling.RATIO_BAND
+    require(lo <= ratio <= hi, f"benchmark_chained ratio {ratio:.3f} outside "
+            f"{profiling.RATIO_BAND}")
+    st = ts.chunk_init(cfg.half_window, device=dev)
+    chunk = torch.randn(STREAM_TRACED, generator=gen, device=dev)
+    cw, ew, dt = f_host.center_weights, f_host.edge_weights, f_host.dt_inv
+    calls = {"apply": lambda: f_host.apply(x),
+             "chunk": lambda: ts.stream_process_chunk(st, chunk, cw, ew, dt)}
+    idle = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        # one call, as a caller waits for it; and 20 back to back, where
+        # the host enqueues while the card runs
+        for (name, call), reps in itertools.product(calls.items(), (1, 20)):
+            log = os.path.join(tmp, f"{name}{reps}")
+            with profiling.trace(log):
+                call()   # the profiler's start-up falls outside the window
+                torch.cuda.synchronize()
+                with torch.profiler.record_function("traced call"):
+                    for _ in range(reps):
+                        call()
+                    torch.cuda.synchronize()
+            idle[name, reps] = idle_share(os.path.join(log, "trace.json"))
+            require(idle[name, reps][1], f"trace of {name} x {reps}: no "
+                    "kernel")
+    parts.append(
+        f"(e) benchmark_chained Savgol1D.apply ({B_FULL}, {N_FULL}): "
+        f"{per * 1e3:.4f} ms a step, ratio {ratio:.3f} (band "
+        f"{profiling.RATIO_BAND}), K1 device_ms {k1_ms:.4f}; device idle "
+        f"share (profiling.trace, after a first call in the same trace) "
+        + ", ".join(f"{what} x {r} {idle[k, r][0]:.4f} of "
+                    f"{idle[k, r][2]:.4f} ms ({len(idle[k, r][1])} kernels)"
+                    for k, what in (("apply", "headline apply"),
+                                    ("chunk", f"stream chunk of "
+                                              f"{STREAM_TRACED}"))
+                    for r in (1, 20)))
+    return {"line": "host modules: " + "; ".join(parts) + f" [{card}]",
+            "create_on_device_launches": launches}
+
 
 def main() -> int:
     # -- 1. device ---------------------------------------------------------
@@ -3865,10 +4022,9 @@ def main() -> int:
     x3, w3d = x.view(B_FULL, 1, N_FULL), w.view(1, 1, -1)
     lib_k3 = device_ms(lambda: torch.nn.functional.conv1d(x3, w3d))
     torch.backends.cudnn.allow_tf32 = tf32
-    samples = B_FULL * N_FULL
-    b1 = bound(8 * samples, 2 * 25 * samples)
-    b3 = bound(4 * samples + 4 * B_FULL * (N_FULL - 24),
-               2 * 25 * B_FULL * (N_FULL - 24))
+    b1 = speed_of_light_1d((B_FULL, N_FULL)).fields
+    r3 = speed_of_light_valid_1d((B_FULL, N_FULL))
+    b3 = r3.fields
     print(f"library: F.conv1d (TF32 off) {lib_k3:.4f} ms; bounds K1 "
           f"{b1['bound_ms']:.4f} ms ({b1['bound_by']}), K3 "
           f"{b3['bound_ms']:.4f} ms ({b3['bound_by']}) [{card}]")
@@ -3878,13 +4034,14 @@ def main() -> int:
     timings[("Savgol1D.apply", B_FULL)] = (k, p)
     for (name, B), (k, p) in timings.items():
         samples = B * N_FULL
-        b = b3 if name == "K3" else bound(8 * samples, 2 * 25 * samples)
+        r = r3 if name == "K3" else speed_of_light_1d((B, N_FULL))
+        b = r.fields
         print(f"time {name} ({B}, {N_FULL}) f32 n=12: kernel {k:.4f} ms = "
               f"{samples / k / 1e6:.2f} Gsamples/s, "
-              f"{8 * samples / k / 1e6:.1f} GB/s effective; plain "
+              f"{r.hbm_bytes / k / 1e6:.1f} GB/s effective; plain "
               f"{p:.4f} ms = {samples / p / 1e6:.2f} Gsamples/s; bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
-    b64 = bound(16 * B_FULL * N_FULL, 2 * 25 * B_FULL * N_FULL, "f64")
+    b64 = speed_of_light_1d((B_FULL, N_FULL), dtype="float64").fields
     for name, k in t64.items():
         print(f"time {name} ({B_FULL}, {N_FULL}) n=12: kernel {k:.4f} ms; "
               f"bound {b64['bound_ms']:.4f} ms ({b64['bound_by']}) [{card}]")
@@ -4065,11 +4222,13 @@ def main() -> int:
                 img, uw, vw, "edge")),
             "plain_ms": device_ms(lambda: c2.correlate2d_sep_plain(
                 img, uw, vw, "edge"), warmup=1, reps=3),
-            "max_abs_err": e, **bound(8 * pix, 2 * r * (H + W) * pix),
+            "max_abs_err": e, **speed_of_light_separable_2d(
+                H, r, shape=img.shape, window_w=W).fields,
             "library_ms": lib_w}
-    b2d = bound(8 * pix, 2 * 121 * pix)
-    b2d3 = bound(4 * pix + 3 * 4 * pix, 3 * 2 * 121 * pix)
-    b2s = bound(8 * pix, 2 * u2.shape[0] * 22 * pix)
+    b2d = speed_of_light_2d(11, shape=img.shape).fields
+    b2d3 = speed_of_light_bank_2d(11, 3, shape=img.shape).fields
+    b2s = speed_of_light_separable_2d(11, u2.shape[0], shape=img.shape
+                                      ).fields
     print(f"library: F.conv2d (TF32 off, zero padding) {lib_2d:.4f} ms, "
           f"3 output channels (Hessian stack) {lib_2d3:.4f} ms; bounds "
           f"K2D-dense {b2d['bound_ms']:.4f} ms ({b2d['bound_by']}), K=3 "
@@ -4139,6 +4298,10 @@ def main() -> int:
     p1_kernel = p1_headline(dev, card)
     t_stream = time.perf_counter()
     print(stream_phase(dev, card))
+    # -- 39. the host-side modules ------------------------------------------
+    t_host_mods = time.perf_counter()
+    host_mods = host_modules_phase(sgt, dev, card)
+    print(host_mods["line"])
     t_end = time.perf_counter()
     print(f"wall time: build and phases 3-11 {t_masked - t0:.1f} s, masked "
           f"phases 12-17 {t_nonuni - t_masked:.1f} s, irregular-sampling "
@@ -4153,7 +4316,8 @@ def main() -> int:
           f"{t_probes - t_bf16:.1f} s (grids {t_bf16_slice - t_bf16:.1f}), "
           f"probes phase 35 {t_p1 - t_probes:.1f} s, P1 phases 36-37 "
           f"{t_stream - t_p1:.1f} s, streaming phase 38 "
-          f"{t_end - t_stream:.1f} s")
+          f"{t_host_mods - t_stream:.1f} s, host-side modules phase 39 "
+          f"{t_end - t_host_mods:.1f} s")
 
     kernels = [
         {"name": "sg1d_poly", "route": "cuda",
@@ -4162,7 +4326,9 @@ def main() -> int:
          "launches": launches["sg1d_poly"], "max_abs_err": k1_err,
          "ms": timings[("K1", B_FULL)][0],
          "plain_ms": timings[("K1", B_FULL)][1], **b1, "library_ms": None,
-         "f64_ms": t64["K1 f64"], "f64_bound_ms": b64["bound_ms"]},
+         "f64_ms": t64["K1 f64"], "f64_bound_ms": b64["bound_ms"],
+         "create_on_device_launches":
+             host_mods["create_on_device_launches"]},
         {"name": "corr1d_valid", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr1d_valid.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1049",

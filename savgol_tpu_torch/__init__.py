@@ -33,6 +33,16 @@ step and whole-sequence apply run the VALID correlation kernel K3. The
 kernels are built with ``nvcc`` at their first call on a
 CUDA tensor; CPU tensors take their plain PyTorch versions.
 
+Beside them: the weight generators on the device, ``savgol_weights`` and
+``savgol2d_weights`` (and ``Savgol1D.create_on_device``); the coefficient
+exporter, ``savgol_tpu_torch.utils.export.generate_header`` and its
+command line, ``python -m savgol_tpu_torch.cli``; the ctypes loader of the
+host C++ engine in ``native/``, ``savgol_tpu_torch.native``, an
+independent oracle; the card's cost model, ``savgol_tpu_torch.utils.
+roofline`` (the one home of the kernels' bounds); and
+``savgol_tpu_torch.utils.profiling`` (``torch.profiler`` traces and
+timers).
+
 Quick start::
 
     import torch
@@ -100,8 +110,10 @@ from savgol_tpu_torch.stream import (
     stream_reset,
 )
 from savgol_tpu_torch.ops.weights import (monomial_index,
+                                          savgol2d_weights,
                                           savgol2d_weights_np,
                                           savgol_all_weights_np,
+                                          savgol_weights,
                                           savgol_weights_np)
 
 __version__ = "0.6.0"
@@ -111,8 +123,8 @@ __all__ = [
     "MAX_HALF_WINDOW", "MAX_POLY_ORDER", "MAX_DERIVATIVE",
     "smooth", "deriv1", "deriv2", "num_terms_2d",
     "Savgol1D", "Savgol2D", "SavgolBank", "SavgolStream",
-    "savgol_weights_np", "savgol_all_weights_np",
-    "savgol2d_weights_np", "monomial_index",
+    "savgol_weights", "savgol_weights_np", "savgol_all_weights_np",
+    "savgol2d_weights", "savgol2d_weights_np", "monomial_index",
     "savgol_apply", "savgol_apply_valid",
     "savgol2d_apply", "savgol2d_apply_stack", "savgol2d_gradient",
     "savgol2d_hessian", "savgol2d_laplacian",

@@ -11,7 +11,7 @@ from torch import nn
 
 from savgol_tpu_torch.config import BoundaryMode, SavgolConfig
 from savgol_tpu_torch.ops.apply import savgol_apply, savgol_apply_valid
-from savgol_tpu_torch.ops.weights import savgol_weights_np
+from savgol_tpu_torch.ops.weights import savgol_weights, savgol_weights_np
 
 __all__ = ["Savgol1D"]
 
@@ -24,8 +24,10 @@ class Savgol1D(nn.Module):
     ``dt_inv`` are buffers, so ``.to()`` and ``state_dict()`` carry them.
     Applying the module to a tensor on another device raises.
 
-    Build with :meth:`create` (host f64 weights, then cast and placed) or
-    :meth:`from_jax` (the leaves of a ``savgol_tpu.Savgol1D``).
+    Build with :meth:`create` (host f64 weights, then cast and placed),
+    :meth:`create_on_device` (weights generated on the device in the
+    working dtype) or :meth:`from_jax` (the leaves of a
+    ``savgol_tpu.Savgol1D``).
 
     :meth:`apply` filters data, as in ``savgol_tpu``; it shadows
     ``nn.Module.apply(fn)``, which this module, having no submodules, does
@@ -57,6 +59,20 @@ class Savgol1D(nn.Module):
             torch.as_tensor(edge, dtype=dtype, device=device),
             torch.as_tensor(dt_inv, dtype=dtype, device=device),
         )
+
+    @classmethod
+    def create_on_device(cls, config: SavgolConfig, dtype=torch.float32, *,
+                         device) -> "Savgol1D":
+        """Generate the weights on ``device`` in ``dtype``
+        (:func:`savgol_tpu_torch.ops.weights.savgol_weights`), for
+        pipelines that make their weights where they use them."""
+        center, edge = savgol_weights(
+            config.half_window, config.poly_order, config.derivative,
+            dtype=dtype, device=device)
+        dt_scale = config.dt_scale
+        dt_inv = 1.0 / dt_scale if dt_scale != 0.0 else 1.0
+        return cls(config, center, edge,
+                   torch.as_tensor(dt_inv, dtype=dtype, device=center.device))
 
     @classmethod
     def from_jax(cls, config: SavgolConfig, arrays: Sequence[np.ndarray], *,

@@ -1,11 +1,18 @@
-"""Savitzky-Golay weight generation on the host, in numpy float64.
+"""Savitzky-Golay weight generation on the host, in numpy float64, and on
+the device, in the working dtype (counterpart of
+``savgol_tpu.ops.weights``).
 
-The host half of ``savgol_tpu.ops.weights``: the same three-term Gram
-polynomial recurrence run over whole vectors, so the tables are
-bit-identical to the JAX package's f64 host tables
-(``tests/test_torch_config_weights.py``). The weights are computed once per
-filter and then cast and placed on the device by
-:class:`savgol_tpu_torch.Savgol1D`.
+The host generators run the same three-term Gram polynomial recurrence
+over whole vectors, so the tables are bit-identical to the JAX package's
+f64 host tables (``tests/test_torch_config_weights.py``). They are computed
+once per filter and then cast and placed on the device by
+:class:`savgol_tpu_torch.Savgol1D`. The device generators
+(:func:`savgol_weights`, :func:`savgol_all_weights`,
+:func:`savgol2d_weights`) run the same constructions on tensors in the
+working dtype, for pipelines that generate their weights where they use
+them. They form every sum as elementwise products and ``.sum()``, never
+``matmul`` or ``einsum``, so no TF32 setting of the card can change a bit
+(the JAX package pins ``Precision.HIGHEST`` for the same reason).
 
 Math (reference src/savgolFilter.c:207-218, 312-318):
 
@@ -28,19 +35,25 @@ the same singular-geometry rule as the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
+import torch
 
+from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import Savgol2DConfig, SavgolConfig
 
 __all__ = [
     "genfact",
     "gram_poly_table",
     "savgol_weights_np",
+    "savgol_weights",
     "savgol_all_weights_np",
+    "savgol_all_weights",
     "monomial_index",
     "savgol2d_weights_np",
+    "savgol2d_weights",
 ]
 
 
@@ -67,14 +80,23 @@ def _norm_factors(n: int, m: int) -> np.ndarray:
     )
 
 
-def _gram_table(points: np.ndarray, n: int, m: int, dmax: int) -> np.ndarray:
+@functools.cache
+def _factors(n: int, m: int) -> tuple:
+    """:func:`_norm_factors` as Python floats, kept per (n, m) for the
+    device generators (a tuple: no caller can write into it)."""
+    return tuple(_norm_factors(n, m).tolist())
+
+
+def _gram_table(points, n: int, m: int, dmax: int, xp=np):
     """Gram polynomial table G[k, d, :] = F_k^{(d)}(points).
 
-    Returns an array of shape (m+1, dmax+1, len(points)).
+    ``points`` is a 1D array of evaluation points and ``xp`` its module,
+    numpy or torch (the same statements for both). Returns an array of
+    shape (m+1, dmax+1, len(points)).
     """
     i = points
-    zeros = np.zeros_like(i)
-    ones = np.ones_like(i)
+    zeros = xp.zeros_like(i)
+    ones = xp.ones_like(i)
 
     # rows[k][d] : F_k^{(d)} over all points
     row0 = [ones] + [zeros] * dmax
@@ -95,7 +117,7 @@ def _gram_table(points: np.ndarray, n: int, m: int, dmax: int) -> np.ndarray:
             curr.append(alpha * (i * prev1[d] + d * prev1[d - 1])
                         - gamma * prev2[d])
         rows.append(curr)
-    return np.stack([np.stack(r) for r in rows])
+    return xp.stack([xp.stack(r) for r in rows])
 
 
 def gram_poly_table(n: int, m: int, dmax: int, dtype=np.float64) -> np.ndarray:
@@ -135,10 +157,42 @@ def savgol_weights_np(config: SavgolConfig, dtype=np.float32):
     return center.astype(dtype), edge.astype(dtype)
 
 
+def savgol_weights(half_window: int, poly_order: int, derivative: int = 0,
+                   dtype=torch.float32, *, device=None):
+    """The weights of :func:`savgol_weights_np`, generated on ``device`` in
+    ``dtype``: ``(center (2n+1,), edge (n, 2n+1))``.
+
+    The Gram recurrence runs over a tensor of the window's points; the
+    normalisation factors are computed in f64 on the host and cast to
+    ``dtype``. ``device=None`` means the card, and raises without one.
+    Every call returns new tensors, which the caller may write into.
+    """
+    n, m, d = half_window, poly_order, derivative
+    device = card_unless_named(device, "savgol_weights")
+    pts = torch.arange(-n, n + 1, dtype=dtype, device=device)
+    G = _gram_table(pts, n, m, d, torch)         # (m+1, d+1, 2n+1)
+    factors = torch.tensor(_factors(n, m), dtype=dtype, device=device)
+    basis = G[:, 0, :]
+    center = ((factors * G[:, d, n])[:, None] * basis).sum(0)
+    edge_cols = G[:, d, n + 1:].flip(-1)   # [k, e] = F_k^{(d)}(n - e)
+    edge = ((factors[:, None] * edge_cols)[:, :, None]
+            * basis[:, None, :]).sum(0)
+    return center, edge
+
+
 def savgol_all_weights_np(config: SavgolConfig, dtype=np.float32):
     """Stacked (n+1, 2n+1) weight matrix: row 0 = center, rows 1..n = edges."""
     c, e = savgol_weights_np(config, dtype)
     return np.concatenate([c[None, :], e], axis=0)
+
+
+def savgol_all_weights(half_window: int, poly_order: int, derivative: int = 0,
+                       dtype=torch.float32, *, device=None):
+    """:func:`savgol_weights` stacked as (n+1, 2n+1): row 0 = center, rows
+    1..n = edges."""
+    c, e = savgol_weights(half_window, poly_order, derivative, dtype,
+                          device=device)
+    return torch.cat([c[None, :], e], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -238,3 +292,78 @@ def savgol2d_weights_np(config: Savgol2DConfig, dtype=np.float32) -> np.ndarray:
     scale = math.factorial(dx) * math.factorial(dy)
     w = (A @ c) * scale
     return w.reshape(config.window_height, config.window_width).astype(dtype)
+
+
+def _check_design_rank(A: np.ndarray, wh: int, ww: int, order: int) -> None:
+    """Reject rank-deficient monomial bases for the device generator (its
+    Cholesky cannot take the min-norm pseudo-inverse route the host
+    generator uses for rank-deficient-but-well-posed targets)."""
+    An = A / np.linalg.norm(A, axis=0, keepdims=True)
+    s = np.linalg.svd(An, compute_uv=False)
+    if s[-1] <= 1e-8 * s[0]:
+        raise np.linalg.LinAlgError(
+            f"degenerate 2D window for the on-device generator: the "
+            f"order-{order} monomial basis is rank-deficient on a "
+            f"{wh}x{ww} grid (coincident monomial columns); increase the "
+            "half-windows or lower poly_order — well-posed derivative "
+            "targets on such grids are served by the host generator "
+            "savgol2d_weights_np")
+
+
+@functools.lru_cache(maxsize=None)
+def _validate_2d_geometry(nx: int, ny: int, order: int,
+                          np_dtype=np.float32) -> None:
+    """The device generator's degeneracy check, on the host before any
+    tensor is made.
+
+    Whether a Cholesky factorization in the working dtype can factor the
+    normal matrix is a function of the geometry (nx, ny, order) and the
+    dtype only; without the check, a singular system would give NaN
+    weights. Rejects (a) geometries with coincident monomial columns
+    (rank-deficient, e.g. half_window_y=1 with order 3, where y^3 == y on
+    {-1,0,1}; the reference also refuses these, src/savgol2d.c:144-148)
+    and (b) systems whose working-dtype factorization fails even though
+    f64 LAPACK would cope — for those, use the host generator
+    ``savgol2d_weights_np``."""
+    A = _design_matrix_np(nx, ny, order)
+    # scale-invariant rank test (a raw matrix_rank of the huge-entry normal
+    # matrix falsely rejects valid large configs, e.g. (16,16,order 6),
+    # whose f64 solve is exact) ...
+    _check_design_rank(A, 2 * ny + 1, 2 * nx + 1, order)
+    # ... then predict working-dtype factorability of the actual system
+    try:
+        np.linalg.cholesky((A.T @ A).astype(np_dtype))
+    except np.linalg.LinAlgError:
+        raise np.linalg.LinAlgError(
+            f"2D window not factorable in the working dtype for the "
+            f"on-device generator: order-{order} normal matrix on a "
+            f"{2 * ny + 1}x{2 * nx + 1} grid; use a wider dtype or the "
+            "host generator savgol2d_weights_np")
+
+
+def savgol2d_weights(half_window_x: int, half_window_y: int, poly_order: int,
+                     deriv_x: int = 0, deriv_y: int = 0, dtype=torch.float32,
+                     *, device=None) -> torch.Tensor:
+    """The 2D stencil of :func:`savgol2d_weights_np`, generated on
+    ``device`` in ``dtype``: shape (2 half_window_y + 1, 2 half_window_x +
+    1).
+
+    The same normal equations as the host generator, formed in the
+    working dtype and solved by a Cholesky factorization. Degenerate
+    window geometries raise ``numpy.linalg.LinAlgError`` before any tensor
+    is made (the singularity is knowable from the arguments alone).
+    ``device=None`` means the card, and raises without one.
+    """
+    nx, ny, order = half_window_x, half_window_y, poly_order
+    np_dtype = np.float64 if dtype.itemsize >= 8 else np.float32
+    _validate_2d_geometry(nx, ny, order, np_dtype)
+    device = card_unless_named(device, "savgol2d_weights")
+    A = torch.tensor(_design_matrix_np(nx, ny, order), dtype=dtype,
+                     device=device)                  # (points, terms)
+    ata = (A[:, :, None] * A[:, None, :]).sum(0)
+    e = torch.zeros((A.shape[1], 1), dtype=dtype, device=device)
+    e[monomial_index(deriv_x, deriv_y)] = 1.0
+    c = torch.cholesky_solve(e, torch.linalg.cholesky(ata))[:, 0]
+    scale = float(math.factorial(deriv_x) * math.factorial(deriv_y))
+    w = (A * c).sum(1) * scale
+    return w.reshape(2 * ny + 1, 2 * nx + 1)

@@ -140,18 +140,22 @@ def measure(x: torch.Tensor, w: torch.Tensor) -> list:
     Returns one record a kernel."""
     from savgol_tpu_torch.ops.cuda_conv import (correlate_valid_bf16_cuda,
                                                 correlate_valid_bf16_plain)
-    from savgol_tpu_torch.utils.timing import bound, cudnn_ms, device_ms
+    from savgol_tpu_torch.utils.roofline import (speed_of_light_1d,
+                                                 speed_of_light_valid_1d)
+    from savgol_tpu_torch.utils.timing import cudnn_ms, device_ms
 
     B, N = x.shape
     ws = w.shape[0]
-    samples = B * N
     recs = []
     runs = {v: (lambda v=v: probe_cuda(x, w, v),
                 lambda v=v: probe_plain(x, w, v)) for v in VARIANTS}
     runs["K3-bf16"] = (lambda: correlate_valid_bf16_cuda(x, w),
                        lambda: correlate_valid_bf16_plain(x, w))
-    flops = {"copy": 0, "shift_only": 0, "taps_only": 2 * ws * samples,
-             "K3-bf16": 2 * ws * samples}
+    # the copy writes every sample, the others their VALID outputs; bytes
+    # bound all four (a copy's bound is a same-length apply's)
+    lims = {v: (speed_of_light_1d if v == "copy" else speed_of_light_valid_1d)(
+        x.shape, dtype=x.dtype, method="bf16", half_window=ws // 2).fields
+        for v in runs}
     x3 = x.view(B, 1, N)
     w3 = bf16_taps(w.to(x.device)).to(torch.bfloat16).view(1, 1, ws)
     cl = torch.channels_last
@@ -168,11 +172,10 @@ def measure(x: torch.Tensor, w: torch.Tensor) -> list:
         if not ok:
             raise RuntimeError(f"P3 {name} disagrees with its plain version: "
                                f"max {err.max().item():.3e}")
-        nbytes = 2 * samples + 2 * got.numel()
         recs.append({"name": name, "max_abs_err": err.max().item(),
                      "ms": device_ms(kernel),
                      "plain_ms": device_ms(plain, warmup=1, reps=3),
-                     **bound(nbytes, flops[name], "bf16"),
+                     **lims[name],
                      "library_ms": lib["best"] if name == "K3-bf16" else None,
                      "library_default_ms": (lib["default"]
                                             if name == "K3-bf16" else None)})

@@ -120,7 +120,8 @@ def measure(x: torch.Tensor, w: torch.Tensor, n_out: int,
     - 1) samples it must read and the B n_out it writes. Returns one record
     a geometry."""
     from savgol_tpu_torch.ops.cuda_conv import correlate_valid_cuda
-    from savgol_tpu_torch.utils.timing import bound, device_ms
+    from savgol_tpu_torch.utils.roofline import speed_of_light_valid_1d
+    from savgol_tpu_torch.utils.timing import device_ms
 
     B, N = x.shape
     ws = w.shape[0]
@@ -133,7 +134,8 @@ def measure(x: torch.Tensor, w: torch.Tensor, n_out: int,
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     k3_ms = device_ms(lambda: correlate_valid_cuda(x, w))
-    lim = bound(4 * B * (n_out + ws - 1) + 4 * B * n_out, 2 * ws * B * n_out)
+    lim = speed_of_light_valid_1d((B, n_out + ws - 1),
+                                  half_window=ws // 2).fields
     recs = []
     for rows, cols in geometries:
         def run(rows=rows, cols=cols):

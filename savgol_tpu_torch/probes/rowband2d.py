@@ -147,12 +147,10 @@ def measure(x: torch.Tensor, w: torch.Tensor, pad_mode="edge") -> list:
     the bf16 tensor-core peak; ``cuda_core_ms`` is the same FMAs at the
     f32 peak of the CUDA cores, which ``B_alignctl`` runs on. Returns one
     record a variant."""
-    from savgol_tpu_torch.utils.timing import (PEAK_FLOPS, bound,
-                                               cudnn_ms, device_ms)
+    from savgol_tpu_torch.utils.roofline import speed_of_light_2d
+    from savgol_tpu_torch.utils.timing import cudnn_ms, device_ms
 
     H, W = w.shape
-    pix = x.numel()
-    out_b = 4 if x.dtype == torch.float32 else 2
     wb = bf16_taps(w.to(x.device)).to(torch.bfloat16)
     x4 = x.to(torch.bfloat16).unsqueeze(1)
     w4 = wb.view(1, 1, H, W)
@@ -174,16 +172,20 @@ def measure(x: torch.Tensor, w: torch.Tensor, pad_mode="edge") -> list:
         if not bool((diff <= gate).all()):
             raise RuntimeError(f"P2 {name} disagrees with its plain version:"
                                f" {err:.3e}")
-        taps = W if name == "C_wh1" else H * W
-        flops = 2 * taps * pix
+        # C_wh1 runs the stencil's first row only
+        rows = 1 if name == "C_wh1" else H
+        tensor_cores = speed_of_light_2d(rows, shape=x.shape, dtype=x.dtype,
+                                         method="bf16", window_w=W)
+        cuda_cores = speed_of_light_2d(rows, shape=x.shape, dtype=x.dtype,
+                                       window_w=W)
         recs.append({
             "name": name, "max_abs_err": err,
             "ms": device_ms(lambda: variant_cuda(name, x, w, pad_mode)),
             "plain_ms": device_ms(
                 lambda: variant_plain(name, x, w, pad_mode), warmup=1,
                 reps=3),
-            **bound((x.element_size() + out_b) * pix, flops, "bf16"),
-            "cuda_core_ms": flops / PEAK_FLOPS["f32"] * 1e3,
+            **tensor_cores.fields,
+            "cuda_core_ms": cuda_cores.ops_bound_s * 1e3,
             "library_ms": lib["best"] if name == "A_lib" else None,
             "library_default_ms": (lib["default"] if name == "A_lib"
                                    else None)})

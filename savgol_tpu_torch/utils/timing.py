@@ -16,7 +16,11 @@ call runs back to back (the data sheet's peaks assume its top clock).
 :func:`host_ms` times the host instead: how long a call takes to enqueue
 its work, which bounds a call whose device work is shorter.
 :func:`cudnn_ms` times a library yardstick under the settings cuDNN can be
-run with, and :func:`bound` gives the least time the card could take.
+run with. The least time the card could take for a call is
+:mod:`savgol_tpu_torch.utils.roofline`'s.
+
+This module imports only torch and the standard library: the A/B probes
+load it by file path to time another checkout with this one's timers.
 """
 
 
@@ -28,18 +32,12 @@ from typing import Callable
 
 import torch
 
-__all__ = ["cuda_time_ms", "device_ms", "host_ms", "cudnn_ms", "bound",
-           "clocks_during", "HBM_BPS", "PEAK_FLOPS"]
+__all__ = ["cuda_time_ms", "device_ms", "host_ms", "cudnn_ms",
+           "clocks_during"]
 
 _FLUSH_BYTES = 256 << 20
 # ~1 ms of the card's time at the H100's 1.98 GHz SM clock
 _SPIN_CYCLES = 2_000_000
-
-# H100 SXM data sheet: the memory rate, and the dense peak rate of each
-# operand type (f32 and f64 outside the tensor cores; bf16 products summed
-# in f32 on the tensor cores)
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
 
 
 def _event_ms(fn: Callable[[], object], warmup: int, reps: int,
@@ -169,14 +167,3 @@ def cudnn_ms(call: Callable[[], object],
         torch.backends.cudnn.benchmark = flag
     t["best"] = min(t.values())
     return t
-
-
-def bound(nbytes: float, flops: float, kind: str = "f32") -> dict:
-    """{"bound_ms", "bound_by"}: the least time the card could take for a
-    function that moves ``nbytes`` (each input read once, each output
-    written once) and does ``flops`` operations of type ``kind`` (an FMA
-    counted as two), the larger of the two times."""
-    t_b = nbytes / HBM_BPS * 1e3
-    t_o = flops / PEAK_FLOPS[kind] * 1e3
-    return {"bound_ms": max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
