@@ -65,8 +65,10 @@ and ``savgol2d_hessian``, each one launch, within ``bench.py``'s 5e-3
 contract of float64; ``scipy_compat`` in bf16 against scipy; f64 gradients;
 times beside the bounds and ``F.conv1d`` / ``F.conv2d`` on bf16. Then the
 attribution probes P3 (``probes/bf16_1d.py``) and P2
-(``probes/rowband2d.py``) at the headlines against their plain versions,
-with their times. Then P1 (``probes/dma1d.py``), the double-buffered VALID
+(``probes/rowband2d.py``), each variant K3-bf16 or K6a-bf16 with one cost
+term removed, at the headlines against their plain versions, with their
+times, the split of K3-bf16's and K6a-bf16's times they give, and the
+device operations of one ``apply_valid(method="bf16")`` call. Then P1 (``probes/dma1d.py``), the double-buffered VALID
 correlation, against its plain version and bit for bit against K3 over the
 JAX probe's geometries, windows, N of each residue mod 4 and short
 ``n_out``, and at the JAX bench's geometry (128 x (2^20 + 128), its (rows,
@@ -83,7 +85,7 @@ the host float64 tables and bit for bit with TF32 allowed,
 the host C++ engine (``savgol_tpu_torch.native``) against the card's 1D and
 2D applies, ``utils.profiling.benchmark_chained`` beside K1's device time,
 and the device idle share of one headline apply and of one stream chunk
-(and of 20 of each back to back) from a ``utils.profiling.trace``.
+(and of 20 of each back to back) from ``utils.profiling.trace_events``.
 Beside each kernel's time it prints its bound (bytes or operations
 at the data sheet's rates) and, where one PyTorch call computes the same
 function, that call's time. Every phase prints one line; any failure raises
@@ -3319,8 +3321,12 @@ def rank_sharded_bf16(dev_type: str = "cuda", shape1d=(B_FULL, N_FULL),
 def probes_phase(dev, card) -> list:
     """P3 at the 1D headline (bf16, 25 taps) and P2 at the 2D headline
     (bf16, 11 x 11, CONSTANT): each variant once in its own zeroed window
-    (one launch), then ``measure`` (each against its plain version, times,
-    bounds). Returns the probes' records."""
+    (one launch) against its plain version on the whole batch (P3's
+    ``copy`` and ``shift_only`` bit for bit, ``taps_only`` and P2 within one
+    bf16 ulp), then ``measure`` (the same checks, times, bounds, library
+    calls, and the device operations of one ``apply_valid(method="bf16")``
+    call). Prints each variant beside K3-bf16 / K6a-bf16 and the split of
+    their times. Returns the probes' records."""
     import savgol_tpu_torch as sgt
     from savgol_tpu_torch.ops.weights import (savgol2d_weights_np,
                                               savgol_weights_np)
@@ -3331,9 +3337,17 @@ def probes_phase(dev, card) -> list:
     x = torch.randn(B_FULL, N_FULL, generator=g, device=dev).to(torch.bfloat16)
     w = torch.from_numpy(savgol_weights_np(sgt.SavgolConfig(12, 4), np.float64)[0]
                          ).to(dev)
-    l3 = {v: counted_all(lambda: p3.probe_cuda(x, w, v),
-                         {"probe_bf16_1d": 1}, f"P3 {v}")[1]["probe_bf16_1d"]
-          for v in p3.VARIANTS}
+    l3 = {}
+    for v in p3.VARIANTS:
+        got, l3[v] = counted_all(lambda: p3.probe_cuda(x, w, v),
+                                 {"probe_bf16_1d": 1}, f"P3 {v}")
+        want = p3.probe_plain(x, w, v)
+        if v == "taps_only":
+            ulp_check(got, want, f"P3 {v}")
+        else:
+            require(torch.equal(got, want), f"P3 {v}: not bit-equal to its "
+                    "plain version")
+        del got, want
     r3 = p3.measure(x, w)
     del x
     img = torch.randn(IMG_FULL, generator=g, device=dev).to(torch.bfloat16)
@@ -3341,9 +3355,13 @@ def probes_phase(dev, card) -> list:
                                               np.float64)).to(dev)
     want2 = {"A_lib": {"corr2d_valid": 1}, "B_alignctl": {"probe_rowband2d": 1},
              "C_wh1": {"corr2d_valid": 1}}
-    l2 = {v: sum(counted_all(lambda: p2.variant_cuda(v, img, w2, "edge"),
-                             want, f"P2 {v}")[1].values())
-          for v, want in want2.items()}
+    l2 = {}
+    for v, want in want2.items():
+        got, counts = counted_all(lambda: p2.variant_cuda(v, img, w2, "edge"),
+                                  want, f"P2 {v}")
+        l2[v] = sum(counts.values())
+        ulp_check(got, p2.variant_plain(v, img, w2, "edge"), f"P2 {v}")
+        del got
     r2 = p2.measure(img, w2, "edge")
     for r in r3 + r2:
         print(f"time probe {r['name']}: kernel {r['ms']:.4f} ms, plain "
@@ -3351,6 +3369,17 @@ def probes_phase(dev, card) -> list:
               f"({r['bound_by']}), vs plain {r['max_abs_err']:.3e}"
               + (f", library {r['library_ms']:.4f} ms"
                  if r["library_ms"] is not None else "") + f" [{card}]")
+    t3 = {r["name"]: r["ms"] for r in r3}
+    t2 = {r["name"]: r["ms"] for r in r2}
+    print(f"P3 split of K3-bf16 {t3['K3-bf16']:.4f} ms (bound "
+          f"{r3[-1]['bound_ms']:.4f}): copy {t3['copy']:.4f} (the ring's "
+          f"floor, {r3[0]['bound_ms'] / t3['copy']:.1%} of its bound), halo "
+          f"and shifted stores {t3['shift_only'] - t3['copy']:+.4f}, products "
+          f"and round trip {t3['taps_only'] - t3['shift_only']:+.4f}, halo "
+          f"loads {t3['K3-bf16'] - t3['taps_only']:+.4f}; P2 input-side "
+          f"shift (B_alignctl - A_lib) {t2['B_alignctl'] - t2['A_lib']:+.4f}"
+          f" of K6a-bf16 {t2['A_lib']:.4f}, one stencil row (C_wh1) "
+          f"{t2['C_wh1']:.4f} [{card}]")
     p3_lines = {"copy": 152, "shift_only": 135, "taps_only": 119}
     out = []
     for r in r3:
@@ -3361,14 +3390,14 @@ def probes_phase(dev, card) -> list:
                     "source": "savgol_tpu_torch/csrc/probe_bf16_1d.cu",
                     "replaces": f"benchmarks/probe_bf16_1d.py:"
                                 f"{p3_lines[r['name']]}",
-                    "launches": l3[r["name"]]})
+                    "launches": l3[r["name"]]["probe_bf16_1d"],
+                    "k3_ms": t3["K3-bf16"]})
     for r in r2:
-        src = ("probe_rowband2d.cu" if r["name"] == "B_alignctl"
-               else "corr2d_bf16_mma.cu")
         out.append({**r, "name": f"probe_rowband2d {r['name']}",
-                    "route": "cuda", "source": f"savgol_tpu_torch/csrc/{src}",
+                    "route": "cuda",
+                    "source": "savgol_tpu_torch/csrc/corr2d_bf16_mma.cu",
                     "replaces": "benchmarks/probe_rowmxu.py:101",
-                    "launches": l2[r["name"]]})
+                    "launches": l2[r["name"]], "k6a_ms": t2["A_lib"]})
     return out
 
 
@@ -3640,28 +3669,26 @@ def tf32_bit_equal(make, what: str) -> None:
             require(torch.equal(u, v), f"{what} {key}: TF32 changed bits")
 
 
-def idle_share(path) -> tuple[float, list, float]:
-    """From a ``profiling.trace`` Chrome trace holding calls under
+def idle_share(ev: list) -> tuple[float, list, float]:
+    """From a ``profiling.trace``'s events holding calls under
     ``record_function("traced call")`` (which ends after a synchronise):
     the share of that window in which the card ran nothing, the names of
-    the kernels that started in it, and the window in ms. The window runs
-    from the first call's start on the host to the synchronise's end; the
-    card is busy in the union of its kernel, memcpy and memset events."""
-    with open(path) as fh:
-        ev = json.load(fh)["traceEvents"]
+    the kernels launched in it, and the window in ms. The window runs from
+    the first call's start on the host to the synchronise's end; the card
+    is busy in the union of the kernel, memcpy and memset events launched
+    in it (``profiling.device_events``, matched by launch)."""
+    from savgol_tpu_torch.utils.profiling import device_events
+
     call = next(e for e in ev if e.get("name") == "traced call"
                 and e.get("cat") == "user_annotation")
     t0, t1 = call["ts"], call["ts"] + call["dur"]
-    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
-                   for e in ev if e.get("ph") == "X" and e.get("cat") in
-                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    ops = device_events(ev, (t0, t1))
     busy, end = 0.0, t0
-    for a, b in spans:
-        a = max(a, end)
+    for e in ops:
+        a, b = max(e["ts"], t0, end), min(e["ts"] + e["dur"], t1)
         if b > a:
             busy, end = busy + b - a, b
-    kernels = [e["name"] for e in ev if e.get("cat") == "kernel"
-               and t0 <= e["ts"] < t1]
+    kernels = [e["name"] for e in ops if e["cat"] == "kernel"]
     return 1.0 - busy / (t1 - t0), kernels, (t1 - t0) / 1e3
 
 
@@ -3806,29 +3833,34 @@ def host_modules_phase(sgt, dev, card) -> dict:
     cw, ew, dt = f_host.center_weights, f_host.edge_weights, f_host.dt_inv
     calls = {"apply": lambda: f_host.apply(x),
              "chunk": lambda: ts.stream_process_chunk(st, chunk, cw, ew, dt)}
-    idle = {}
+    idle, takes = {}, {}
+
+    def traced(call, reps):
+        call()   # the profiler's start-up falls outside the window
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("traced call"):
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         # one call, as a caller waits for it; and 20 back to back, where
         # the host enqueues while the card runs
         for (name, call), reps in itertools.product(calls.items(), (1, 20)):
-            log = os.path.join(tmp, f"{name}{reps}")
-            with profiling.trace(log):
-                call()   # the profiler's start-up falls outside the window
-                torch.cuda.synchronize()
-                with torch.profiler.record_function("traced call"):
-                    for _ in range(reps):
-                        call()
-                    torch.cuda.synchronize()
-            idle[name, reps] = idle_share(os.path.join(log, "trace.json"))
+            ev, takes[name, reps] = profiling.trace_events(
+                lambda: traced(call, reps), os.path.join(tmp, f"{name}{reps}"))
+            idle[name, reps] = idle_share(ev)
             require(idle[name, reps][1], f"trace of {name} x {reps}: no "
-                    "kernel")
+                    f"kernel launched in the window ({takes[name, reps]} "
+                    "takes)")
     parts.append(
         f"(e) benchmark_chained Savgol1D.apply ({B_FULL}, {N_FULL}): "
         f"{per * 1e3:.4f} ms a step, ratio {ratio:.3f} (band "
         f"{profiling.RATIO_BAND}), K1 device_ms {k1_ms:.4f}; device idle "
         f"share (profiling.trace, after a first call in the same trace) "
         + ", ".join(f"{what} x {r} {idle[k, r][0]:.4f} of "
-                    f"{idle[k, r][2]:.4f} ms ({len(idle[k, r][1])} kernels)"
+                    f"{idle[k, r][2]:.4f} ms ({len(idle[k, r][1])} kernels"
+                    f", {takes[k, r]} take{'s' * (takes[k, r] > 1)})"
                     for k, what in (("apply", "headline apply"),
                                     ("chunk", f"stream chunk of "
                                               f"{STREAM_TRACED}"))

@@ -32,7 +32,7 @@ _SOURCES = ("sg1d_poly.cu", "corr1d_valid.cu", "corr1d_bank.cu",
             "corr2d_valid.cu", "corr2d_bf16_mma.cu", "corr2d_sep.cu",
             "plane_solve.cu", "masked1d.cu", "masked2d.cu", "nonuniform.cu",
             "resample.cu", "halo_ring.cu", "probe_bf16_1d.cu",
-            "probe_rowband2d.cu", "probe_dma1d.cu")
+            "probe_dma1d.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
@@ -61,8 +61,10 @@ _SIGNATURES = {
     # P3: x, w, out, B, N, ws, variant, stream; the tile width
     "probe_bf16_1d": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "probe_bf16_1d_tile": [],
-    # P2 B_alignctl: x, w, out, B, R, C, H, W, mode, bf16 storage, stream
-    "probe_rowband2d": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _I, _P],
+    # P2 B_alignctl (corr2d_bf16_mma.cu): x, w, out, B, R, C, H, W, mode,
+    # bf16 storage, stream
+    "corr2d_bf16_alignctl": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _I,
+                             _P],
     # P1: x, w, out, B, N, ws, n_out, rows, cols, stream
     "corr1d_dma_f32": [_P, _P, _P, _LL, _LL, _I, _LL, _I, _I, _P],
     # x, w, out, B, N, K, ws, pad, mode, stream

@@ -59,7 +59,7 @@ namespace {
 // 1) below the 1D tile kernels' 129: a wider tap buffer would double the
 // taps each group reloads and the f64 instance's shared memory, for
 // windows no bank entry point builds.
-constexpr int kBankMaxWs = sgt::kNarrowWs;
+constexpr int kBankMaxWs = 65;
 constexpr int kBankMaxWsPad = sgt::ws_pad(kBankMaxWs);
 constexpr int kBankStage = sgt::kTile + kBankMaxWsPad + 4;
 

@@ -10,7 +10,7 @@
 // Samples are rounded to bf16 as they are staged, the taps are bf16 values
 // held in f32 (ops/cuda_conv.py bf16_taps), every product is exact in f32;
 // f32 storage gets the f32 sum unrounded, bf16 storage the sum rounded to
-// bf16 (stencil_tile.cuh Bf16Sum).
+// bf16 (put1, put2).
 //
 // Replaces the TPU kernels of savgol_tpu/ops/pallas_conv.py on bf16
 // operands at single-pass MXU precision (mxu_precision=DEFAULT):
@@ -33,7 +33,10 @@
 // on bf16 with f32 accumulation; A and B come from shared memory through
 // ldmatrix. ldmatrix takes one row address a lane, so the vertical shift by
 // y is free: it is the TPU kernel's input-side shift (the comment at
-// :1502-1506). wgmma reads shared memory through descriptors of 8-row core
+// :1502-1506). The instance with OwnRows set, P2's B_alignctl
+// (corr2d_bf16_alignctl below), reads every stencil row's A at the
+// output's own rows, so its time against this kernel's is what that shift
+// costs. wgmma reads shared memory through descriptors of 8-row core
 // matrices and would need a restaged copy of the tile for each y.
 //
 // Bound: device-memory bytes. At 11 x 11 the band does 11 x 32 MACs a pixel
@@ -232,8 +235,11 @@ __device__ __forceinline__ void put2(__nv_bfloat16* plane, int Ro, int Co,
 }
 
 // In: float (f32 storage) or __nv_bfloat16 (bf16 storage); the output in
-// the same storage. pairs: Co is even and out 2-element aligned.
-template <typename In>
+// the same storage. pairs: Co is even and out 2-element aligned. OwnRows
+// (P2's B_alignctl only): stencil row y reads the staged rows of the
+// outputs themselves, not the rows y below them,
+//     out[b, k, r, c] = sum_{y, x} w[k, y, x] * X[b, r, c + x].
+template <typename In, bool OwnRows = false>
 __global__ void __launch_bounds__(kThreadsM, 3)
 corr2d_bf16_mma_kernel(const In* __restrict__ x, const float* __restrict__ w,
                        In* __restrict__ out, int R, int C, int Ro, int Co,
@@ -279,6 +285,7 @@ corr2d_bf16_mma_kernel(const In* __restrict__ x, const float* __restrict__ w,
         for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.0f;
 #pragma unroll 1
     for (int y = 0; y < H; ++y) {
+      const int ay = OwnRows ? 0 : y;   // A's first staged row
 #pragma unroll 1
       for (int kc = 0; kc < KC; ++kc) {
         // output columns 0-7 meet input columns 16 kc ... only if
@@ -289,7 +296,7 @@ corr2d_bf16_mma_kernel(const In* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int m = 0; m < kMT; ++m) {
           unsigned af[4];
-          ldmatrix_x4(af, a_base + 2u * ((16 * m + y) * L.SA + 16 * kc));
+          ldmatrix_x4(af, a_base + 2u * ((16 * m + ay) * L.SA + 16 * kc));
           if (left) mma_bf16(acc[m][0], af, bf[0], bf[1]);
           mma_bf16(acc[m][1], af, bf[2], bf[3]);
         }
@@ -311,7 +318,7 @@ corr2d_bf16_mma_kernel(const In* __restrict__ x, const float* __restrict__ w,
     window_tile(xs, w, out, b, r0, c0, Ro, Co, K, H, W, L);
 }
 
-template <typename In>
+template <bool OwnRows = false, typename In>
 int launch(const In* x, const float* w, In* out, long long B, long long R,
            long long C, long long K, long long H, long long W, int mode,
            void* stream) {
@@ -328,13 +335,13 @@ int launch(const In* x, const float* w, In* out, long long B, long long R,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const int h = static_cast<int>(H), wd = static_cast<int>(W);
   const size_t smem = Layout(h, wd).smem(h);
-  err = sgt2d::allow_smem(corr2d_bf16_mma_kernel<In>, smem);
+  const auto kernel = corr2d_bf16_mma_kernel<In, OwnRows>;
+  err = sgt2d::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const bool pairs = Co % 2 == 0 &&
                      reinterpret_cast<uintptr_t>(out) % (2 * sizeof(In)) == 0;
-  corr2d_bf16_mma_kernel<In><<<dim3(static_cast<unsigned>(blocks)),
-                               kThreadsM, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(static_cast<unsigned>(blocks)), kThreadsM, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       x, w, out, static_cast<int>(R), static_cast<int>(C), Ro, Co,
       static_cast<int>(K), h, wd, mode, tiles_r, tiles_c, pairs);
   return cudaGetLastError();
@@ -354,4 +361,19 @@ extern "C" int corr2d_valid_bf16(const void* x, const float* w, void* out,
                   stream);
   return launch(static_cast<const float*>(x), w, static_cast<float*>(out), B,
                 R, C, K, H, W, mode, stream);
+}
+
+// P2's B_alignctl (probes/rowband2d.py): one (H, W) stencil on the
+// OwnRows instance, out as corr2d_valid_bf16's for K = 1.
+extern "C" int corr2d_bf16_alignctl(const void* x, const float* w, void* out,
+                                    long long B, long long R, long long C,
+                                    long long H, long long W, int mode,
+                                    int bf16_storage, void* stream) {
+  if (bf16_storage)
+    return launch<true>(static_cast<const __nv_bfloat16*>(x), w,
+                        static_cast<__nv_bfloat16*>(out), B, R, C, 1, H, W,
+                        mode, stream);
+  return launch<true>(static_cast<const float*>(x), w,
+                      static_cast<float*>(out), B, R, C, 1, H, W, mode,
+                      stream);
 }

@@ -2,7 +2,9 @@
 // K2-bf16 (sg1d_poly.cu's sg1d_poly_bf16 / sg1d_pad_bf16, staged from
 // in0 = t0 - n) and K3-bf16 (corr1d_valid.cu's corr1d_valid_bf16, staged
 // from in0 = t0 with zeros past N). Each kernel stages from its in0, runs
-// the band products and stores its outputs with the pieces below.
+// the band products and stores its outputs with the pieces below. The
+// attribution probe P3 (probe_bf16_1d.cu) runs K3-bf16's schedule on the
+// same pieces with one cost term left out.
 //
 // A block computes kTile = 8192 consecutive outputs of one row,
 //
@@ -329,13 +331,16 @@ __device__ __forceinline__ void put16(bf16* q, const bf16* ys, int p) {
   *reinterpret_cast<uint4*>(q) = gather8(ys, p);
 }
 
-// Writes ys[0, kTile) to orow[t0, t0 + kTile), cut to [0, N): 16-byte
-// stores at the 16-byte units of the row that lie whole inside, scalar
-// stores at the ends. orow is aligned to its element.
+// Writes ys[off, off + kTile) to orow[t0, t0 + kTile), cut to [0, N):
+// 16-byte stores at the 16-byte units of the row that lie whole inside,
+// scalar stores at the ends. orow is aligned to its element, ys to 16
+// bytes. The kernels store their outputs (off = 0); P3's shift_only
+// (probe_bf16_1d.cu) stores staged samples n places on.
 template <typename In>
 __device__ __forceinline__ void store_tile(In* __restrict__ orow, long long N,
                                            long long t0,
-                                           const bf16* __restrict__ ys) {
+                                           const bf16* __restrict__ ys,
+                                           int off = 0) {
   constexpr int E = 16 / sizeof(In);         // outputs a 16-byte unit
   const long long lo = max(t0, 0LL), hi = min(t0 + kTile, N);
   const int mis = static_cast<int>(
@@ -344,10 +349,10 @@ __device__ __forceinline__ void store_tile(In* __restrict__ orow, long long N,
   const long long units = (hi - a0) / E;
   const long long a1 = a0 + units * E;
   for (long long j = lo + threadIdx.x; j < a0; j += kThreads)
-    put1(orow + j, ys[j - t0]);
+    put1(orow + j, ys[j - t0 + off]);
   for (long long j = a1 + threadIdx.x; j < hi; j += kThreads)
-    put1(orow + j, ys[j - t0]);
-  const int p0 = static_cast<int>(a0 - t0);
+    put1(orow + j, ys[j - t0 + off]);
+  const int p0 = static_cast<int>(a0 - t0) + off;
   for (int u = threadIdx.x; u < units; u += kThreads)
     put16(orow + a0 + static_cast<long long>(u) * E, ys, p0 + u * E);
 }

@@ -1,9 +1,9 @@
 // The tap loop of a staged row (row_taps4: K4's stencils, the row pass of
-// corr2d_sep.cu, P1 and P3), the pad-mode index map of every staging loop
-// (1D and 2D), and the tile of 1024 outputs a block that K4
-// (corr1d_bank.cu), P3 (probe_bf16_1d.cu) and P1's tap loop use. K1, K2 and
-// K3 ran this tile until they moved to sg1d_exact.cuh, whose outputs are
-// bit for bit row_taps4's.
+// corr2d_sep.cu, P1), the pad-mode index map of every staging loop (1D and
+// 2D), the bf16 operand load of the bf16 modes, and the tile of 1024
+// outputs a block that K4 (corr1d_bank.cu) uses and P1's tap loop keeps.
+// K1, K2 and K3 ran this tile until they moved to sg1d_exact.cuh, whose
+// outputs are bit for bit row_taps4's.
 //
 // One block computes TILE consecutive outputs of one row:
 //
@@ -19,18 +19,11 @@
 // Each thread owns Q = 4 consecutive outputs and runs row_taps4 over the
 // staged span.
 //
-// The staging loops and the kernels' stores take a policy: AsStored (the
-// exact kernels: samples, taps and sums in the storage type) or a bf16 mode
-// (the JAX package's method="bf16": bf16 operands, f32 sums). A bf16 mode
-// rounds each sample to bf16 in registers as it is staged (one load of 2
-// or 4 bytes a sample) and stages it as f32, so the tap loops are the
-// exact f32 ones; its taps are bf16 values held in f32, so every product
-// is exact in f32. It reads and writes the caller's storage, f32 or bf16,
-// so no cast pass runs before or after. The probes of the bf16 1D tile
-// (probe_bf16_1d.cu) stage this way; the bf16 modes of K1, K2 and K3 run
-// their own tile on the tensor cores, staged by 16-byte loads
-// (sg1d_bf16.cuh), and K2D-dense's stages its edge groups through
-// Bf16::load (corr2d_bf16_mma.cu).
+// The bf16 modes (the JAX package's method="bf16": bf16 operands, f32
+// sums) run their own tiles on the tensor cores, staged by 16-byte loads
+// (sg1d_bf16.cuh, corr2d_bf16_mma.cu); a group of samples that leaves the
+// row or image is mapped one sample at a time and read through Bf16::load,
+// which rounds an f32 sample to bf16 (held in f32) and widens a bf16 one.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,31 +35,10 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The exact kernels: a sample staged and a sum written as they are.
-struct AsStored {
-  template <typename T> __device__ static T load(T v) { return v; }
-  template <typename T> __device__ static void put(T* p, T v) { *p = v; }
-};
-
-// bf16 mode of the 1D kernels: samples rounded to bf16 and staged as f32;
-// each output rounded to bf16, then written in the caller's storage (the
-// JAX kernels emit bf16, which the caller casts back).
+// A bf16 mode's operand: a sample rounded to bf16, held in f32.
 struct Bf16 {
   __device__ static float load(float v) { return bf16_round(v); }
   __device__ static float load(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static void put(float* p, float v) { *p = bf16_round(v); }
-  __device__ static void put(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-  }
-};
-
-// bf16 mode of K2D-dense: operands as Bf16; the f32 sum written unrounded
-// into f32 storage and rounded into bf16 storage (the JAX kernel emits its
-// f32 accumulator for f32 input).
-struct Bf16Sum : Bf16 {
-  using Bf16::load;
-  using Bf16::put;
-  __device__ static void put(float* p, float v) { *p = v; }
 };
 
 // The pad mode codes of savgol_tpu_torch/ops/cuda_conv.py (MODE_CODE).
@@ -101,18 +73,11 @@ __host__ __device__ __forceinline__ I map_index(I i, I n, int mode) {
 constexpr int kThreads = 256;
 constexpr int kQ = 4;
 constexpr int kTile = kThreads * kQ;      // outputs per block
-// Blocks per SM that __launch_bounds__ asks to keep resident: 8 x 256
-// threads fill the SM's 2048 and cap registers at 32 a thread. The kernels
-// wait on device memory, and more resident blocks keep more loads in flight.
-constexpr int kMinBlocks = 8;
-// The widest window of K1-K3 (sg1d_exact.cuh, sg1d_bf16.cuh) and P1: the
-// JAX package's Pallas cap (_LANES + 1 taps, pallas_conv.py:50), which
+// The widest window of K1-K3 (sg1d_exact.cuh, sg1d_bf16.cuh), P1 and P3:
+// the JAX package's Pallas cap (_LANES + 1 taps, pallas_conv.py:50), which
 // scipy_compat reaches past SavgolConfig's 65. K1's edge rows are read from
-// device memory, so n <= 64 rows of them cost no shared memory. kNarrowWs
-// (2 * MAX_HALF_WINDOW + 1, every SavgolConfig) is the widest window of K4
-// and P3, whose shared buffers are sized for it.
+// device memory, so n <= 64 rows of them cost no shared memory.
 constexpr int kMaxWs = 129;
-constexpr int kNarrowWs = 65;
 
 // ws rounded up to kQ: the tap buffer of an instance for windows up to ws.
 __host__ __device__ constexpr int ws_pad(int ws) {
@@ -186,20 +151,12 @@ __device__ __forceinline__ void row_taps4(const T* __restrict__ row,
   }
 }
 
-// Shared buffers of one block of an instance for windows up to MaxWs. xs
-// holds the staged input and, after the compute, the block's TILE outputs:
-// the deepest staged index a thread reads is kTile + (ws & ~3) + 3, so a
-// tile stages kTile + (ws & ~3) + 4 samples.
-template <typename T, int MaxWs> struct TileSmem {
-  __align__(16) T xs[kTile + ws_pad(MaxWs) + 4];
-  __align__(16) T w[ws_pad(MaxWs)];
-};
-
 // Stages xv[in0, in0 + stage) of a row of N >= 1 samples into xs, the
-// samples past [0, N) mapped by `mode`, each read through IO::load (no
-// barrier). In is the storage type, T the staged one.
-template <typename IO = AsStored, typename In, typename T>
-__device__ __forceinline__ void stage_row(const In* __restrict__ xrow,
+// samples past [0, N) mapped by `mode` (no barrier): the deepest staged
+// index a thread's row_taps4 reads is kTile + (ws & ~3) + 3, so a tile
+// stages kTile + (ws & ~3) + 4 samples.
+template <typename T>
+__device__ __forceinline__ void stage_row(const T* __restrict__ xrow,
                                           long long N, long long in0, int ws,
                                           int mode, T* __restrict__ xs) {
   const int stage = kTile + (ws & ~(kQ - 1)) + kQ;
@@ -207,9 +164,9 @@ __device__ __forceinline__ void stage_row(const In* __restrict__ xrow,
     const long long g = in0 + i;
     T v = T(0);
     if (g >= 0 && g < N)
-      v = IO::load(xrow[g]);
+      v = xrow[g];
     else if (mode != kZero)   // a pad mode maps every index into [0, N)
-      v = IO::load(xrow[map_index(g, N, mode)]);
+      v = xrow[map_index(g, N, mode)];
     xs[i] = v;
   }
 }

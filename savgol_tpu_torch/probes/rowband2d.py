@@ -7,22 +7,28 @@ term of K2D-dense-bf16:
 
   * ``A_lib``: K2D-dense-bf16 itself (``correlate2d_valid_bf16_cuda``, the
     row-band products on the tensor cores, ``csrc/corr2d_bf16_mma.cu``);
-  * ``B_alignctl``: the CUDA-core tiles, staging and FMAs that the bf16
-    mode ran on before its tensor-core kernel, with every stencil row
-    reading the output's own staged row, ``out[r, c] = sum_y sum_x w[y, x]
-    * X[r, c + x]`` (``csrc/probe_rowband2d.cu``): wrong values by design,
-    the cost of walking the H staged rows removed. Against ``A_lib`` it now
-    compares two designs, not one kernel with and without a cost;
+  * ``B_alignctl``: the same kernel's instance with every stencil row's A
+    operand read at the output's own staged rows,
+    ``out[r, c] = sum_y sum_x w[y, x] * X[r, c + x]``
+    (``corr2d_bf16_alignctl``, ``OwnRows`` set): wrong values by design,
+    the input-side shift by y removed, as the TPU probe's ``B_alignctl``
+    removes its output-side shift. ``B_alignctl`` - ``A_lib`` is what the
+    shift costs;
   * ``C_inshift``: ``A_lib`` on this card, where the kernel already shifts
     on the input side (``ldmatrix`` row addresses); no kernel of its own;
   * ``C_wh1``: ``A_lib`` on the stencil's first row alone (1 x W), the same
     tiles with 1/H of the products: the per-tile fixed cost.
 
+The probes take finite input: a tile with a non-finite sample is written
+again from its windows, as in K2D-dense-bf16, which ``B_alignctl``'s values
+do not follow.
+
 X is the image (VALID) or the image extended by the pad mode, as in
 K2D-dense. :func:`variant_cuda` runs one on a CUDA tensor;
 :func:`variant_plain` states its values in plain PyTorch. :func:`measure`
-holds each against its plain version and times it beside ``F.conv2d`` on
-bf16 and its bound.
+holds each against its plain version and times it beside its bound and
+``F.conv2d`` on bf16 computing the same function (for ``B_alignctl``, the
+1 x W row of the stencil's column sums).
 
     python -m savgol_tpu_torch.probes.rowband2d [--quick]
 
@@ -81,8 +87,9 @@ def alignctl_plain(x: torch.Tensor, w: torch.Tensor,
 def alignctl_cuda(x: torch.Tensor, w: torch.Tensor,
                   pad_mode=None) -> torch.Tensor:
     """``B_alignctl`` on a CUDA tensor ``x`` (..., R, C), f32 or bf16
-    storage (other dtypes through bf16), ``w`` (H, W); one launch. Raises
-    for a tensor that is not on the card."""
+    storage (other dtypes through bf16), ``w`` (H, W): one launch of
+    K2D-dense-bf16's ``OwnRows`` instance. Raises for a tensor that is not
+    on the card."""
     name = "alignctl_cuda"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the probes measure the card; got a "
@@ -98,7 +105,7 @@ def alignctl_cuda(x: torch.Tensor, w: torch.Tensor,
                       device=x.device)
     if B > 0:
         with torch.cuda.device(x.device):
-            err = library().probe_rowband2d(
+            err = library().corr2d_bf16_alignctl(
                 xs.data_ptr(), wc.data_ptr(), out.data_ptr(), B, R, C, H, W,
                 MODE_CODE[pad_mode], int(xs.dtype == torch.bfloat16),
                 torch.cuda.current_stream().cuda_stream)
@@ -115,7 +122,7 @@ def _check(name: str) -> None:
 def variant_cuda(name: str, x: torch.Tensor, w: torch.Tensor,
                  pad_mode=None) -> torch.Tensor:
     """Variant ``name`` on the card (A_lib, C_inshift and C_wh1 launch
-    K2D-dense-bf16, B_alignctl the probe kernel)."""
+    K2D-dense-bf16, B_alignctl its ``OwnRows`` instance)."""
     _check(name)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the probes measure the card; got a "
@@ -139,27 +146,36 @@ def variant_plain(name: str, x: torch.Tensor, w: torch.Tensor,
 def measure(x: torch.Tensor, w: torch.Tensor, pad_mode="edge") -> list:
     """A_lib, B_alignctl and C_wh1 (C_inshift is A_lib here) against their
     plain versions on the first image (f32 output within 2e-6 scaled, bf16
-    output within one bf16 ulp: B_alignctl sums in another order) and their
-    times on the whole batch ``x`` (B, R, C), with ``F.conv2d`` on bf16
-    (cuDNN, zero padding, timed only, as :func:`cudnn_ms` times it: the
-    least time as ``library_ms``, the default pick's as
-    ``library_default_ms``) beside ``A_lib``. The bound counts the FMAs at
-    the bf16 tensor-core peak; ``cuda_core_ms`` is the same FMAs at the
-    f32 peak of the CUDA cores, which ``B_alignctl`` runs on. Returns one
-    record a variant."""
+    output within one bf16 ulp: the tensor cores sum in another order) and
+    their times on the whole batch ``x`` (B, R, C), with ``F.conv2d`` on
+    bf16 (cuDNN, zero padding, timed only, as :func:`cudnn_ms` times it:
+    the least time as ``library_ms``, the default pick's as
+    ``library_default_ms``) with the whole stencil beside ``A_lib``, its
+    first row beside ``C_wh1`` and the 1 x W row of its column sums beside
+    ``B_alignctl``, whose function that row computes. The bound counts the FMAs at the bf16 tensor-core peak;
+    ``cuda_core_ms`` is the same FMAs at the f32 peak of the CUDA cores.
+    Returns one record a variant."""
     from savgol_tpu_torch.utils.roofline import speed_of_light_2d
     from savgol_tpu_torch.utils.timing import cudnn_ms, device_ms
 
     H, W = w.shape
     wb = bf16_taps(w.to(x.device)).to(torch.bfloat16)
     x4 = x.to(torch.bfloat16).unsqueeze(1)
-    w4 = wb.view(1, 1, H, W)
     cl = torch.channels_last
-    x4c, w4c = (t.contiguous(memory_format=cl) for t in (x4, w4))
-    lib = cudnn_ms(
-        lambda: torch.nn.functional.conv2d(x4, w4, padding=(H // 2, W // 2)),
-        lambda: torch.nn.functional.conv2d(x4c, w4c,
-                                           padding=(H // 2, W // 2)))
+    x4c = x4.contiguous(memory_format=cl)
+    # B_alignctl's sum_y sum_x w[y, x] X[r, c + x] is one 1 x W row, the
+    # column sums of the bf16 taps
+    stencils = {"A_lib": wb, "C_wh1": wb[:1],
+                "B_alignctl": wb.float().sum(0, keepdim=True).to(
+                    torch.bfloat16)}
+    lib = {}
+    for name, s in stencils.items():
+        wr = s.reshape(1, 1, *s.shape)
+        wrc = wr.contiguous(memory_format=cl)
+        pad = (s.shape[0] // 2, W // 2)
+        lib[name] = cudnn_ms(
+            lambda: torch.nn.functional.conv2d(x4, wr, padding=pad),
+            lambda: torch.nn.functional.conv2d(x4c, wrc, padding=pad))
     del x4c
     recs = []
     for name in ("A_lib", "B_alignctl", "C_wh1"):
@@ -186,9 +202,8 @@ def measure(x: torch.Tensor, w: torch.Tensor, pad_mode="edge") -> list:
                 reps=3),
             **tensor_cores.fields,
             "cuda_core_ms": cuda_cores.ops_bound_s * 1e3,
-            "library_ms": lib["best"] if name == "A_lib" else None,
-            "library_default_ms": (lib["default"] if name == "A_lib"
-                                   else None)})
+            "library_ms": lib[name]["best"],
+            "library_default_ms": lib[name]["default"]})
     return recs
 
 

@@ -71,7 +71,8 @@ the source no longer has is reported as stale and not built.
 ``census`` builds every source of the checkout to a cubin with ``-Xptxas
 -v`` and reads ``cuobjdump -sass``: each kernel's registers, stack and
 spill, its SASS instruction count and its DFMA, DADD, DMUL and HMMA
-(tensor-core products). ``--root
+(tensor-core products), and a digest of its SASS text, equal for two builds
+that compiled to the same code. ``--root
 DIR`` takes the sources (and the C signatures) of the checkout at DIR, so
 that another tree's census is read with this script; the timed cases call
 this checkout's entry points and edit its kernels. Prints one JSON
@@ -85,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import pathlib
@@ -554,24 +556,33 @@ def _ptxas(text: str) -> dict:
 
 def _sass(cubin: pathlib.Path) -> dict:
     """{kernel: {"sass": instructions but NOPs, "DFMA": n, "DADD": n,
-    "DMUL": n, "HMMA": n}} from ``cuobjdump -sass``."""
+    "DMUL": n, "HMMA": n, "digest": the first 12 hex digits of the SHA-1 of
+    its instructions' text, NOPs included, without addresses and
+    encodings}} from ``cuobjdump -sass``: two builds of a kernel whose
+    digests agree compiled to the same code."""
     from savgol_tpu_torch._build import _nvcc
     tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(cubin)], check=True,
                           capture_output=True, text=True).stdout
-    out, fn = {}, None
+    out, fn, code = {}, None, {}
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             fn = m.group(1)
             out[fn] = {"sass": 0, "DFMA": 0, "DADD": 0, "DMUL": 0, "HMMA": 0}
+            code[fn] = hashlib.sha1()
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                      line)
+        if m and fn:
+            code[fn].update(line.split("*/", 1)[1].split("/*")[0].strip()
+                            .encode() + b"\n")
         if m and fn and m.group(1) != "NOP":
             out[fn]["sass"] += 1
             if m.group(1) in ("DFMA", "DADD", "DMUL", "HMMA"):
                 out[fn][m.group(1)] += 1
+    for f, h in code.items():
+        out[f]["digest"] = h.hexdigest()[:12]
     names = subprocess.run(["c++filt"], input="\n".join(out),
                            capture_output=True, text=True).stdout.split("\n")
     return {n.replace("(anonymous namespace)::", "").replace(

@@ -2,7 +2,9 @@
 ``savgol_tpu.utils.profiling``).
 
 :func:`trace` records a ``torch.profiler`` trace, the card's kernels
-included where there is one. :func:`benchmark` times calls on the host
+included where there is one; :func:`trace_events` traces a call and
+retakes a trace that lost the card's activity, and :func:`device_events`
+reads what the card ran. :func:`benchmark` times calls on the host
 clock and waits for the card. :func:`benchmark_chained` times the chained
 k-difference: chains of k and 2k calls, each feeding the next, so the
 difference cancels what a chain pays once. For a kernel's device time, use
@@ -12,6 +14,7 @@ difference cancels what a chain pays once. For a kernel's device time, use
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
 import time
@@ -19,7 +22,13 @@ from typing import Callable
 
 import torch
 
-__all__ = ["trace", "benchmark", "benchmark_chained", "RATIO_BAND"]
+__all__ = ["trace", "trace_events", "device_events", "benchmark",
+           "benchmark_chained", "RATIO_BAND"]
+
+# the categories of a Chrome trace's events that the card ran
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# the categories of the host calls that launch them
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
 
 
 @contextlib.contextmanager
@@ -41,6 +50,48 @@ def trace(log_dir: str):
     with prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def trace_events(run: Callable, log_dir: str, attempts: int = 3):
+    """Run ``run()`` under :func:`trace` and return ``(events, takes)``:
+    the trace's ``traceEvents`` and how many takes it needed. Where a card
+    is present and a take holds no operation of the card at all, ``run()``
+    is traced again, up to ``attempts`` takes: the profiler now and then
+    delivers none of a short session's device activity, which says
+    nothing of ``run`` (``probes/trace_loss.py`` counts such sessions). A
+    ``run`` that launches nothing on the card gives an empty take each
+    time, and its caller finds no device operation in the last."""
+    for take in range(1, attempts + 1):
+        with trace(log_dir):
+            run()
+        with open(os.path.join(log_dir, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+        if device_events(events) or not torch.cuda.is_available():
+            break
+    return events, take
+
+
+def device_events(events: list, window: tuple | None = None) -> list:
+    """The operations the card ran in a :func:`trace`'s ``traceEvents``:
+    its complete ("X") events of a kernel, a copy or a fill, in the order
+    they started. Each keeps ``ts`` and ``dur`` (us), ``name`` and
+    ``cat``. With ``window = (t0, t1)`` (us, the host's spans' clock), only
+    the operations launched in it: those whose launching runtime or driver
+    call, found by ``args["correlation"]``, started in ``[t0, t1)``. That
+    matches by launch, not by the operation's own start, which the trace
+    may place a fraction of a millisecond off the host's spans."""
+    ops = sorted((e for e in events if e.get("ph") == "X"
+                  and e.get("cat") in DEVICE_CATEGORIES),
+                 key=lambda e: e["ts"])
+    if window is None:
+        return ops
+    t0, t1 = window
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATEGORIES
+                and "correlation" in e.get("args", {})
+                and t0 <= e["ts"] < t1}
+    return [e for e in ops
+            if e.get("args", {}).get("correlation") in launched]
 
 
 def _wait(out) -> None:

@@ -11,6 +11,9 @@ bf16 outputs once, the numpy statements sum in f64: one bf16 ulp
 for f32 ones.
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -79,8 +82,45 @@ def test_p3_taps_only_is_k3_inside_a_tile():
     assert not torch.equal(got, want)
 
 
+def test_p3_tile_is_the_bf16_tile():
+    """TILE is K3-bf16's tile, kTile = 256 kMT kWarps of
+    csrc/sg1d_bf16.cuh, read from its text."""
+    text = (pathlib.Path(p3.__file__).resolve().parents[1] / "csrc"
+            / "sg1d_bf16.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+    assert re.search(r"constexpr int kTile = 256 \* kMT \* kWarps;", text)
+    assert p3.TILE == const("kMT") * 256 * const("kWarps")
+
+
+def test_p3_taps_only_is_k3_away_from_tile_ends():
+    """At the kernel's tile, over rows of more than two tiles, taps_only's
+    plain version is K3-bf16's away from each tile's last ws - 1 outputs
+    (the only ones whose windows reach the halo)."""
+    from savgol_tpu_torch.ops.cuda_conv import correlate_valid_bf16_plain
+    ws, N = 9, 2 * p3.TILE + 3000
+    x, w = torch.from_numpy(_x((2, N), 11)), torch.from_numpy(_x(ws, 12))
+    got = p3.probe_plain(x, w, "taps_only")
+    want = correlate_valid_bf16_plain(x.to(torch.bfloat16), w)
+    j = torch.arange(got.shape[-1])
+    inside = j % p3.TILE < p3.TILE - (ws - 1)
+    assert torch.equal(got[:, inside], want[:, inside])
+    assert not torch.equal(got[:, ~inside], want[:, ~inside])
+
+
+@pytest.mark.parametrize("offset,N", [(0, 100), (1, 104), (4, 1000)])
+def test_p3_needs_aligned_rows(offset, N):
+    """Rows must start on 16-byte boundaries; the wrapper says so before it
+    looks for a card."""
+    flat = torch.zeros(2 * N + offset, dtype=torch.bfloat16)
+    x = flat[offset:].view(2, N)
+    with pytest.raises(ValueError, match="16-byte"):
+        p3.probe_cuda(x, torch.ones(5), "copy")
+
+
 def test_p3_needs_the_card():
-    x = torch.zeros(2, 100, dtype=torch.bfloat16)
+    x = torch.zeros(2, 104, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         p3.probe_cuda(x, torch.ones(5), "copy")
     with pytest.raises(ValueError, match="variant"):
@@ -132,6 +172,17 @@ def test_p2_variants_plain():
         p2.variant_cuda("B_alignctl", x, w)
 
 
+@pytest.mark.parametrize("pad_mode", [None, "edge", "wrap"])
+def test_p2_alignctl_one_row_is_a_lib(pad_mode):
+    """With a one-row stencil there is no shift to remove: B_alignctl,
+    C_wh1 and A_lib give the same values."""
+    x = torch.from_numpy(_x((2, 20, 36), 13)).to(torch.bfloat16)
+    w = torch.from_numpy(_x((1, 7), 14))
+    a = p2.variant_plain("A_lib", x, w, pad_mode)
+    assert torch.equal(p2.variant_plain("B_alignctl", x, w, pad_mode), a)
+    assert torch.equal(p2.variant_plain("C_wh1", x, w, pad_mode), a)
+
+
 def test_p2_a_lib_plain_matches_rowmxu_pallas():
     """A_lib's plain version against ``correlate2d_valid_pallas_rowmxu`` on
     bf16 operands at DEFAULT precision with its f32 accumulator out
@@ -160,14 +211,31 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", p3.VARIANTS)
-@pytest.mark.parametrize("N,ws", [(3000, 25), (65, 65), (1024 * 3 + 5, 3)])
+@pytest.mark.parametrize("N,ws", [(3000, 25), (72, 65), (8192 * 2 + 40, 3),
+                                  (8192 * 3, 129), (8192 + 16, 1)])
 def test_cuda_p3_matches_plain(cuda, variant, N, ws):
+    """copy and shift_only bit for bit, taps_only within one bf16 ulp."""
     x = torch.from_numpy(_x((3, N), N)).to(cuda, torch.bfloat16)
     w = torch.from_numpy(_x(ws, ws)).to(cuda)
     before = p3.LAUNCHES["probe_bf16_1d"]
     got = p3.probe_cuda(x, w, variant)
     assert p3.LAUNCHES["probe_bf16_1d"] == before + 1
-    _within_ulp(got.cpu(), p3.probe_plain(x, w, variant).double().cpu())
+    want = p3.probe_plain(x, w, variant)
+    if variant == "taps_only":
+        _within_ulp(got.cpu(), want.double().cpu())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_p2_alignctl_one_row_is_a_lib(cuda, dtype):
+    """B_alignctl's instance with a one-row stencil is A_lib bit for
+    bit."""
+    x = torch.from_numpy(_x((2, 150, 170), 15)).to(cuda, dtype)
+    w = torch.from_numpy(_x((1, 11), 16)).to(cuda)
+    assert torch.equal(p2.variant_cuda("B_alignctl", x, w, "edge"),
+                       p2.variant_cuda("A_lib", x, w, "edge"))
 
 
 @pytest.mark.cuda
