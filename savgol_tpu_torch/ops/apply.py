@@ -47,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from savgol_tpu_torch import tracing
 from savgol_tpu_torch.config import PAD_MODE, BoundaryMode
 from savgol_tpu_torch.ops.cuda_bank import (bank_correlate_plain,
                                             correlate_valid_bank_cuda)
@@ -342,13 +343,18 @@ def savgol_apply(
 ) -> torch.Tensor:
     """Apply a precomputed Savitzky-Golay filter along ``axis`` of ``x``
     (reference ``savgol_apply``, src/savgolFilter.c:743, generalized to ND
-    tensors; ``axis`` replaces ``savgol_apply_strided``)."""
-    xl, moved = _move_axis_last(x, axis)
-    y = savgol_apply_core(
-        xl, center_w, edge_w, half_window, boundary, dt_inv,
-        derivative=derivative, reference_edge_sign=reference_edge_sign,
-        method=method)
-    return _restore_axis(y, moved)
+    tensors; ``axis`` replaces ``savgol_apply_strided``). The body is a
+    ``savgol.apply`` span."""
+    span = tracing.begin("savgol.apply") if tracing.on() else None
+    try:
+        xl, moved = _move_axis_last(x, axis)
+        y = savgol_apply_core(
+            xl, center_w, edge_w, half_window, boundary, dt_inv,
+            derivative=derivative, reference_edge_sign=reference_edge_sign,
+            method=method)
+        return _restore_axis(y, moved)
+    finally:
+        tracing.end(span)
 
 
 def savgol_apply_valid(
@@ -361,24 +367,30 @@ def savgol_apply_valid(
     method: str = "auto",
 ) -> torch.Tensor:
     """VALID-mode apply: only positions with a full window; output length
-    N - 2*half_window (reference src/savgolFilter.c:821-850)."""
-    ws = 2 * int(half_window) + 1
-    xl, moved = _move_axis_last(x, axis)
-    kernel = _use_kernel(method, xl)
-    if xl.shape[-1] < ws:
-        raise ValueError(
-            f"data length ({xl.shape[-1]}) must be >= window size ({ws})")
-    _check_device(xl, center_w)
-    if xl.is_complex():
-        y = _complex_split(
-            lambda v: savgol_apply_valid(
-                v, center_w, half_window=half_window, dt_inv=dt_inv,
-                method=method), xl)
+    N - 2*half_window (reference src/savgolFilter.c:821-850). The body is
+    a ``savgol.apply`` span."""
+    span = tracing.begin("savgol.apply") if tracing.on() else None
+    try:
+        ws = 2 * int(half_window) + 1
+        xl, moved = _move_axis_last(x, axis)
+        kernel = _use_kernel(method, xl)
+        if xl.shape[-1] < ws:
+            raise ValueError(
+                f"data length ({xl.shape[-1]}) must be >= window size "
+                f"({ws})")
+        _check_device(xl, center_w)
+        if xl.is_complex():
+            y = _complex_split(
+                lambda v: savgol_apply_valid(
+                    v, center_w, half_window=half_window, dt_inv=dt_inv,
+                    method=method), xl)
+            return _restore_axis(y, moved)
+        bf16 = method == "bf16"
+        xl = _ensure_float(xl, center_w)
+        xl, restore = _compute_dtype(xl, bf16)
+        y = _correlate(xl, center_w, kernel, bf16) * _scale_of(dt_inv, xl)
+        if restore is not None:
+            y = y.to(restore)
         return _restore_axis(y, moved)
-    bf16 = method == "bf16"
-    xl = _ensure_float(xl, center_w)
-    xl, restore = _compute_dtype(xl, bf16)
-    y = _correlate(xl, center_w, kernel, bf16) * _scale_of(dt_inv, xl)
-    if restore is not None:
-        y = y.to(restore)
-    return _restore_axis(y, moved)
+    finally:
+        tracing.end(span)

@@ -47,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from savgol_tpu_torch import tracing
 from savgol_tpu_torch.config import Boundary2D, Savgol2DConfig
 from savgol_tpu_torch.ops.apply import (_check_device, _complex_split,
                                         _compute_dtype, _exact_twin,
@@ -216,14 +217,16 @@ def _sep(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
          pad_mode) -> torch.Tensor:
     """K2D-sep over each stencil of ``w`` (H, W) or (K, H, W), each scaled
     by ``s`` (None, 0-dim or (K,)) through its first factor on the
-    device."""
-    def one(k, u, v):
+    device, the factors found and scaled in a ``savgol.taps`` span."""
+    span = tracing.begin("savgol.taps") if tracing.on() else None
+    try:
+        factors = _factors(w, x.dtype, x.device)
         if s is not None:
-            u = u * (s if s.dim() == 0 else s[k])
-        return _CorrSepFn.apply(x, u, v, pad_mode)
-
-    ys = [one(k, u, v)
-          for k, (u, v) in enumerate(_factors(w, x.dtype, x.device))]
+            factors = [(u * (s if s.dim() == 0 else s[k]), v)
+                       for k, (u, v) in enumerate(factors)]
+    finally:
+        tracing.end(span)
+    ys = [_CorrSepFn.apply(x, u, v, pad_mode) for u, v in factors]
     return ys[0] if w.dim() == 2 else torch.stack(ys, dim=-3)
 
 
@@ -245,9 +248,13 @@ def _correlate(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
     if method != "xla" and not needs_grad and (
             method == "sep" or max(w.shape[-2:]) > _SEP_MIN_TAPS):
         return _sep(x.contiguous(), w, s, pad_mode)
-    ws = w.to(x.dtype)
-    if s is not None:
-        ws = ws * s[..., None, None]
+    span = tracing.begin("savgol.taps") if tracing.on() else None
+    try:
+        ws = w.to(x.dtype)
+        if s is not None:
+            ws = ws * s[..., None, None]
+    finally:
+        tracing.end(span)
     if method == "xla":
         return correlate2d_valid_plain(x, ws, pad_mode)
     return _Corr2dFn.apply(x.contiguous(), ws, pad_mode)
@@ -266,22 +273,26 @@ def savgol2d_apply(
     VALID shrinks the output; CONSTANT/REFLECT/PERIODIC keep the input
     shape. Mirrors ``savgol2d_apply`` / ``savgol2d_apply_valid``
     (reference src/savgol2d.c:356-456). Differentiable in ``x``, the
-    weights and a tensor ``scale``.
+    weights and a tensor ``scale``. The body is a ``savgol.apply`` span.
     """
-    route = _resolve_method2d(method, x)
-    if not isinstance(boundary, Boundary2D):
-        boundary = Boundary2D(boundary)
-    _check_device(x, weights)
-    if x.is_complex():
-        # real-linear filter: real/imag parts as one extra batch pair
-        return _complex_split(
-            lambda v: savgol2d_apply(v, weights, boundary=boundary,
-                                     scale=scale, method=method), x)
-    x, restore = _compute_dtype(_promote(x, weights), route == "bf16")
-    pad_mode = (None if boundary is Boundary2D.VALID
-                else _PAD_MODE_2D[boundary])
-    y = _correlate(x, weights, _scale_tensor(scale, x), pad_mode, route)
-    return y.to(restore) if restore is not None else y
+    span = tracing.begin("savgol.apply") if tracing.on() else None
+    try:
+        route = _resolve_method2d(method, x)
+        if not isinstance(boundary, Boundary2D):
+            boundary = Boundary2D(boundary)
+        _check_device(x, weights)
+        if x.is_complex():
+            # real-linear filter: real/imag parts as one extra batch pair
+            return _complex_split(
+                lambda v: savgol2d_apply(v, weights, boundary=boundary,
+                                         scale=scale, method=method), x)
+        x, restore = _compute_dtype(_promote(x, weights), route == "bf16")
+        pad_mode = (None if boundary is Boundary2D.VALID
+                    else _PAD_MODE_2D[boundary])
+        y = _correlate(x, weights, _scale_tensor(scale, x), pad_mode, route)
+        return y.to(restore) if restore is not None else y
+    finally:
+        tracing.end(span)
 
 
 def savgol2d_apply_stack(
@@ -292,25 +303,32 @@ def savgol2d_apply_stack(
     scales: Optional[torch.Tensor] = None,
     method: str = "auto",
 ) -> torch.Tensor:
-    """Apply K stencils (K, H, W) in one pass; output (..., K, R', C')."""
-    route = _resolve_method2d(method, x)
-    if not isinstance(boundary, Boundary2D):
-        boundary = Boundary2D(boundary)
-    _check_device(x, weight_stack)
-    if x.is_complex():
-        return _complex_split(
-            lambda v: savgol2d_apply_stack(v, weight_stack,
-                                           boundary=boundary, scales=scales,
-                                           method=method), x)
-    x, restore = _compute_dtype(_promote(x, weight_stack), route == "bf16")
-    # the output's dtype, never an integer input's: fractional derivative
-    # scales must not truncate
-    s = (None if scales is None
-         else torch.as_tensor(scales, dtype=x.dtype, device=x.device))
-    pad_mode = (None if boundary is Boundary2D.VALID
-                else _PAD_MODE_2D[boundary])
-    y = _correlate(x, weight_stack, s, pad_mode, route)
-    return y.to(restore) if restore is not None else y
+    """Apply K stencils (K, H, W) in one pass; output (..., K, R', C').
+    The body is a ``savgol.apply`` span."""
+    span = tracing.begin("savgol.apply") if tracing.on() else None
+    try:
+        route = _resolve_method2d(method, x)
+        if not isinstance(boundary, Boundary2D):
+            boundary = Boundary2D(boundary)
+        _check_device(x, weight_stack)
+        if x.is_complex():
+            return _complex_split(
+                lambda v: savgol2d_apply_stack(v, weight_stack,
+                                               boundary=boundary,
+                                               scales=scales,
+                                               method=method), x)
+        x, restore = _compute_dtype(_promote(x, weight_stack),
+                                    route == "bf16")
+        # the output's dtype, never an integer input's: fractional
+        # derivative scales must not truncate
+        s = (None if scales is None
+             else torch.as_tensor(scales, dtype=x.dtype, device=x.device))
+        pad_mode = (None if boundary is Boundary2D.VALID
+                    else _PAD_MODE_2D[boundary])
+        y = _correlate(x, weight_stack, s, pad_mode, route)
+        return y.to(restore) if restore is not None else y
+    finally:
+        tracing.end(span)
 
 
 def _stencil_stack(half_window_x: int, half_window_y: int, poly_order: int,

@@ -19,9 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from savgol_tpu_torch._build import library
 from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _check_cuda_input,
-                                            _plain_or_cuda, _raise_on_error,
+                                            _enqueue, _plain_or_cuda,
                                             _weights_on,
                                             correlate_valid_plain, pad_last)
 
@@ -91,13 +90,9 @@ def correlate_valid_bank_cuda(x: torch.Tensor, w: torch.Tensor, pad: int = 0,
     B = x.numel() // N
     if B == 0:
         return out
-    lib = library()
-    fn = (lib.corr1d_bank_f32 if x.dtype == torch.float32
-          else lib.corr1d_bank_f64)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), wc.data_ptr(), out.data_ptr(), B, N, K, ws,
-                 pad, MODE_CODE[pad_mode],
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["corr1d_bank"] += 1
+    _enqueue(name, LAUNCHES, "corr1d_bank", x.device,
+             "corr1d_bank_f32" if x.dtype == torch.float32
+             else "corr1d_bank_f64",
+             x.data_ptr(), wc.data_ptr(), out.data_ptr(), B, N, K, ws, pad,
+             MODE_CODE[pad_mode])
     return out

@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from savgol_tpu_torch import tracing
 from savgol_tpu_torch._build import library
 
 __all__ = [
@@ -222,35 +223,53 @@ def _operands(x: torch.Tensor, taps, dt_inv, bf16: bool, name: str):
     """(storage the kernel reads, its taps, dtype to restore or None) for
     either mode, after the taps' device check. Exact: ``x`` as it is, the
     taps in its dtype times ``dt_inv`` (None: not multiplied). bf16:
-    :func:`_bf16_storage` and :func:`bf16_taps`."""
+    :func:`_bf16_storage` and :func:`bf16_taps`. The taps are prepared in
+    a ``savgol.taps`` span."""
     for t in taps:
         _same_device(t, x, name)
-    if bf16:
-        xs, restore = _bf16_storage(x)
-        return xs, [bf16_taps(t, dt_inv).contiguous() for t in taps], restore
-    ws = [t.to(x.dtype) for t in taps]
-    if dt_inv is not None:
-        ws = [t * scalar_like(dt_inv, x) for t in ws]
-    return x, [t.contiguous() for t in ws], None
+    xs, restore = _bf16_storage(x) if bf16 else (x, None)
+    span = tracing.begin("savgol.taps") if tracing.on() else None
+    try:
+        if bf16:
+            ws = [bf16_taps(t, dt_inv) for t in taps]
+        else:
+            ws = [t.to(x.dtype) for t in taps]
+            if dt_inv is not None:
+                ws = [t * scalar_like(dt_inv, x) for t in ws]
+        return xs, [t.contiguous() for t in ws], restore
+    finally:
+        tracing.end(span)
+
+
+def _enqueue(name: str, counts: dict, key: str, device: torch.device,
+             symbol: str, *args) -> None:
+    """Launch the library's ``extern "C"`` entry ``symbol`` with ``args``
+    and the current stream of ``device``, without synchronising, inside a
+    ``savgol.launch`` span; raises on a launch error, else counts one
+    launch in ``counts[key]``. Every kernel launch of the port's paths
+    comes through here, so each is both counted and spanned."""
+    span = tracing.begin("savgol.launch") if tracing.on() else None
+    try:
+        fn = getattr(library(), symbol)
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        _raise_on_error(err, name)
+        counts[key] += 1
+    finally:
+        tracing.end(span)
 
 
 def _launch(name: str, counts: dict, key: str, base: str, xs: torch.Tensor,
             bf16: bool, *args) -> None:
-    """Launch the ``extern "C"`` entry for ``xs``'s storage, ``base``_f32 or
+    """:func:`_enqueue` of the entry for ``xs``'s storage, ``base``_f32 or
     ``base``_f64, or ``base``_bf16 with its storage flag (1 for bf16, 0 for
-    f32), on the current stream of ``xs``'s card without synchronising;
-    raises on a launch error, else counts one launch in ``counts[key]``."""
-    lib = library()
+    f32), on ``xs``'s card."""
     if bf16:
-        fn = getattr(lib, base + "_bf16")
+        symbol = base + "_bf16"
         args += (int(xs.dtype == torch.bfloat16),)
     else:
-        fn = getattr(lib, base + ("_f32" if xs.dtype == torch.float32
-                                  else "_f64"))
-    with torch.cuda.device(xs.device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    counts[key] += 1
+        symbol = base + ("_f32" if xs.dtype == torch.float32 else "_f64")
+    _enqueue(name, counts, key, xs.device, symbol, *args)
 
 
 def _check_half_window(name: str, n: int) -> None:

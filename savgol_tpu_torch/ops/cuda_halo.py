@@ -33,7 +33,7 @@ import torch
 import torch.distributed as dist
 
 from savgol_tpu_torch._build import library
-from savgol_tpu_torch.ops.cuda_conv import _plain_or_cuda, _raise_on_error
+from savgol_tpu_torch.ops.cuda_conv import _enqueue, _plain_or_cuda
 
 __all__ = ["LAUNCHES", "TIMEOUT_S", "ROUTE", "reset_launches", "release",
            "halo_exchange_cuda", "halo_exchange_plain"]
@@ -209,24 +209,16 @@ def halo_exchange_cuda(tail: torch.Tensor, head: torch.Tensor,
         stream.wait_stream(ring.stream)
     ring.stream = stream
     ring.epoch += 1
-    lib = library()
     timeout_ns = int(TIMEOUT_S * 1e9)
     on_sms = (ROUTE or ring.route) == "sms"
-    with torch.cuda.device(tail.device):
-        err = lib.halo_send(tail.data_ptr(), head.data_ptr(),
-                            ring.right.data_ptr(), ring.left.data_ptr(),
-                            ring.buf.data_ptr(), left.data_ptr(),
-                            right.data_ptr(), nbytes, ring.stride,
-                            ring.blocks, ring.epoch,
-                            timeout_ns if on_sms else 0, stream.cuda_stream)
-        _raise_on_error(err, name)
-        LAUNCHES["halo_send"] += 1
-        if on_sms:
-            return left, right
-        err = lib.halo_recv(ring.buf.data_ptr(), left.data_ptr(),
-                            right.data_ptr(), nbytes, ring.stride,
-                            ring.blocks, ring.epoch, timeout_ns,
-                            stream.cuda_stream)
-        _raise_on_error(err, name)
-        LAUNCHES["halo_recv"] += 1
+    # both on the current stream of tail's card, which is `stream`
+    _enqueue(name, LAUNCHES, "halo_send", tail.device, "halo_send",
+             tail.data_ptr(), head.data_ptr(), ring.right.data_ptr(),
+             ring.left.data_ptr(), ring.buf.data_ptr(), left.data_ptr(),
+             right.data_ptr(), nbytes, ring.stride, ring.blocks, ring.epoch,
+             timeout_ns if on_sms else 0)
+    if not on_sms:
+        _enqueue(name, LAUNCHES, "halo_recv", tail.device, "halo_recv",
+                 ring.buf.data_ptr(), left.data_ptr(), right.data_ptr(),
+                 nbytes, ring.stride, ring.blocks, ring.epoch, timeout_ns)
     return left, right

@@ -17,10 +17,9 @@ import functools
 import numpy as np
 import torch
 
-from savgol_tpu_torch._build import library
 from savgol_tpu_torch.ops.cuda_bank import bank_correlate_plain
-from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input,
-                                            _plain_or_cuda, _raise_on_error)
+from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input, _enqueue,
+                                            _plain_or_cuda)
 from savgol_tpu_torch.ops.cuda_solve import _work_size, scratch_for
 from savgol_tpu_torch.ops.lsq import cholesky_solve_planes
 
@@ -125,14 +124,10 @@ def savgol_masked1d_fused_cuda(xzp: torch.Tensor, wp: torch.Tensor, pair_w,
     tiles = B * -(-(Np - 2 * n) // _TILE)
     scratch, threads = scratch_for(k, tiles * _TILE, _work_size(k),
                                    xzp.dtype, xzp.device)
-    lib = library()
-    fn = lib.masked1d_f32 if xzp.dtype == torch.float32 else lib.masked1d_f64
-    with torch.cuda.device(xzp.device):
-        err = fn(xzp.data_ptr(), wp.data_ptr(), out.data_ptr(), B, Np, n, k,
-                 pairs.data_ptr(), qt.data_ptr(), ex.data_ptr(), int(kmin),
-                 float(fill),
-                 scratch.data_ptr() if scratch is not None else None,
-                 threads, torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["masked1d"] += 1
+    _enqueue(name, LAUNCHES, "masked1d", xzp.device,
+             "masked1d_f32" if xzp.dtype == torch.float32 else "masked1d_f64",
+             xzp.data_ptr(), wp.data_ptr(), out.data_ptr(), B, Np, n, k,
+             pairs.data_ptr(), qt.data_ptr(), ex.data_ptr(), int(kmin),
+             float(fill), scratch.data_ptr() if scratch is not None else None,
+             threads)
     return out

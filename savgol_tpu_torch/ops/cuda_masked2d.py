@@ -23,9 +23,8 @@ import math
 import numpy as np
 import torch
 
-from savgol_tpu_torch._build import library
-from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input,
-                                            _plain_or_cuda, _raise_on_error)
+from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input, _enqueue,
+                                            _plain_or_cuda)
 from savgol_tpu_torch.ops.cuda_masked import SMEM_LIMIT
 from savgol_tpu_torch.ops.cuda_solve import LOCAL_KMAX
 
@@ -243,13 +242,9 @@ def savgol_masked2d_fused_cuda(
     B = xv.numel() // (Rp * Cp)
     if B == 0:
         return out
-    lib = library()
-    fn = lib.masked2d_f32 if xv.dtype == torch.float32 else lib.masked2d_f64
-    with torch.cuda.device(xv.device):
-        err = fn(xv.data_ptr(), wp.data_ptr(), out.data_ptr(), B, Rp, Cp, nx,
-                 ny, m, P, Sx, Sy, M, nnz, ftab.data_ptr(), itab.data_ptr(),
-                 int(kmin), float(fill), 1, math.sqrt(rcond),
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["masked2d"] += 1
+    _enqueue(name, LAUNCHES, "masked2d", xv.device,
+             "masked2d_f32" if xv.dtype == torch.float32 else "masked2d_f64",
+             xv.data_ptr(), wp.data_ptr(), out.data_ptr(), B, Rp, Cp, nx, ny,
+             m, P, Sx, Sy, M, nnz, ftab.data_ptr(), itab.data_ptr(),
+             int(kmin), float(fill), 1, math.sqrt(rcond))
     return out

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from savgol_tpu_torch._build import library
-from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input,
+from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input, _enqueue,
                                             _plain_or_cuda, _raise_on_error)
 from savgol_tpu_torch.ops.cuda_solve import scratch_for
 from savgol_tpu_torch.ops.lsq import (_dd_add, _dd_mul, _split_const,
@@ -223,19 +223,15 @@ def _launch(name, xz, wts, tl, n, m, d, kmin, fill, rcond, emit_planes):
     if work:
         scratch, threads = scratch_for(m + 1, B * -(-N // tile) * tile, work,
                                        torch.float64, xz.device, 0)
-    lib = library()
-    fn = getattr(lib, "nonuniform_{}_t{}".format(
-        "f32" if xz.dtype == torch.float32 else "f64",
-        "32" if tl.dtype == torch.float32 else "64"))
     # the plain solve takes rcond**2 and gates on its square root (as K8b)
-    with torch.cuda.device(xz.device):
-        err = fn(xz.data_ptr(), wts.data_ptr(), tl.data_ptr(), out.data_ptr(),
-                 B, N, 0 if tl.dim() == 1 else N, n, m, d, int(kmin),
-                 float(fill), math.sqrt(float(rcond) ** 2), int(emit_planes),
-                 scratch.data_ptr() if scratch is not None else None,
-                 threads, torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["nonuniform"] += 1
+    _enqueue(name, LAUNCHES, "nonuniform", xz.device,
+             "nonuniform_{}_t{}".format(
+                 "f32" if xz.dtype == torch.float32 else "f64",
+                 "32" if tl.dtype == torch.float32 else "64"),
+             xz.data_ptr(), wts.data_ptr(), tl.data_ptr(), out.data_ptr(), B,
+             N, 0 if tl.dim() == 1 else N, n, m, d, int(kmin), float(fill),
+             math.sqrt(float(rcond) ** 2), int(emit_planes),
+             scratch.data_ptr() if scratch is not None else None, threads)
     return out
 
 

@@ -24,9 +24,8 @@ import math
 
 import torch
 
-from savgol_tpu_torch._build import library
-from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input,
-                                            _plain_or_cuda, _raise_on_error)
+from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input, _enqueue,
+                                            _plain_or_cuda)
 
 __all__ = ["LAUNCHES", "reset_launches", "resample_eval_plain",
            "resample_eval_cuda"]
@@ -99,14 +98,10 @@ def resample_eval_cuda(planes: torch.Tensor, t: torch.Tensor,
     B = planes[0].numel() // N if N else 0
     if B == 0 or Nq == 0:
         return out
-    lib = library()
-    fn = getattr(lib, "resample_{}_t{}".format(
-        "f32" if planes.dtype == torch.float32 else "f64",
-        "32" if t.dtype == torch.float32 else "64"))
-    with torch.cuda.device(planes.device):
-        err = fn(planes.data_ptr(), t.data_ptr(), ctr.data_ptr(),
-                 tq.data_ptr(), out.data_ptr(), B, N, Nq, m, d, float(fill),
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["resample"] += 1
+    _enqueue(name, LAUNCHES, "resample", planes.device,
+             "resample_{}_t{}".format(
+                 "f32" if planes.dtype == torch.float32 else "f64",
+                 "32" if t.dtype == torch.float32 else "64"),
+             planes.data_ptr(), t.data_ptr(), ctr.data_ptr(), tq.data_ptr(),
+             out.data_ptr(), B, N, Nq, m, d, float(fill))
     return out

@@ -26,10 +26,9 @@ import math
 import numpy as np
 import torch
 
-from savgol_tpu_torch._build import library
 from savgol_tpu_torch.ops.apply import _grads_through
-from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input,
-                                            _plain_or_cuda, _raise_on_error)
+from savgol_tpu_torch.ops.cuda_conv import (_check_cuda_input, _enqueue,
+                                            _plain_or_cuda)
 from savgol_tpu_torch.ops.lsq import (cholesky_solve_planes,
                                       cholesky_solve_planes_dd)
 
@@ -137,18 +136,13 @@ def plane_solve_cuda(gram: torch.Tensor, pair_index, rhs: torch.Tensor,
     q = quorum.to(torch.bool).contiguous()
     scratch, threads = scratch_for(k, pos, _work_size(k), gram.dtype,
                                    gram.device)
-    lib = library()
-    fn = (lib.plane_solve_f32 if gram.dtype == torch.float32
-          else lib.plane_solve_f64)
-    with torch.cuda.device(gram.device):
-        err = fn(gram.data_ptr(), rhs.data_ptr(), q.data_ptr(), pi.data_ptr(),
-                 coef.data_ptr(), ok.data_ptr(), k, pos,
-                 int(rcond is not None),
-                 math.sqrt(rcond) if rcond is not None else 0.0,
-                 scratch.data_ptr() if scratch is not None else None,
-                 threads, torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["plane_solve"] += 1
+    _enqueue(name, LAUNCHES, "plane_solve", gram.device,
+             "plane_solve_f32" if gram.dtype == torch.float32
+             else "plane_solve_f64",
+             gram.data_ptr(), rhs.data_ptr(), q.data_ptr(), pi.data_ptr(),
+             coef.data_ptr(), ok.data_ptr(), k, pos, int(rcond is not None),
+             math.sqrt(rcond) if rcond is not None else 0.0,
+             scratch.data_ptr() if scratch is not None else None, threads)
     return coef, ok
 
 
@@ -182,20 +176,15 @@ def plane_solve_dd_cuda(gram_hi, gram_lo, pair_index, rhs_hi, rhs_lo,
     q = quorum.to(torch.bool).contiguous()
     scratch, threads = scratch_for(k, pos, _dd_work_size(k), torch.float64,
                                    gram_hi.device)
-    lib = library()
-    fn = (lib.plane_solve_dd_f32 if gram_hi.dtype == torch.float32
-          else lib.plane_solve_dd_f64)
-    with torch.cuda.device(gram_hi.device):
-        err = fn(gram_hi.data_ptr(), gram_lo.data_ptr(), rhs_hi.data_ptr(),
-                 rhs_lo.data_ptr(), q.data_ptr(), pi.data_ptr(),
-                 coef.data_ptr(), ok.data_ptr(), k, pos,
-                 int(rcond is not None),
-                 math.sqrt(rcond) if rcond is not None else 0.0,
-                 scratch.data_ptr() if scratch is not None else None,
-                 threads, int(runtime_form),
-                 torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["plane_solve_dd"] += 1
+    _enqueue(name, LAUNCHES, "plane_solve_dd", gram_hi.device,
+             "plane_solve_dd_f32" if gram_hi.dtype == torch.float32
+             else "plane_solve_dd_f64",
+             gram_hi.data_ptr(), gram_lo.data_ptr(), rhs_hi.data_ptr(),
+             rhs_lo.data_ptr(), q.data_ptr(), pi.data_ptr(), coef.data_ptr(),
+             ok.data_ptr(), k, pos, int(rcond is not None),
+             math.sqrt(rcond) if rcond is not None else 0.0,
+             scratch.data_ptr() if scratch is not None else None, threads,
+             int(runtime_form))
     return coef, ok
 
 

@@ -50,7 +50,7 @@ import tempfile
 import torch
 
 from savgol_tpu_torch._build import BUILD_DIR, library
-from savgol_tpu_torch.ops.cuda_conv import (_raise_on_error, bf16_taps,
+from savgol_tpu_torch.ops.cuda_conv import (_enqueue, bf16_taps,
                                             bf16_ulp_gate)
 
 __all__ = ["LAUNCHES", "TILE", "VARIANTS", "reset_launches", "probe_cuda",
@@ -135,12 +135,8 @@ def probe_cuda(x: torch.Tensor, w: torch.Tensor,
     B = x.numel() // N
     if B == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = lib.probe_bf16_1d(x.data_ptr(), wc.data_ptr(), out.data_ptr(),
-                                B, N, ws, VARIANTS.index(variant),
-                                torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES[name] += 1
+    _enqueue(name, LAUNCHES, name, x.device, "probe_bf16_1d", x.data_ptr(),
+             wc.data_ptr(), out.data_ptr(), B, N, ws, VARIANTS.index(variant))
     return out
 
 

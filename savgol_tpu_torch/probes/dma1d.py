@@ -33,9 +33,8 @@ import json
 
 import torch
 
-from savgol_tpu_torch._build import library
-from savgol_tpu_torch.ops.cuda_conv import (_MAX_WS, _plain_or_cuda,
-                                            _raise_on_error,
+from savgol_tpu_torch.ops.cuda_conv import (_MAX_WS, _enqueue,
+                                            _plain_or_cuda,
                                             correlate_valid_plain)
 
 __all__ = ["LAUNCHES", "reset_launches", "corr1d_dma_cuda",
@@ -100,12 +99,9 @@ def corr1d_dma_cuda(x: torch.Tensor, w: torch.Tensor, *, rows: int,
     wc = w.to(torch.float32).contiguous()
     B, N = x.shape
     out = torch.empty((B, n_out), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = library().corr1d_dma_f32(
-            x.data_ptr(), wc.data_ptr(), out.data_ptr(), B, N, wc.shape[0],
-            n_out, rows, cols, torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(err, name)
-    LAUNCHES["corr1d_dma"] += 1
+    _enqueue(name, LAUNCHES, "corr1d_dma", x.device, "corr1d_dma_f32",
+             x.data_ptr(), wc.data_ptr(), out.data_ptr(), B, N, wc.shape[0],
+             n_out, rows, cols)
     return out
 
 

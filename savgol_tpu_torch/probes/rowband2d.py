@@ -43,10 +43,9 @@ import json
 
 import torch
 
-from savgol_tpu_torch._build import library
 from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _bf16_operand,
                                             _bf16_storage, _check_bf16_input,
-                                            _raise_on_error, bf16_taps,
+                                            _enqueue, bf16_taps,
                                             bf16_ulp_gate)
 from savgol_tpu_torch.ops.cuda_conv2d import (_geometry, _padded,
                                               correlate2d_valid_bf16_cuda,
@@ -104,13 +103,10 @@ def alignctl_cuda(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty(x.shape[:-2] + (Ro, Co), dtype=xs.dtype,
                       device=x.device)
     if B > 0:
-        with torch.cuda.device(x.device):
-            err = library().corr2d_bf16_alignctl(
-                xs.data_ptr(), wc.data_ptr(), out.data_ptr(), B, R, C, H, W,
-                MODE_CODE[pad_mode], int(xs.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
-        _raise_on_error(err, name)
-        LAUNCHES["probe_rowband2d"] += 1
+        _enqueue(name, LAUNCHES, "probe_rowband2d", x.device,
+                 "corr2d_bf16_alignctl", xs.data_ptr(), wc.data_ptr(),
+                 out.data_ptr(), B, R, C, H, W, MODE_CODE[pad_mode],
+                 int(xs.dtype == torch.bfloat16))
     return out if restore is None else out.to(restore)
 
 

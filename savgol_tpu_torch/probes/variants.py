@@ -639,13 +639,15 @@ def _in_turns(cases: dict, libs: dict, rounds: int = 4) -> dict:
 def k13_rank(paths: dict, reps: int = 20, rounds: int = 4) -> dict:
     """Harness (a) for the K13 builds, a rank's body: each build at
     ``paths`` loaded with the package's C signatures and put under
-    ``ops.cuda_halo`` in turn (its rings made anew), one exchange at each of
+    ``ops.cuda_halo`` (the rings, made anew) and ``ops.cuda_conv`` (the
+    launches, ``_enqueue``) in turn, one exchange at each of
     ``probes.halo_ab.HALOS`` timed on ``cuda_time_ms``, in ``rounds``
     rounds whose order alternates. {case: {build: [ms a round]}}."""
     import torch
     import torch.distributed as dist
 
     from savgol_tpu_torch import _build
+    from savgol_tpu_torch.ops import cuda_conv as cc
     from savgol_tpu_torch.ops import cuda_halo as ch
     from savgol_tpu_torch.probes.halo_ab import HALOS
     from savgol_tpu_torch.utils.timing import cuda_time_ms
@@ -668,7 +670,7 @@ def k13_rank(paths: dict, reps: int = 20, rounds: int = 4) -> dict:
                 torch.cuda.synchronize()
                 ch.release()
                 dist.barrier()
-                ch.library = lambda lib=libs[name]: lib
+                ch.library = cc.library = lambda lib=libs[name]: lib
                 for size, (t, h) in halos.items():
                     times.setdefault(f"K13 {size} four ranks", {}).setdefault(
                         name, []).append(cuda_time_ms(
@@ -677,7 +679,7 @@ def k13_rank(paths: dict, reps: int = 20, rounds: int = 4) -> dict:
     finally:
         torch.cuda.synchronize()
         ch.release()
-        ch.library = _build.library
+        ch.library = cc.library = _build.library
         dist.barrier()
     return times
 
