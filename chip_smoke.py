@@ -2318,12 +2318,14 @@ def rank_sharded_2d(dev_type: str = "cuda", shape=IMG_FULL):
     f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(5, 5, 3), device=dev)
     ref = f2.apply(x)
     out = {}
+    # a rank's block, (16, 512, 2048) or (16, 1024, 1024) at the headline,
+    # fills the card's K2D-sep slots: the cached rank-2 stencil takes it
     for name, names, shape, spec, extra, want in (
             ("rows", ("batch", "seq"), (1, RING), (None, "seq", None), {},
-             {"halo_send": 1, "halo_recv": 1, "corr2d_valid": 1}),
+             {"halo_send": 1, "halo_recv": 1, "corr2d_sep": 1}),
             ("tiled", ("seq", "cols"), (2, 2), (None, "seq", "cols"),
              {"col_axis": "cols"},
-             {"halo_send": 2, "halo_recv": 2, "corr2d_valid": 1})):
+             {"halo_send": 2, "halo_recv": 2, "corr2d_sep": 1})):
         m = _rank_mesh(names, shape, dev)
         xl = shard(x, m, spec)
         # (a CPU rehearsal tiles by point-to-point sends: K13 needs CUDA
@@ -4104,19 +4106,27 @@ def main() -> int:
         require(got == want, f"{what} launched {got}, expected {want}")
         return out, got
 
-    # the main path: Savgol2D.apply, CONSTANT, method="auto" -> K2D-dense
+    # the main path: Savgol2D.apply, CONSTANT, method="auto" -> K2D-sep (a
+    # rank-2 stencil whose factors Savgol2D.create cached, on a batch that
+    # fills the card: apply2d._sep_cheaper)
     y2, launches2 = counted(lambda: f2.apply(img),
-                            {"corr2d_valid": 1, "corr2d_sep": 0},
+                            {"corr2d_valid": 0, "corr2d_sep": 1},
                             "Savgol2D.apply")
     y2_sep, launches_sep = counted(lambda: f2.apply(img, method="sep"),
                                    {"corr2d_valid": 0, "corr2d_sep": 1},
                                    "Savgol2D.apply(method='sep')")
+    # one frame: the stacks take K2D-dense, and so does the fused
+    # Laplacian, whose K2D-sep blocks would fill a quarter of the card
     derived, launches_der = counted(
         lambda: {name: getattr(sgt, name)(img0, 5, 5, 3) for name in
                  ("savgol2d_gradient", "savgol2d_hessian",
                   "savgol2d_laplacian")},
         {"corr2d_valid": 3, "corr2d_sep": 0},
         "savgol2d_gradient + _hessian + _laplacian")
+    # the whole batch: the fused Laplacian (rank 2, cached) takes K2D-sep
+    lap, launches_lap = counted(
+        lambda: sgt.savgol2d_laplacian(img, 5, 5, 3),
+        {"corr2d_valid": 0, "corr2d_sep": 1}, "savgol2d_laplacian")
     require(y2.shape == img.shape and y2.dtype == torch.float32, "2D shape")
     require(bool(torch.isfinite(y2).all()) and
             bool(torch.isfinite(y2_sep).all()), "non-finite 2D output")
@@ -4127,6 +4137,10 @@ def main() -> int:
     e_sep, _ = max_err(y2_sep[[0, 15]], ref2)
     require(e_apply <= F32_TOL_2D * s_apply and e_sep <= F32_TOL_2D * s_apply,
             f"Savgol2D.apply vs f64: {e_apply:.3e}, sep {e_sep:.3e}")
+    e_lap, s_lap = max_err(lap[[0, 15]], sgt.savgol2d_laplacian(
+        img[[0, 15]].double(), 5, 5, 3, method="xla"))
+    require(e_lap <= F32_TOL_2D * s_lap,
+            f"savgol2d_laplacian (K2D-sep) vs f64: {e_lap:.3e}")
     e_derived = {}
     for name, got in derived.items():
         want = getattr(sgt, name)(img0.double(), 5, 5, 3, method="xla")
@@ -4150,14 +4164,16 @@ def main() -> int:
             f"{ks_err:.3e}")
     print(f"2D slice {IMG_FULL} f32 11x11 order 3 CONSTANT: launches "
           f"apply {launches2}, apply(method='sep') {launches_sep}, "
-          f"gradient + hessian + laplacian {launches_der}; max abs err "
+          f"gradient + hessian + laplacian {launches_der}, laplacian of "
+          f"the batch {launches_lap}; max abs err "
           f"apply vs f64 {e_apply:.3e}, "
           f"method='sep' vs f64 {e_sep:.3e} (gate {F32_TOL_2D} x "
           f"{s_apply:.3f}); gradient/hessian/laplacian vs f64 scaled "
           + ", ".join(f"{e:.3e}" for e in e_derived.values())
-          + f"; K2D-dense vs plain {kd_err:.3e}, K2D-sep vs plain "
-          f"{ks_err:.3e} (rank {u2.shape[0]})")
-    del y2, y2_sep, derived, ref2
+          + f", laplacian of the batch {e_lap / s_lap:.3e}; K2D-dense vs "
+          f"plain {kd_err:.3e}, K2D-sep vs plain {ks_err:.3e} (rank "
+          f"{u2.shape[0]})")
+    del y2, y2_sep, derived, lap, ref2
 
     # -- 10. 2D gradient ----------------------------------------------------
     xg_np = np.random.default_rng(4).standard_normal((2, 256, 320)).astype(
@@ -4372,7 +4388,7 @@ def main() -> int:
         {"name": "corr2d_valid", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr2d_valid.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1501",
-         "launches": launches2["corr2d_valid"], "max_abs_err": kd_err,
+         "launches": launches_der["corr2d_valid"], "max_abs_err": kd_err,
          "ms": t2["K2D-dense"][0], "plain_ms": t2["K2D-dense"][1], **b2d,
          "library_ms": lib_2d,
          "stack3_ms": t2["K2D-dense K=3 (Hessian stack)"][0],
@@ -4381,7 +4397,7 @@ def main() -> int:
         {"name": "corr2d_sep", "route": "cuda",
          "source": "savgol_tpu_torch/csrc/corr2d_sep.cu",
          "replaces": "savgol_tpu/ops/pallas_conv.py:1814",
-         "launches": launches_sep["corr2d_sep"], "max_abs_err": ks_err,
+         "launches": launches2["corr2d_sep"], "max_abs_err": ks_err,
          "ms": t2["K2D-sep"][0], "plain_ms": t2["K2D-sep"][1], **b2s,
          "library_ms": lib_2d,
          "instance": c2.sep_instance(11, 11, u2.shape[0]),

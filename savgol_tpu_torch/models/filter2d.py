@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 from savgol_tpu_torch.config import Boundary2D, Savgol2DConfig
-from savgol_tpu_torch.ops.apply2d import savgol2d_apply
+from savgol_tpu_torch.ops.apply2d import _prime_factors, savgol2d_apply
 from savgol_tpu_torch.ops.weights import savgol2d_weights_np
 
 __all__ = ["Savgol2D"]
@@ -42,10 +42,12 @@ class Savgol2D(nn.Module):
     def create(cls, config: Savgol2DConfig, dtype=torch.float32, *,
                device) -> "Savgol2D":
         """Host f64 stencil, cast and placed on ``device`` (reference
-        ``savgol2d_create``, src/savgol2d.c:304-342)."""
-        w = savgol2d_weights_np(config, dtype=np.float64)
-        return cls(config, torch.as_tensor(w, dtype=dtype, device=device),
-                   torch.as_tensor(config.scale, dtype=dtype, device=device))
+        ``savgol2d_create``, src/savgol2d.c:304-342), its separable factors
+        cached from the host values (``_prime_factors``)."""
+        w = torch.as_tensor(savgol2d_weights_np(config, dtype=np.float64),
+                            dtype=dtype)
+        return cls._placed(config, w, torch.as_tensor(config.scale,
+                                                      dtype=dtype), device)
 
     @classmethod
     def from_jax(cls, config: Savgol2DConfig, arrays: Sequence[np.ndarray],
@@ -54,9 +56,18 @@ class Savgol2D(nn.Module):
         numpy arrays in pytree order: ``(weights, scale)``
         (``jax.tree_util.tree_leaves``). Dtypes are kept."""
         # np.array copies: arrays handed over from JAX are read-only
-        weights, scale = (np.array(a) for a in arrays)
-        return cls(config, torch.as_tensor(weights, device=device),
-                   torch.as_tensor(scale, device=device))
+        weights, scale = (torch.as_tensor(np.array(a)) for a in arrays)
+        return cls._placed(config, weights, scale, device)
+
+    @classmethod
+    def _placed(cls, config: Savgol2DConfig, weights: torch.Tensor,
+                scale: torch.Tensor, device) -> "Savgol2D":
+        """The module with host ``weights`` and ``scale`` placed on
+        ``device``, the stencil's factors cached from its host values, so
+        that the route reads its rank with no copy from the card."""
+        placed = weights.to(device)
+        _prime_factors(placed, weights.double().numpy())
+        return cls(config, placed, scale.to(device))
 
     def valid_size(self, rows: int, cols: int):
         """Output dims for VALID mode (savgol2d.h:250-256)."""

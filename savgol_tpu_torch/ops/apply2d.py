@@ -22,13 +22,26 @@ plain version for a CPU tensor): image and stencil rounded to bf16, f32 sums; f3
 f32 sums unrounded, other dtypes (a bf16 image, read as it is) the sums
 rounded to bf16; ``scale`` (scales) multiplied after, in the output's
 dtype, not folded into the stencil; a stack reads the image once for all
-its stencils; within the documented ~5e-3 relative contract. Under "auto"
-and "pallas" a stencil wider than 17 taps takes K2D-sep (r * (H + W) taps
-instead of H * W), every other K2D-dense; a stack goes to K2D-dense in one
+its stencils; within the documented ~5e-3 relative contract.
+
+Under "auto" and "pallas" (``_route``) a stencil wider than 17 taps takes
+K2D-sep, r * (H + W) taps instead of H * W. A single stencil of 17 taps or
+fewer a side on a CUDA tensor takes K2D-sep where its rank r is already
+known and the card runs K2D-sep faster there (``_sep_cheaper``): r * (H +
+W) at most 0.55 (f32) or 0.82 (f64) of H * W, and K2D-sep's blocks
+filling at least three quarters of the card's resident slots, fit from
+K2D-dense and K2D-sep timed on an H100 over sides 3-17, ranks 1-4, f32,
+f64 and images of 4 to 2,048 of K2D-sep's blocks (``probes/route2d.py``).
+Every other stencil takes K2D-dense, and a stack goes to K2D-dense in one
 launch that reads the image once. K2D-sep takes a stencil's rank factors,
 found by an SVD in f64 on the host once per stencil tensor (see
-``_factors``); the derivative conveniences keep their stencils on the
-device between calls.
+``_factors``). A stencil built on the host (``Savgol2D.create``,
+``from_jax``, the fused Laplacian) has them cached from its host values
+when it is placed (``_prime_factors``), so its rank is known without a
+copy from the card; an ad hoc CUDA stencil of 17 taps or fewer a side
+keeps K2D-dense and is never copied to the host. A CPU tensor keeps the
+JAX package's width rule alone. The derivative conveniences keep their
+stencils on the device between calls.
 
 Gradients: the kernels run forward inside ``torch.autograd.Function``s
 whose backward is autograd through the plain version, as the JAX package's
@@ -78,10 +91,78 @@ _PAD_MODE_2D = {
 
 _METHODS = ("auto", "xla", "pallas", "sep", "bf16")
 
-# Stencils wider than this take the separable kernel under "auto"/"pallas":
-# the JAX package's rule (pallas_conv.py:1401-1406, 1443-1448), which is
-# about arithmetic (r * (H + W) taps instead of H * W), not the TPU's VMEM.
+# Stencils wider than this take the separable kernel under "auto"/"pallas"
+# on every device: the JAX package's rule (pallas_conv.py:1401-1406,
+# 1443-1448), which is about arithmetic (r * (H + W) taps instead of H * W),
+# not the TPU's VMEM, and the widest K2D-dense's compile-time instances
+# take. At this width or less only a CUDA tensor's stencil of known rank
+# may take it, by the card's measured crossover (``_sep_cheaper``).
 _SEP_MIN_TAPS = 17
+
+
+# K2D-sep against K2D-dense on an H100 (80GB HBM3, 700 W; PERF.md's
+# crossover table, probes/route2d.py). Where K2D-sep's launch fills the
+# card, it is the faster kernel while its r * (H + W) taps are at most this
+# share of K2D-dense's H * W. f32 0.55: 11 x 11 rank 3 (0.545) runs in
+# 0.77 of K2D-dense's time, 7 x 7 rank 2 (0.57) ties, 11 x 5 rank 2 (0.58)
+# takes 1.03. f64 0.82: 5 x 5 rank 2 (0.80) 0.94, 7 x 7 rank 3 (0.86)
+# 1.04.
+_SEP_CUT = {torch.float32: 0.55, torch.float64: 0.82}
+# ... and while its blocks (64 output columns x 512 rows each) fill at
+# least this share of the card's resident slots: at 0.48 of them it lost
+# where the cut takes it (f32 9 x 9 rank 2: 1.05-1.08 of K2D-dense's
+# time), at 0.73 in f64 (9 x 9 rank 3: 1.07); from 0.85 up it won but in
+# a few partial last waves (PERF.md).
+_SEP_MIN_FILL = 0.75
+# blocks an SM that K2D-sep's sweep is register-capped for (corr2d_sep.cu
+# sweep_blocks: f32 to 21 taps 4, f64 2)
+_SEP_RESIDENT = {torch.float32: 4, torch.float64: 2}
+# SMs of each card, asked once
+_SMS: dict = {}
+
+
+def _sep_fill(x: torch.Tensor, H: int, W: int, pad_mode) -> float:
+    """K2D-sep's blocks for ``x`` (corr2d_sep.cu ``run_sweep``: strips of
+    64 output columns, bands of 512 rows) over the card's resident slots
+    (SMs x ``_SEP_RESIDENT``): below 1 the launch leaves slots idle."""
+    R, C = x.shape[-2:]
+    Ro, Co = (R, C) if pad_mode is not None else (R - H + 1, C - W + 1)
+    blocks = x.numel() // max(1, R * C) * -(-Co // 64) * -(-Ro // 512)
+    sms = _SMS.get(x.device.index)
+    if sms is None:
+        sms = _SMS[x.device.index] = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+    return blocks / (sms * _SEP_RESIDENT[x.dtype])
+
+
+def _sep_cheaper(H: int, W: int, rank: int, dtype, fill: float) -> bool:
+    """Whether the card runs an H x W stencil of rank ``rank`` in ``dtype``
+    (f32 or f64) faster on K2D-sep than on K2D-dense, where K2D-sep's
+    launch fills ``fill`` of the card's resident slots (``_sep_fill``)."""
+    return (fill >= _SEP_MIN_FILL
+            and rank * (H + W) <= _SEP_CUT[dtype] * H * W)
+
+
+def _route(H: int, W: int, rank: Optional[int], fill: Optional[float],
+           dtype, stack: bool, needs_grad: bool, method: str,
+           device_type: str) -> str:
+    """The kernel that runs an exact correlation of a resolved ``method``
+    with an H x W stencil (``stack``: a (K, H, W) stack) of rank ``rank``
+    (None where it is not known without a copy from the card), K2D-sep's
+    launch filling ``fill`` of the card (``_sep_fill``): "bf16", "xla",
+    "sep" (K2D-sep) or "dense" (K2D-dense). Stencils that need a gradient
+    take K2D-dense, the one differentiable in them; "sep" and stencils
+    wider than 17 taps K2D-sep; below that a CUDA tensor's single stencil
+    of known rank takes the kernel the card runs faster."""
+    if method in ("bf16", "xla"):
+        return method
+    if needs_grad:
+        return "dense"
+    if method == "sep" or max(H, W) > _SEP_MIN_TAPS:
+        return "sep"
+    if stack or device_type != "cuda" or rank is None:
+        return "dense"
+    return "sep" if _sep_cheaper(H, W, rank, dtype, fill) else "dense"
 
 
 def correlate2d_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -184,43 +265,85 @@ def _rank_rtol(*dtypes) -> float:
     return max(1e-9, 4 * eps)
 
 
-# Rank factors of the stencils that took K2D-sep:
-# (id(stencil), dtype, device) -> (weak reference, in-place version, factors).
-# An entry goes when its stencil tensor does.
+# Rank factors of the stencils that took K2D-sep or were placed from the
+# host (``_prime_factors``): (id(stencil), compute dtype, device) ->
+# (weak reference, in-place version, factors). An entry goes when its
+# stencil tensor does.
 _FACTORS: dict = {}
+
+
+def _version(w: torch.Tensor):
+    """``w``'s in-place version; None for an inference tensor, which keeps
+    no version counter (an in-place change to one inside
+    ``torch.inference_mode`` goes unseen)."""
+    return None if w.is_inference() else w._version
+
+
+def _cached_factors(w: torch.Tensor, dtype, device) -> Optional[list]:
+    """The cached factors of ``w`` in ``dtype`` on ``device`` while ``w``
+    is unchanged since they were found, else None: a dictionary lookup,
+    no work on the card."""
+    hit = _FACTORS.get((id(w), dtype, device))
+    if hit is not None and hit[0]() is w and hit[1] == _version(w):
+        return hit[2]
+    return None
+
+
+def _store(w: torch.Tensor, w_host: np.ndarray, dtype, device) -> list:
+    """Factor ``w_host`` (``w``'s values as f64 on the host, (H, W) or (K,
+    H, W)) at ``_rank_rtol``, cast to ``dtype`` on ``device``, and cache
+    the factors under ``w``."""
+    key = (id(w), dtype, device)
+    rtol = _rank_rtol(w.dtype, dtype)
+    factors = [tuple(torch.as_tensor(f, dtype=dtype, device=device)
+                     for f in _svd_stencil_np(wk, rtol))
+               for wk in (w_host if w_host.ndim == 3 else w_host[None])]
+    ref = weakref.ref(w, lambda _, k=key: _FACTORS.pop(k, None))
+    _FACTORS[key] = (ref, _version(w), factors)
+    return factors
 
 
 def _factors(w: torch.Tensor, dtype, device) -> list:
     """[(u, v)] for each stencil of ``w`` (H, W) or (K, H, W), in ``dtype``
     on ``device``. Factored in f64 on the host the first time a stencil
-    tensor takes the separable route, and again only after it changes in
-    place: a CUDA stencil's copy to the host synchronises the stream, so a
-    module or a derivative stack that calls again with the same tensor
-    pays for it once. An inference tensor keeps no version counter, so an
-    in-place change to one inside ``torch.inference_mode`` goes unseen."""
-    key = (id(w), dtype, device)
-    version = None if w.is_inference() else w._version
-    hit = _FACTORS.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == version:
-        return hit[2]
-    rtol = _rank_rtol(w.dtype, dtype)
-    w_host = w.detach().to("cpu", torch.float64).numpy()
-    factors = [tuple(torch.as_tensor(f, dtype=dtype, device=device)
-                     for f in _svd_stencil_np(wk, rtol))
-               for wk in (w_host if w.dim() == 3 else w_host[None])]
-    ref = weakref.ref(w, lambda _, k=key: _FACTORS.pop(k, None))
-    _FACTORS[key] = (ref, version, factors)
-    return factors
+    tensor takes the separable route, unless it was primed when it was
+    placed, and again only after it changes in place: a CUDA stencil's
+    copy to the host synchronises the stream, so a module or a derivative
+    stack that calls again with the same tensor pays for it once."""
+    hit = _cached_factors(w, dtype, device)
+    if hit is not None:
+        return hit
+    return _store(w, w.detach().to("cpu", torch.float64).numpy(), dtype,
+                  device)
+
+
+# the compute dtypes of the exact routes (half-precision inputs compute in
+# f32)
+_EXACT_DTYPES = (torch.float32, torch.float64)
+
+
+def _prime_factors(w: torch.Tensor, w_host: np.ndarray,
+                   dtypes: Optional[Sequence] = None) -> None:
+    """Cache the factors of the stencil tensor ``w`` just placed from the
+    host, for inputs of each compute dtype of ``dtypes`` (default:
+    ``w``'s own), from ``w_host``, ``w``'s values as f64 on the host. They
+    are what ``_factors`` would find from ``w`` itself, with no copy from
+    the card: ``_route`` reads the rank from them."""
+    for dtype in (w.dtype,) if dtypes is None else dtypes:
+        if dtype in _EXACT_DTYPES:
+            _store(w, w_host, dtype, w.device)
 
 
 def _sep(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
-         pad_mode) -> torch.Tensor:
+         pad_mode, factors: Optional[list] = None) -> torch.Tensor:
     """K2D-sep over each stencil of ``w`` (H, W) or (K, H, W), each scaled
     by ``s`` (None, 0-dim or (K,)) through its first factor on the
-    device, the factors found and scaled in a ``savgol.taps`` span."""
+    device, the factors (``factors``, where the route already looked them
+    up) found and scaled in a ``savgol.taps`` span."""
     span = tracing.begin("savgol.taps") if tracing.on() else None
     try:
-        factors = _factors(w, x.dtype, x.device)
+        if factors is None:
+            factors = _factors(w, x.dtype, x.device)
         if s is not None:
             factors = [(u * (s if s.dim() == 0 else s[k]), v)
                        for k, (u, v) in enumerate(factors)]
@@ -232,22 +355,32 @@ def _sep(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
 
 def _correlate(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
                pad_mode, method: str) -> torch.Tensor:
-    """The correlation route of a resolved ``method`` for the stencil(s)
-    ``w`` scaled by ``s`` (None, 0-dim, or (K,) for a stack). The exact
-    dense routes fold ``s`` into the (tiny) stencil on the device instead
-    of paying a full output read + write; "bf16" multiplies after, as the
-    JAX package's bf16 routes do (a bf16 stencil times a bf16 scale would
-    round twice)."""
-    if method == "bf16":
+    """The correlation route (``_route``) of a resolved ``method`` for the
+    stencil(s) ``w`` scaled by ``s`` (None, 0-dim, or (K,) for a stack).
+    The exact dense routes fold ``s`` into the (tiny) stencil on the
+    device instead of paying a full output read + write; "bf16" multiplies
+    after, as the JAX package's bf16 routes do (a bf16 stencil times a
+    bf16 scale would round twice). Only the kernel route of a single CUDA
+    stencil of 17 taps or fewer a side looks its rank up."""
+    needs_grad = torch.is_grad_enabled() and (
+        w.requires_grad or (s is not None and s.requires_grad))
+    H, W = w.shape[-2:]
+    rank = fill = factors = None
+    if (method == "pallas" and x.is_cuda and w.dim() == 2
+            and max(H, W) <= _SEP_MIN_TAPS and x.dtype in _SEP_CUT):
+        factors = _cached_factors(w, x.dtype, x.device)
+        if factors is not None:
+            rank, fill = factors[0][0].shape[0], _sep_fill(x, H, W,
+                                                           pad_mode)
+    route = _route(H, W, rank, fill, x.dtype, w.dim() == 3, needs_grad,
+                   method, x.device.type)
+    if route == "bf16":
         y = _Corr2dFn.apply(x.contiguous(), w, pad_mode, True)
         if s is None:
             return y
         return y * (s[..., None, None] if s.dim() else s)
-    needs_grad = torch.is_grad_enabled() and (
-        w.requires_grad or (s is not None and s.requires_grad))
-    if method != "xla" and not needs_grad and (
-            method == "sep" or max(w.shape[-2:]) > _SEP_MIN_TAPS):
-        return _sep(x.contiguous(), w, s, pad_mode)
+    if route == "sep":
+        return _sep(x.contiguous(), w, s, pad_mode, factors)
     span = tracing.begin("savgol.taps") if tracing.on() else None
     try:
         ws = w.to(x.dtype)
@@ -255,7 +388,7 @@ def _correlate(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
             ws = ws * s[..., None, None]
     finally:
         tracing.end(span)
-    if method == "xla":
+    if route == "xla":
         return correlate2d_valid_plain(x, ws, pad_mode)
     return _Corr2dFn.apply(x.contiguous(), ws, pad_mode)
 
@@ -352,12 +485,16 @@ def _device_stencils(half_window_x, half_window_y, poly_order, derivs,
     with ``fuse`` their scaled sum as one stencil and None. Built and
     uploaded once per geometry and device, so a repeated call neither
     rebuilds nor copies them, and keeps the same stencil tensor, whose
-    separable factors stay cached (``_factors``)."""
+    separable factors stay cached (``_factors``); the fused stencil's are
+    cached from its host values for f32 and f64 inputs
+    (``_prime_factors``)."""
     W, s = _stencil_stack(half_window_x, half_window_y, poly_order, derivs,
                           delta_x, delta_y)
     if fuse:
-        return torch.as_tensor((W * s[:, None, None]).sum(0),
-                               device=device), None
+        fused = (W * s[:, None, None]).sum(0)
+        w = torch.as_tensor(fused, device=device)
+        _prime_factors(w, fused, _EXACT_DTYPES)
+        return w, None
     return (torch.as_tensor(W, device=device),
             torch.as_tensor(s, device=device))
 

@@ -257,12 +257,14 @@ def test_cuda_every_kernel_launch_of_a_traced_call_is_in_a_launch_span(
     f1 = sgt.Savgol1D.create(sgt.SavgolConfig(12, 4), device=cuda)
     f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(5, 5, 3), device=cuda)
     x = torch.randn(8, 1 << 16, device=cuda)
-    img = torch.randn(4, 256, 256, device=cuda)
+    # a batch whose K2D-sep launch fills the card: f2's rank-2 stencil
+    # takes K2D-sep (ops/apply2d.py _sep_cheaper)
+    img = torch.randn(8, 2048, 2048, device=cuda)
     f1.apply(x)                          # build and load the library
     f2.apply(img)
     torch.cuda.synchronize()
     before = (cuda_conv.LAUNCHES["sg1d_poly"],
-              cuda_conv2d.LAUNCHES["corr2d_valid"])
+              cuda_conv2d.LAUNCHES["corr2d_sep"])
 
     def run():
         for _ in range(3):
@@ -272,16 +274,17 @@ def test_cuda_every_kernel_launch_of_a_traced_call_is_in_a_launch_span(
 
     events, takes = profiling.trace_events(run, str(tmp_path))
     deltas = (cuda_conv.LAUNCHES["sg1d_poly"] - before[0],
-              cuda_conv2d.LAUNCHES["corr2d_valid"] - before[1])
+              cuda_conv2d.LAUNCHES["corr2d_sep"] - before[1])
     launches = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                       if e.get("ph") == "X"
                       and e.get("cat") == "user_annotation"
                       and e.get("name") == "savgol.launch")
     ops = profiling.device_events(events)
     k1 = [e for e in ops if "sg1d_poly" in e["name"]]
-    k2d = [e for e in ops if "corr2d_valid" in e["name"]]
+    k2d = [e for e in ops if "corr2d_sep" in e["name"]]
     # the last take's kernels; a retaken session ran run() again
     assert (len(k1), len(k2d)) == (3, 3) and deltas == (3 * takes,) * 2
+    assert not [e for e in ops if "corr2d_valid" in e["name"]]
     spanned = {id(e) for w in launches
                for e in profiling.device_events(events, w)}
     assert all(id(e) in spanned for e in k1 + k2d)
