@@ -35,7 +35,8 @@ windows, pad modes, bank sizes, shapes and dtypes (K4 also on rows with NaN
 and inf samples, whose pattern must match exactly); the padded
 ``Savgol1D.apply``, ``SavgolBank.smooth_and_derivatives(12, 4, 2)`` and the
 (n, m) sweep at full size against float64, ``scipy_compat.savgol_filter`` in
-all five modes against scipy, each entry point's launches counted;
+all five modes against scipy, each entry point's launches counted (and
+the scipy modes' host pads, ``ops.cuda_conv.PADS``);
 gradients; and timings beside the route the padded modes took before K2.
 Then K1, K2 and K3 at window 101 against their plain versions and
 ``scipy_compat.savgol_filter`` on a numpy array at window 101 against scipy.
@@ -1435,6 +1436,9 @@ SWEEP_F64_TOL, BANK_GATE = 2e-5, 2e-5
 SCIPY_LAUNCHES = {"interp": {"sg1d_poly": 1}, "wrap": {"sg1d_pad": 1},
                   "nearest": {"sg1d_pad": 1}, "mirror": {"corr1d_valid": 1},
                   "constant": {"corr1d_valid": 1}}
+# the host pad (ops.cuda_conv.pad_last, counted in PADS) each scipy mode
+# makes before its kernel: one for the modes K3 takes, none for K1 and K2
+SCIPY_PADS = {"mirror": "reflect", "constant": "constant"}
 
 
 def k2_grid(sgt, dev) -> str:
@@ -1710,9 +1714,15 @@ def bank_slice(sgt, dev, card) -> list:
     x2 = x[[0, 127]]
     e_sc, l_sc = {}, {}
     for mode, want in SCIPY_LAUNCHES.items():
+        pads = dict(cc.PADS)
         y, l_sc[mode] = counted_all(
             lambda: tsc.savgol_filter(x2, 25, 4, mode=mode), want,
             f"scipy_compat.savgol_filter(mode={mode!r})")
+        pads = {k: v - pads[k] for k, v in cc.PADS.items() if v != pads[k]}
+        want_pads = ({SCIPY_PADS[mode]: 1, "bytes": 2 * (N_FULL + 24) * 4}
+                     if mode in SCIPY_PADS else {})
+        require(pads == want_pads, f"scipy_compat {mode} made host pads "
+                f"{pads}, expected {want_pads}")
         yh = y.cpu().numpy().astype(np.float64)
         e_sc[mode] = max(float(np.abs(yh[i] - sp_filter(
             x_np[r].astype(np.float64), 25, 4, mode=mode)).max())
@@ -1730,8 +1740,9 @@ def bank_slice(sgt, dev, card) -> list:
                 f"differ from the tensor call")
     print(f"scipy_compat.savgol_filter(x, 25, 4) on 2 x {N_FULL} f32: "
           + ", ".join(f"{m} {nz(l_sc[m])} {e_sc[m]:.3e}" for m in l_sc)
-          + f" max abs err vs scipy f64 (gate {GATE_ABS}); numpy input: the "
-          f"same launches on the card and the same values, as numpy")
+          + f" max abs err vs scipy f64 (gate {GATE_ABS}); one host pad a "
+          f"call for {sorted(SCIPY_PADS)}, none for the rest; numpy input: "
+          f"the same launches on the card and the same values, as numpy")
 
     # -- gradients through K2 and K4 against method="xla" --
     xg_np = np.random.default_rng(24).standard_normal((24, 4099)).astype(

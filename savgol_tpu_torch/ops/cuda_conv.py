@@ -1,6 +1,6 @@
 """The same-length and VALID 1D kernels of the port, their plain PyTorch
-versions and their launch counts, and the pad-index rule every padded
-plain version uses.
+versions and their launch counts, and the pad-index rule and host pad
+(:func:`pad_last`, counted in ``PADS``) every padded plain version uses.
 
 ``savgol_polynomial_cuda`` (kernel K1, ``csrc/sg1d_poly.cu``),
 ``savgol_padded_cuda`` (kernel K2, the same source) and
@@ -43,6 +43,7 @@ from savgol_tpu_torch._build import library
 __all__ = [
     "LAUNCHES",
     "MODE_CODE",
+    "PADS",
     "reset_launches",
     "pad_index",
     "pad_last",
@@ -65,6 +66,12 @@ __all__ = [
 # Kernel launches since the last reset_launches(), one count per wrapper.
 # Only the line that launches a kernel adds to its count.
 LAUNCHES = {"sg1d_poly": 0, "sg1d_pad": 0, "corr1d_valid": 0}
+
+# Pads made outside a kernel (:func:`pad_last`) since the process started,
+# one count per mode, and the bytes of the padded tensors they wrote. Only
+# a pad that succeeded adds to them.
+PADS = {"reflect": 0, "edge": 0, "wrap": 0, "symmetric": 0, "zeros": 0,
+        "constant": 0, "bytes": 0}
 
 # The kernels' shared tap buffer (csrc/stencil_tile.cuh kMaxWs): the JAX
 # package's Pallas cap of _LANES + 1 taps, past SavgolConfig's 65, which
@@ -114,13 +121,26 @@ def pad_index(n: int, lo: int, hi: int, pad_mode: str,
     raise ValueError(f"unsupported pad mode {pad_mode!r}")
 
 
-def pad_last(x: torch.Tensor, n: int, pad_mode: Optional[str]) -> torch.Tensor:
-    """The last axis padded by n on each side: zeros (``pad_mode`` None) or
-    ``jnp.pad``'s ``pad_mode`` for any pad width."""
-    if pad_mode is None:
-        return F.pad(x, (n, n))
-    return x.index_select(-1, pad_index(x.shape[-1], n, n, pad_mode,
-                                        x.device))
+def pad_last(x: torch.Tensor, n: int, pad_mode: Optional[str],
+             cval: float = 0.0) -> torch.Tensor:
+    """The last axis padded by n on each side: zeros (``pad_mode`` None),
+    ``cval`` (``"constant"``) or ``jnp.pad``'s ``pad_mode`` for any pad
+    width. The pad is a ``savgol.pad`` span and is counted in
+    :data:`PADS`."""
+    span = tracing.begin("savgol.pad") if tracing.on() else None
+    try:
+        if pad_mode is None:
+            y = F.pad(x, (n, n))
+        elif pad_mode == "constant":
+            y = F.pad(x, (n, n), value=float(cval))
+        else:
+            y = x.index_select(-1, pad_index(x.shape[-1], n, n, pad_mode,
+                                             x.device))
+        PADS[pad_mode or "zeros"] += 1
+        PADS["bytes"] += y.numel() * y.element_size()
+        return y
+    finally:
+        tracing.end(span)
 
 
 def correlate_valid_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

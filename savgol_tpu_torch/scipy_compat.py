@@ -33,8 +33,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from savgol_tpu_torch import tracing
 from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import BoundaryMode, SavgolConfig
 from savgol_tpu_torch.ops.apply import (_complex_split, _compute_dtype,
@@ -135,15 +135,19 @@ def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
     ``"cuda"``, so the import swap reaches the kernels, and comes back as a
     numpy array, as scipy returns. With no card the default raises: pass
     ``device="cpu"`` to compute on the CPU. ``method`` as for
-    ``Savgol1D.apply``."""
-    if isinstance(x, torch.Tensor):
-        return _filter(x, window_length, polyorder, deriv, delta, axis, mode,
-                       cval, method)
-    device = card_unless_named(device, "savgol_filter on input that is not "
-                               "a tensor")
-    y = _filter(torch.as_tensor(x, device=device), window_length, polyorder,
-                deriv, delta, axis, mode, cval, method)
-    return y.cpu().numpy()
+    ``Savgol1D.apply``. The body is a ``savgol.apply`` span."""
+    span = tracing.begin("savgol.apply") if tracing.on() else None
+    try:
+        if isinstance(x, torch.Tensor):
+            return _filter(x, window_length, polyorder, deriv, delta, axis,
+                           mode, cval, method)
+        device = card_unless_named(device, "savgol_filter on input that is "
+                                   "not a tensor")
+        y = _filter(torch.as_tensor(x, device=device), window_length,
+                    polyorder, deriv, delta, axis, mode, cval, method)
+        return y.cpu().numpy()
+    finally:
+        tracing.end(span)
 
 
 def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
@@ -159,15 +163,21 @@ def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
         return torch.zeros(x.shape, dtype=x.dtype if x.is_floating_point()
                            or x.is_complex() else torch.float32,
                            device=x.device)
-    center, edge = _compat_weights_np(n, polyorder, deriv)
-    # the weights in x's real dtype (complex input filters its parts)
-    dtype = (x.real.dtype if x.is_complex() else
-             x.dtype if x.is_floating_point() else torch.float32)
-    cw = torch.as_tensor(center, dtype=dtype, device=x.device)
+    # the weights built on the host and uploaded, in x's real dtype
+    # (complex input filters its parts); the edge rows only where used
+    span = tracing.begin("savgol.taps") if tracing.on() else None
+    try:
+        center, edge = _compat_weights_np(n, polyorder, deriv)
+        dtype = (x.real.dtype if x.is_complex() else
+                 x.dtype if x.is_floating_point() else torch.float32)
+        cw = torch.as_tensor(center, dtype=dtype, device=x.device)
+        if mode in _NATIVE_MODES:
+            ew = torch.as_tensor(edge, dtype=dtype, device=x.device)
+    finally:
+        tracing.end(span)
     dt_inv = 1.0 / (float(delta) ** deriv)
 
     if mode in _NATIVE_MODES:
-        ew = torch.as_tensor(edge, dtype=dtype, device=x.device)
         xl, moved = _move_axis_last(x, axis)
         y = savgol_apply_core(xl, cw, ew, n, _NATIVE_MODES[mode], dt_inv,
                               derivative=deriv, method=method)
@@ -191,7 +201,7 @@ def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
         if mode == "mirror":
             xp = pad_last(xv, n, "reflect")
         else:
-            xp = F.pad(xv, (n, n), value=float(cval))
+            xp = pad_last(xv, n, "constant", cval)
         return _correlate(xp, cw, kernel, bf16) * _scale_of(dt_inv, xv)
 
     if xl.is_complex():

@@ -1,4 +1,4 @@
-"""The port's spans: ``torch.profiler`` annotations at the three places
+"""The port's spans: ``torch.profiler`` annotations at the four places
 where a call spends its host time, recorded only while a profiler session
 is recording.
 
@@ -24,11 +24,17 @@ So a site opens and closes its span in this form::
 ``SPANS`` names every span of the port, outermost first:
 
 - ``savgol.apply``: the body of a public entry point (``savgol_apply``,
-  ``savgol_apply_valid``, ``savgol2d_apply``, ``savgol2d_apply_stack``;
-  ``Savgol1D.apply`` and ``Savgol2D.apply`` go through them). A call is
-  its outermost ``savgol.apply``: the complex-input route nests a second.
+  ``savgol_apply_valid``, ``savgol2d_apply``, ``savgol2d_apply_stack``,
+  ``scipy_compat.savgol_filter``; ``Savgol1D.apply`` and
+  ``Savgol2D.apply`` go through them). A call is its outermost
+  ``savgol.apply``: the complex-input route nests a second.
 - ``savgol.taps``: a call's preparation of its taps on the host side:
-  dtype cast, the ``dt_inv`` or scale fold, ``.contiguous()``.
+  dtype cast, the ``dt_inv`` or scale fold, ``.contiguous()``; in
+  ``scipy_compat``, the weights' build on the host and their upload.
+- ``savgol.pad``: a pad made outside any kernel, whose device operations
+  the card runs before the kernel (``ops.cuda_conv.pad_last``: the
+  ``scipy_compat`` modes ``mirror`` and ``constant``, and every padded
+  plain version), which counts one pad in ``ops.cuda_conv.PADS``.
 - ``savgol.launch``: the call into the kernel library that enqueues one
   kernel (library lookup, device guard, stream query, the foreign call),
   which counts one launch in its module's ``LAUNCHES``
@@ -43,7 +49,7 @@ import torch
 
 __all__ = ["SPANS", "on", "begin", "end"]
 
-SPANS = ("savgol.apply", "savgol.taps", "savgol.launch")
+SPANS = ("savgol.apply", "savgol.taps", "savgol.pad", "savgol.launch")
 
 # Whether a profiler session is recording on this thread or process-wide:
 # a C function, the cheapest check there is.

@@ -112,6 +112,33 @@ def test_pad_index_matches_numpy_for_any_width(pad_mode, n):
                                               None).numpy(), np.pad(x, n))
 
 
+@pytest.mark.parametrize("pad_mode", [None, "constant", "edge", "wrap",
+                                      "symmetric", "reflect"])
+def test_pad_last_counts_its_mode_after_the_pad(pad_mode):
+    """Each host pad adds one to its mode's count in ``PADS`` and its
+    padded bytes; a pad that raises adds nothing."""
+    x = torch.arange(10, dtype=torch.float64).reshape(2, 5)
+    before = dict(cc.PADS)
+    y = cc.pad_last(x, 3, pad_mode, 7.0)
+    want = np.pad(x.numpy(), ((0, 0), (3, 3)), mode=pad_mode or "constant",
+                  **({"constant_values": 7.0} if pad_mode == "constant"
+                     else {}))
+    np.testing.assert_array_equal(y.numpy(), want)
+    with pytest.raises(ValueError):
+        cc.pad_last(x, 3, "bogus")
+    added = {k: cc.PADS[k] - before[k] for k in before}
+    assert added == {**dict.fromkeys(before, 0), pad_mode or "zeros": 1,
+                     "bytes": 2 * 11 * 8}
+
+
+def test_a_mirror_call_counts_one_reflect_pad_and_its_bytes():
+    before = dict(cc.PADS)
+    tsc.savgol_filter(torch.zeros(3, 100), 25, 4, mode="mirror")
+    added = {k: cc.PADS[k] - before[k] for k in before}
+    assert added == {**dict.fromkeys(before, 0), "reflect": 1,
+                     "bytes": 3 * 124 * 4}
+
+
 def test_padded_wrapper_takes_plain_version_on_cpu():
     """A CPU tensor takes the plain version and launches nothing."""
     x = torch.from_numpy(_data((2, 300), seed=3))
@@ -257,6 +284,20 @@ def test_savgol_filter_axis_and_f32(row, mode):
     np.testing.assert_allclose(got32.numpy(), sp_filter(row, 25, 4,
                                                         mode=mode),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype, tol", [(np.float32, F32_TOL),
+                                        (np.float64, 1e-9)])
+@pytest.mark.parametrize("N", [25, 26, 37, 4096])
+def test_savgol_filter_mirror_matches_scipy_at_every_length(N, dtype, tol):
+    """``mode="mirror"`` at window 25, order 4 (the host reflect pad, then
+    the VALID correlation) on rows from one window long, where the
+    reflections at both ends meet, to many tiles long."""
+    x = _data((3, N), N, dtype)
+    got = tsc.savgol_filter(x, 25, 4, mode="mirror", device="cpu")
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _assert_close(got, sp_filter(x.astype(np.float64), 25, 4,
+                                 mode="mirror"), tol)
 
 
 def test_savgol_filter_corners(row):

@@ -7,7 +7,9 @@ spanned (``ops.cuda_conv._enqueue``).
 The CPU cases run the kernel route's Python with a stand-in library (a
 CUDA tensor's route taken by a CPU tensor, the foreign call faked), so the
 spans' nesting is checked here; the ``cuda`` case checks the real launches
-on the card."""
+on the card. The scipy entry's spans (``savgol.apply``, the weights'
+``savgol.taps`` and the host pad's ``savgol.pad``) are checked on its CPU
+route."""
 
 import contextlib
 import json
@@ -21,6 +23,7 @@ import torch
 import savgol_tpu_torch as sgt
 from savgol_tpu_torch import tracing
 from savgol_tpu_torch.ops import cuda_conv, cuda_conv2d
+from savgol_tpu_torch.scipy_compat import savgol_filter
 from savgol_tpu_torch.utils import profiling
 
 PACKAGE = pathlib.Path(sgt.__file__).resolve().parent
@@ -207,6 +210,19 @@ def test_the_kernel_route_spans_taps_then_launch_inside_apply(
     assert all(_inside(s, apply_) for s in tap_spans + [launch])
     assert _inside(foreign, launch)
     assert all(s["ts"] + s["dur"] <= launch["ts"] for s in tap_spans)
+
+
+@pytest.mark.parametrize("mode, pads", [("mirror", 1), ("constant", 1),
+                                        ("interp", 0)])
+def test_the_scipy_entry_spans_its_weights_and_its_pad(tmp_path, mode, pads):
+    with torch.profiler.profile(activities=CPU) as prof:
+        savgol_filter(torch.randn(3, 100), 25, 4, mode=mode)
+    spans = [s for s in _annotations(prof, tmp_path)
+             if s["name"].startswith("savgol.")]
+    apply_, = [s for s in spans if s["name"] == "savgol.apply"]
+    names = sorted(s["name"] for s in spans if s is not apply_)
+    assert names == ["savgol.pad"] * pads + ["savgol.taps"]
+    assert all(_inside(s, apply_) for s in spans)
 
 
 def test_a_failed_launch_raises_counts_nothing_and_closes_its_span(
