@@ -36,7 +36,8 @@ and inf samples, whose pattern must match exactly); the padded
 ``Savgol1D.apply``, ``SavgolBank.smooth_and_derivatives(12, 4, 2)`` and the
 (n, m) sweep at full size against float64, ``scipy_compat.savgol_filter`` in
 all five modes against scipy, each entry point's launches counted (and
-the scipy modes' host pads, ``ops.cuda_conv.PADS``);
+the scipy modes' host pads, ``ops.cuda_conv.PADS``, and K2's mapped ones,
+``ops.cuda_conv.MAPPED``);
 gradients; and timings beside the route the padded modes took before K2.
 Then K1, K2 and K3 at window 101 against their plain versions and
 ``scipy_compat.savgol_filter`` on a numpy array at window 101 against scipy.
@@ -1434,11 +1435,15 @@ SWEEP_NS, SWEEP_MS = [4, 8, 12, 16, 24, 32], [2, 3, 4, 4, 5, 6]
 # bench.py:496 and :504-515 (sweep_vs_xla, bank_vs_xla), the sweep's scaled
 SWEEP_F64_TOL, BANK_GATE = 2e-5, 2e-5
 SCIPY_LAUNCHES = {"interp": {"sg1d_poly": 1}, "wrap": {"sg1d_pad": 1},
-                  "nearest": {"sg1d_pad": 1}, "mirror": {"corr1d_valid": 1},
+                  "nearest": {"sg1d_pad": 1}, "mirror": {"sg1d_pad": 1},
                   "constant": {"corr1d_valid": 1}}
+# method="bf16" pads mirror on the host and runs K3, as the JAX package does
+SCIPY_BF16_LAUNCHES = {**SCIPY_LAUNCHES, "mirror": {"corr1d_valid": 1}}
 # the host pad (ops.cuda_conv.pad_last, counted in PADS) each scipy mode
-# makes before its kernel: one for the modes K3 takes, none for K1 and K2
-SCIPY_PADS = {"mirror": "reflect", "constant": "constant"}
+# makes before its kernel: one for the mode K3 takes, none for K1 and K2
+SCIPY_PADS = {"constant": "constant"}
+# the pad K2 maps while it stages (counted in MAPPED), a mode K2 takes
+SCIPY_MAPPED = {"wrap": "wrap", "nearest": "edge", "mirror": "reflect"}
 
 
 def k2_grid(sgt, dev) -> str:
@@ -1714,7 +1719,7 @@ def bank_slice(sgt, dev, card) -> list:
     x2 = x[[0, 127]]
     e_sc, l_sc = {}, {}
     for mode, want in SCIPY_LAUNCHES.items():
-        pads = dict(cc.PADS)
+        pads, mapped = dict(cc.PADS), dict(cc.MAPPED)
         y, l_sc[mode] = counted_all(
             lambda: tsc.savgol_filter(x2, 25, 4, mode=mode), want,
             f"scipy_compat.savgol_filter(mode={mode!r})")
@@ -1723,6 +1728,12 @@ def bank_slice(sgt, dev, card) -> list:
                      if mode in SCIPY_PADS else {})
         require(pads == want_pads, f"scipy_compat {mode} made host pads "
                 f"{pads}, expected {want_pads}")
+        mapped = {k: v - mapped[k] for k, v in cc.MAPPED.items()
+                  if v != mapped[k]}
+        want_mapped = ({SCIPY_MAPPED[mode]: 1} if mode in SCIPY_MAPPED
+                       else {})
+        require(mapped == want_mapped, f"scipy_compat {mode} mapped pads "
+                f"{mapped} in K2, expected {want_mapped}")
         yh = y.cpu().numpy().astype(np.float64)
         e_sc[mode] = max(float(np.abs(yh[i] - sp_filter(
             x_np[r].astype(np.float64), 25, 4, mode=mode)).max())
@@ -1741,7 +1752,8 @@ def bank_slice(sgt, dev, card) -> list:
     print(f"scipy_compat.savgol_filter(x, 25, 4) on 2 x {N_FULL} f32: "
           + ", ".join(f"{m} {nz(l_sc[m])} {e_sc[m]:.3e}" for m in l_sc)
           + f" max abs err vs scipy f64 (gate {GATE_ABS}); one host pad a "
-          f"call for {sorted(SCIPY_PADS)}, none for the rest; numpy input: "
+          f"call for {sorted(SCIPY_PADS)}, one pad mapped in K2 for "
+          f"{sorted(SCIPY_MAPPED)}, none for interp; numpy input: "
           f"the same launches on the card and the same values, as numpy")
 
     # -- gradients through K2 and K4 against method="xla" --
@@ -3250,7 +3262,7 @@ def bf16_scipy(dev) -> str:
         got, _ = counted_all(
             lambda: tsc.savgol_filter(rows, 25, 4, mode=mode, cval=0.5,
                                       method="bf16", device=dev),
-            SCIPY_LAUNCHES[mode], f"savgol_filter(bf16, {mode})")
+            SCIPY_BF16_LAUNCHES[mode], f"savgol_filter(bf16, {mode})")
         require(isinstance(got, np.ndarray), "numpy in, numpy out")
         ref = sp_filter(rows.astype(np.float64), 25, 4, mode=mode, cval=0.5)
         errs[mode] = _contract(torch.from_numpy(got), torch.from_numpy(ref),

@@ -92,7 +92,7 @@ __device__ __forceinline__ bool stage(const In* __restrict__ xrow,
       float f[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const long long c = sgt::map_index(g + j, N, mode);
+        const long long c = sgt::map_index<true>(g + j, N, mode);
         f[j] = c >= 0 ? sgt::Bf16::load(xrow[c]) : 0.0f;
       }
       v = make_uint4(sgmma::pack_bf16(f[0], f[1]),
@@ -145,7 +145,7 @@ __device__ __forceinline__ void start_copies(const bf16* __restrict__ xrow,
     float f[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const long long c = sgt::map_index(g + j, N, mode);
+      const long long c = sgt::map_index<true>(g + j, N, mode);
       f[j] = c >= 0 ? __bfloat162float(xrow[c]) : 0.0f;
     }
     *reinterpret_cast<uint4*>(dst) = make_uint4(

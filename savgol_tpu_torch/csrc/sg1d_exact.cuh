@@ -240,7 +240,7 @@ __device__ __forceinline__ void stage(const T* __restrict__ xrow, long long N,
     }
 #pragma unroll
     for (int e = 0; e < V; ++e) {   // past an end: mapped, or zero
-      const long long i = sgt::map_index(g + e, N, mode);
+      const long long i = sgt::map_index<true>(g + e, N, mode);
       if (i >= 0)
         copy_one(dst + e, xrow + i);
       else

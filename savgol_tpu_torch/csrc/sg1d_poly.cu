@@ -14,9 +14,9 @@
 //   K1, j >= N - n : sum_k ew[N - 1 - j, k]         * x[N - ws + k]
 //   otherwise      : sum_k w[k]                     * xv[j - n + k]
 // where xv is x extended past [0, N) by the pad mode (stencil_tile.cuh
-// map_index: symmetric, wrap or edge for K2; zero for K1, whose edge outputs
-// are then fitted from ew). The caller folds dt_inv into w and ew. f32
-// accumulates in f32, f64 in f64.
+// map_index: symmetric, wrap, edge or reflect for K2; zero for K1, whose
+// edge outputs are then fitted from ew). The caller folds dt_inv into w and
+// ew. f32 accumulates in f32, f64 in f64.
 //
 // Bound: device-memory bytes at the headline's 25 taps. An f32 sample is
 // read once (4 B) and written once (4 B) for 2n + 1 = 25 FMAs at n = 12, so
@@ -32,7 +32,8 @@
 // stores its outputs as whole 16-byte units through a shared slot of its
 // own. K2's virtual samples are mapped while a row's end tiles stage their
 // span, so the TPU kernel's strips and the host pad copy before K3 both
-// go: K2 moves the same bytes as K1.
+// go: K2 moves the same bytes as K1. Its reflect (numpy's, the edge sample
+// not repeated) is scipy_compat's mode="mirror", which no TPU kernel maps.
 //
 // K1's edge outputs (2n per row) read their windows straight from device
 // memory: the trailing window can start up to 2n samples before its output's
@@ -77,7 +78,7 @@ int launch(const T* x, const T* w, const T* ew, T* out, long long B,
            long long N, int n, T lead_sign, int mode, void* stream) {
   const int ws = 2 * n + 1;
   if (n < 1 || ws > sgt::kMaxWs || N < ws || mode < sgt::kZero ||
-      mode > sgt::kWrap)
+      mode > sgt::kReflect)
     return cudaErrorInvalidValue;
   const sgx::Args<T> a{x, w, ew, out, N, N, 0, 0, ws, -n,
                        mode == sgt::kZero ? n : 0, mode, lead_sign};
@@ -210,7 +211,7 @@ int launch_bf16(const In* x, const float* w, const float* ew, In* out,
                 void* stream) {
   const int ws = 2 * n + 1;
   if (n < 1 || ws > sgt::kMaxWs || N < ws || mode < sgt::kZero ||
-      mode > sgt::kWrap)
+      mode > sgt::kReflect)
     return cudaErrorInvalidValue;
   const long long tiles = (N + sg1b::kTile - 1) / sg1b::kTile;
   const long long blocks = B * tiles;
@@ -267,7 +268,7 @@ extern "C" int sg1d_poly_f64(const double* x, const double* w,
   return launch(x, w, ew, out, B, N, n, lead_sign, sgt::kZero, stream);
 }
 
-// K2: mode is sgt::kEdge, kSymmetric or kWrap.
+// K2: mode is sgt::kEdge, kSymmetric, kWrap or kReflect.
 extern "C" int sg1d_pad_f32(const float* x, const float* w, float* out,
                             long long B, long long N, int n, int mode,
                             void* stream) {

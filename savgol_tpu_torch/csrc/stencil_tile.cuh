@@ -42,14 +42,24 @@ struct Bf16 {
 };
 
 // The pad mode codes of savgol_tpu_torch/ops/cuda_conv.py (MODE_CODE).
-enum PadMode : int { kZero = 0, kEdge = 1, kSymmetric = 2, kWrap = 3 };
+// kReflect reaches K2 alone (scipy's mode="mirror"); the 2D kernels and K4
+// refuse it.
+enum PadMode : int {
+  kZero = 0, kEdge = 1, kSymmetric = 2, kWrap = 3, kReflect = 4
+};
 
 // Source index of index i on an axis of n samples padded in `mode`, by
 // numpy's rules for any pad width (a row may be shorter than the pad):
 // edge clamps, wrap is i mod n, symmetric reflects with the edge sample
-// duplicated (period 2n). -1 for a kZero sample outside [0, n), which reads
-// as zero. I is int for the 2D kernels' axes and long long for 1D rows.
-template <typename I>
+// duplicated (period 2n), reflect without it (period 2n - 2; 0 where
+// n == 1). -1 for a kZero sample outside [0, n), which reads as zero. I is
+// int for the 2D kernels' axes and long long for 1D rows. The host twin:
+// cuda_conv.py pad_index. Only a map with Reflect set holds the kReflect
+// case: K2's staging (sg1d_exact.cuh, sg1d_bf16.cuh). The 2D kernels, K4
+// and P1 never take the code, so their maps leave it out and keep their
+// code as it was (with the case inlined, K7's sweep kernel compiled to 30%
+// more instructions for sm_90a at the same registers).
+template <bool Reflect = false, typename I>
 __host__ __device__ __forceinline__ I map_index(I i, I n, int mode) {
   if (i >= 0 && i < n) return i;
   switch (mode) {
@@ -66,6 +76,15 @@ __host__ __device__ __forceinline__ I map_index(I i, I n, int mode) {
       return j < n ? j : p - 1 - j;
     }
     default:
+      if constexpr (Reflect) {
+        if (mode == kReflect) {
+          if (n == 1) return I(0);
+          const I p = 2 * n - 2;
+          I j = i % p;
+          if (j < 0) j += p;
+          return j < n ? j : p - j;
+        }
+      }
       return I(-1);
   }
 }

@@ -251,6 +251,17 @@ class _BankFn(torch.autograd.Function):
         return (*grads, None, None)
 
 
+def _padded(x: torch.Tensor, center_w: torch.Tensor, dt: torch.Tensor,
+            n: int, pad_mode: str, kernel: bool, bf16: bool = False):
+    """Same-length apply over the row padded in ``pad_mode``, ``dt`` folded
+    into the taps: kernel K2 (in its bf16 mode for ``bf16``) through
+    :class:`_SavgolPadFn`, or the exact plain version (``kernel`` False)."""
+    if kernel:
+        return _SavgolPadFn.apply(x.contiguous(), center_w, dt, n, pad_mode,
+                                  bf16)
+    return savgol_padded_plain(x, center_w, pad_mode, n, dt)
+
+
 def _correlate(x: torch.Tensor, w: torch.Tensor, kernel: bool,
                bf16: bool = False):
     """VALID correlation: kernel K3 (in its bf16 mode for ``bf16``) through
@@ -320,11 +331,8 @@ def savgol_apply_core(
         else:
             y = savgol_polynomial_plain(x, center_w, edge_w, n, dt,
                                         lead_sign)
-    elif kernel:
-        y = _SavgolPadFn.apply(x.contiguous(), center_w, dt, n,
-                               PAD_MODE[boundary], bf16)
     else:
-        y = savgol_padded_plain(x, center_w, PAD_MODE[boundary], n, dt)
+        y = _padded(x, center_w, dt, n, PAD_MODE[boundary], kernel, bf16)
     return y.to(restore) if restore is not None else y
 
 

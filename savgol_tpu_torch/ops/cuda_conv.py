@@ -1,6 +1,7 @@
 """The same-length and VALID 1D kernels of the port, their plain PyTorch
 versions and their launch counts, and the pad-index rule and host pad
-(:func:`pad_last`, counted in ``PADS``) every padded plain version uses.
+(:func:`pad_last`, counted in ``PADS``) every padded plain version uses;
+K2's pads mapped in the kernel count in ``MAPPED``.
 
 ``savgol_polynomial_cuda`` (kernel K1, ``csrc/sg1d_poly.cu``),
 ``savgol_padded_cuda`` (kernel K2, the same source) and
@@ -42,6 +43,7 @@ from savgol_tpu_torch._build import library
 
 __all__ = [
     "LAUNCHES",
+    "MAPPED",
     "MODE_CODE",
     "PADS",
     "reset_launches",
@@ -82,6 +84,15 @@ _MAX_WS = 129
 # pads with zeros
 MODE_CODE = {None: 0, "edge": 1, "symmetric": 2, "wrap": 3}
 
+# K2's pad modes and codes: MODE_CODE's and numpy's "reflect" (kReflect,
+# scipy_compat's mode="mirror"), which only K2 maps
+_K2_CODE = {"edge": 1, "symmetric": 2, "wrap": 3, "reflect": 4}
+
+# Pads mapped inside K2 while it stages (no padded copy) since the process
+# started, one count per mode: the in-kernel twin of PADS. Only a K2 launch
+# that succeeded adds to them.
+MAPPED = dict.fromkeys(_K2_CODE, 0)
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -103,8 +114,7 @@ def pad_index(n: int, lo: int, hi: int, pad_mode: str,
     rules for any pad width: edge clamps, wrap is i mod n, symmetric
     reflects with the edge sample duplicated (period 2n), reflect without
     it (period 2n - 2). The host twin of ``csrc/stencil_tile.cuh``
-    ``map_index``, which has no reflect: that mode is only ever padded on
-    the host (``scipy_compat``'s ``mode="mirror"``)."""
+    ``map_index``."""
     i = torch.arange(-lo, n + hi, device=device)
     if pad_mode == "edge":
         return i.clamp(0, n - 1)
@@ -182,10 +192,11 @@ def savgol_polynomial_plain(x: torch.Tensor, center_w: torch.Tensor,
 def savgol_padded_plain(x: torch.Tensor, center_w: torch.Tensor,
                         pad_mode: str, n: int, dt_inv=1.0) -> torch.Tensor:
     """Same-length REFLECT / PERIODIC / CONSTANT apply along the last axis
-    (counterpart of ``xla_twin`` in ``savgol_tpu.ops.apply._pallas_pad_diff``):
-    pad by n in ``pad_mode`` ("symmetric" / "wrap" / "edge"), the VALID
-    correlation, then ``* dt_inv``."""
-    if pad_mode not in ("symmetric", "wrap", "edge"):
+    (counterpart of ``xla_twin`` in ``savgol_tpu.ops.apply._pallas_pad_diff``),
+    or scipy's ``mirror``: pad by n in ``pad_mode`` ("symmetric" / "wrap" /
+    "edge", or numpy's "reflect"), the VALID correlation, then
+    ``* dt_inv``."""
+    if pad_mode not in _K2_CODE:
         raise ValueError(f"unsupported pad mode {pad_mode!r}")
     y = correlate_valid_plain(pad_last(x, int(n), pad_mode), center_w)
     return y * scalar_like(dt_inv, x)
@@ -331,12 +342,13 @@ def _k1(name: str, x: torch.Tensor, center_w: torch.Tensor,
 def _k2(name: str, x: torch.Tensor, center_w: torch.Tensor, pad_mode: str,
         n: int, dt_inv, bf16: bool) -> torch.Tensor:
     """K2's checks and launch in either mode, ``dt_inv`` folded into the
-    taps."""
+    taps; ``pad_mode`` "symmetric", "wrap", "edge" or "reflect", mapped
+    while the kernel stages and counted in :data:`MAPPED`."""
     (_check_bf16_input if bf16 else _check_cuda_input)(x, name)
     n = int(n)
     ws = 2 * n + 1
     N = x.shape[-1]
-    if pad_mode not in ("symmetric", "wrap", "edge"):
+    if pad_mode not in _K2_CODE:
         raise ValueError(f"{name}: unsupported pad mode {pad_mode!r}")
     _check_half_window(name, n)
     if tuple(center_w.shape) != (ws,):
@@ -349,7 +361,8 @@ def _k2(name: str, x: torch.Tensor, center_w: torch.Tensor, pad_mode: str,
     if B > 0:
         _launch(name, LAUNCHES, "sg1d_pad", "sg1d_pad", xs, bf16,
                 xs.data_ptr(), w.data_ptr(), out.data_ptr(), B, N, n,
-                MODE_CODE[pad_mode])
+                _K2_CODE[pad_mode])
+        MAPPED[pad_mode] += 1
     return out if restore is None else out.to(restore)
 
 
@@ -393,13 +406,15 @@ def savgol_polynomial_cuda(x: torch.Tensor, center_w: torch.Tensor,
 def savgol_padded_cuda(x: torch.Tensor, center_w: torch.Tensor,
                        pad_mode: str, n: int, dt_inv=1.0) -> torch.Tensor:
     """Same-length REFLECT / PERIODIC / CONSTANT apply along the last axis
-    of ``x`` (..., N), ``pad_mode`` "symmetric" / "wrap" / "edge".
+    of ``x`` (..., N), ``pad_mode`` "symmetric" / "wrap" / "edge", or
+    scipy's ``mirror``, numpy's "reflect" (the edge sample not repeated).
 
     CUDA tensor: kernel K2 (``csrc/sg1d_poly.cu``, the counterpart of
     ``savgol_padded_pallas_mxu``), which maps the virtual samples while it
-    stages its edge tiles, so no padded copy is made; ``dt_inv`` folded
-    into the taps as K1 does. There is no fallback: any B >= 1, N >= ws and
-    1 <= n <= 64 launches. CPU tensor: :func:`savgol_padded_plain`.
+    stages its edge tiles, so no padded copy is made (counted in
+    :data:`MAPPED`); ``dt_inv`` folded into the taps as K1 does. There is
+    no fallback: any B >= 1, N >= ws and 1 <= n <= 64 launches. CPU
+    tensor: :func:`savgol_padded_plain`.
     """
     name = "savgol_padded_cuda"
     if not _plain_or_cuda(x, name):

@@ -15,15 +15,17 @@ Mode mapping (scipy name -> implementation, kernel on a CUDA tensor):
   * ``nearest``  -> CONSTANT (edge replication), K2
   * ``mirror``   -> reflect WITHOUT edge duplication (np.pad 'reflect') —
                     an EXTENSION beyond the reference, whose REFLECT
-                    duplicates the edge sample: padded on the host, then K3
-  * ``constant`` -> pad with ``cval`` — also an extension: host pad, K3
+                    duplicates the edge sample: K2, which maps it
+  * ``constant`` -> pad with ``cval`` — also an extension: host pad, K3,
+                    then ``* 1/delta**deriv``
 
 The kernels take windows up to 129 samples, the JAX package's Pallas cap
 (past the reference's 65): past that, a CUDA tensor raises under
 ``method="auto"`` and ``method="xla"`` takes the plain version.
 ``method="bf16"`` runs every mode in the kernels' bf16 mode, as
-``Savgol1D.apply`` does (the extension modes pad in the compute dtype,
-then K3 in bf16, then ``* 1/delta**deriv``). As in scipy, input that is
+``Savgol1D.apply`` does (the extension modes, ``mirror`` too, pad on the
+host in the compute dtype, then K3 in bf16, then ``* 1/delta**deriv``, the
+JAX package's order of operations). As in scipy, input that is
 not a tensor comes back as a numpy array; it is computed on ``device``,
 the card by default, which raises where there is none (pass
 ``device="cpu"`` to compute on the CPU).
@@ -39,9 +41,9 @@ from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import BoundaryMode, SavgolConfig
 from savgol_tpu_torch.ops.apply import (_complex_split, _compute_dtype,
                                         _correlate, _ensure_float,
-                                        _move_axis_last, _restore_axis,
-                                        _scale_of, _use_kernel,
-                                        savgol_apply_core)
+                                        _move_axis_last, _padded,
+                                        _restore_axis, _scale_of,
+                                        _use_kernel, savgol_apply_core)
 from savgol_tpu_torch.ops.cuda_conv import pad_last
 from savgol_tpu_torch.ops.weights import (_gram_table, _norm_factors,
                                           _weights_from_table,
@@ -188,7 +190,9 @@ def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
             f"mode must be one of interp/mirror/nearest/wrap/constant, "
             f"got {mode!r}")
 
-    # Extension modes: pad on the host side of the kernel, then K3.
+    # Extension modes: mirror through K2, which maps numpy's reflect while
+    # it stages and folds dt_inv into its taps; constant (and mirror in
+    # bf16) padded on the host, then K3 and the multiply.
     xl, moved = _move_axis_last(x, axis)
     xl = _ensure_float(xl, cw)
     if xl.shape[-1] < window_length:
@@ -198,6 +202,9 @@ def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
     bf16 = method == "bf16"
 
     def ext_apply(xv):
+        if mode == "mirror" and not bf16:
+            return _padded(xv, cw, _scale_of(dt_inv, xv), n, "reflect",
+                           kernel)
         if mode == "mirror":
             xp = pad_last(xv, n, "reflect")
         else:

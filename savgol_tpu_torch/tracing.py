@@ -33,8 +33,10 @@ So a site opens and closes its span in this form::
   ``scipy_compat``, the weights' build on the host and their upload.
 - ``savgol.pad``: a pad made outside any kernel, whose device operations
   the card runs before the kernel (``ops.cuda_conv.pad_last``: the
-  ``scipy_compat`` modes ``mirror`` and ``constant``, and every padded
-  plain version), which counts one pad in ``ops.cuda_conv.PADS``.
+  ``scipy_compat`` mode ``constant`` and ``mirror`` under
+  ``method="bf16"``, and every padded plain version), which counts one pad
+  in ``ops.cuda_conv.PADS``. A pad that K2 maps while it stages is no
+  span; it counts in ``ops.cuda_conv.MAPPED``.
 - ``savgol.launch``: the call into the kernel library that enqueues one
   kernel (library lookup, device guard, stream query, the foreign call),
   which counts one launch in its module's ``LAUNCHES``

@@ -396,7 +396,7 @@ def test_1d_band_product_matches_bf16_plain(ws):
     xb, wb = _bf16_operand(x), bf16_taps(w)
     got = _band_product_1d(xb, wb).to(torch.bfloat16).float()
     _within_ulp(got, cc.correlate_valid_bf16_plain(x, w))
-    for mode in ("symmetric", "wrap", "edge"):
+    for mode in ("symmetric", "wrap", "edge", "reflect"):
         got = _band_product_1d(cc.pad_last(xb, n, mode), wb)
         _within_ulp(got.to(torch.bfloat16).float(),
                     cc.savgol_padded_bf16_plain(x, w, mode, n))
@@ -448,7 +448,7 @@ def test_cuda_bf16_kernels_match_plain(cuda, storage, n, N_kind):
         assert got.dtype == storage
         _within_ulp(got.cpu(), cc.savgol_polynomial_bf16_plain(
             x, cw, ew, n, dt, sign).cpu())
-    for mode in ("symmetric", "wrap", "edge"):
+    for mode in ("symmetric", "wrap", "edge", "reflect"):
         _within_ulp(cc.savgol_padded_bf16_cuda(x, cw, mode, n, dt).cpu(),
                     cc.savgol_padded_bf16_plain(x, cw, mode, n, dt).cpu())
     _within_ulp(cc.correlate_valid_bf16_cuda(x, cw).cpu(),

@@ -148,8 +148,29 @@ def test_padded_wrapper_takes_plain_version_on_cpu():
         assert torch.equal(cc.savgol_padded_cuda(x, w, pad_mode, 5, 0.25),
                            cc.savgol_padded_plain(x, w, pad_mode, 5, 0.25))
     assert cc.LAUNCHES == {"sg1d_poly": 0, "sg1d_pad": 0, "corr1d_valid": 0}
+    # numpy's reflect (scipy's mirror) is the host pad, the VALID
+    # correlation and the multiply, bit for bit
+    assert torch.equal(cc.savgol_padded_plain(x, w, "reflect", 5, 0.25),
+                       cc.correlate_valid_plain(cc.pad_last(x, 5, "reflect"),
+                                                w) * 0.25)
     with pytest.raises(ValueError, match="pad mode"):
-        cc.savgol_padded_plain(x, w, "reflect", 5)
+        cc.savgol_padded_plain(x, w, "bogus", 5)
+
+
+@pytest.mark.parametrize("n", [1, 2, 12, 64])
+def test_padded_plain_reflect_matches_numpy_at_every_length(n):
+    """``savgol_padded_plain`` in numpy's reflect from one window long,
+    where the reflections at both ends meet, to many tiles long, against
+    ``np.pad(mode="reflect")`` and the window sums in float64."""
+    ws = 2 * n + 1
+    w = _data(ws, seed=n, dtype=np.float64)
+    for N in (ws, ws + 1, 2 * ws + 3, 4099):
+        x = _data((2, N), seed=N + n, dtype=np.float64)
+        got = cc.savgol_padded_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                     "reflect", n, 0.5).numpy()
+        win = np.lib.stride_tricks.sliding_window_view(
+            np.pad(x, ((0, 0), (n, n)), mode="reflect"), ws, axis=-1)
+        np.testing.assert_allclose(got, (win @ w) * 0.5, rtol=0, atol=1e-12)
 
 
 # -- Savgol1D.apply with a pad boundary ---------------------------------------
@@ -481,7 +502,8 @@ def _k2_plan(N: int, n: int, base: int, B: int, itemsize: int) -> dict:
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
-@pytest.mark.parametrize("pad_mode", ["symmetric", "wrap", "edge"])
+@pytest.mark.parametrize("pad_mode", ["symmetric", "wrap", "edge",
+                                      "reflect"])
 @pytest.mark.parametrize("ws", [3, 25, 101, 129])
 def test_exact_tile_plan_k2(pad_mode, ws, itemsize):
     """Over N around tile boundaries (every residue mod 4), row offsets 0-3
@@ -551,7 +573,7 @@ def test_cuda_padded_kernel_matches_plain(cuda, n, N_kind, dtype):
     with pytest.raises(TypeError):
         cc.savgol_padded_cuda(x.half(), w, "wrap", n)
     with pytest.raises(ValueError, match="pad mode"):
-        cc.savgol_padded_cuda(x, w, "reflect", n)
+        cc.savgol_padded_cuda(x, w, "bogus", n)
     before = dict(cc.LAUNCHES)
     f.apply(x, boundary="periodic")
     assert cc.LAUNCHES["sg1d_pad"] == before["sg1d_pad"] + 1
@@ -560,7 +582,8 @@ def test_cuda_padded_kernel_matches_plain(cuda, n, N_kind, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,key", [("interp", "sg1d_poly"),
-                                      ("wrap", "sg1d_pad")])
+                                      ("wrap", "sg1d_pad"),
+                                      ("mirror", "sg1d_pad")])
 def test_cuda_savgol_filter_numpy_input_reaches_kernel(cuda, row, mode, key):
     """A scipy user's numpy array goes to the card and one kernel launch."""
     x = row.astype(np.float32)
@@ -576,7 +599,7 @@ def test_cuda_savgol_filter_numpy_input_reaches_kernel(cuda, row, mode, key):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,key", [
     ("interp", "sg1d_poly"), ("wrap", "sg1d_pad"), ("nearest", "sg1d_pad"),
-    ("mirror", "corr1d_valid"), ("constant", "corr1d_valid")])
+    ("mirror", "sg1d_pad"), ("constant", "corr1d_valid")])
 def test_cuda_savgol_filter_window_101(cuda, row, mode, key):
     """Window 101 on the card: one launch of K1, K2 or K3 for a numpy
     array, within 1e-6 of scipy and of the exact weights."""
@@ -589,3 +612,73 @@ def test_cuda_savgol_filter_window_101(cuda, row, mode, key):
                                               cval=0.5), atol=1e-6)
     np.testing.assert_allclose(got, _exact_filter(row, 101, 4, mode, 0.5),
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N_kind", ["ws", "ws+1", 4099, 9233])
+@pytest.mark.parametrize("n", [1, 2, 12, 33, 64])
+def test_cuda_k2_reflect_matches_plain(cuda, n, N_kind, dtype):
+    """K2 maps numpy's reflect while it stages: against its plain version
+    (the host pad, the VALID correlation, the multiply) from one window
+    long, where both ends' reflections meet, to three tiles and more; one
+    launch and one ``MAPPED["reflect"]``, no host pad."""
+    ws = 2 * n + 1
+    N = {"ws": ws, "ws+1": ws + 1}.get(N_kind, N_kind)
+    tol = F32_TOL if dtype == torch.float32 else 1e-12
+    x = torch.from_numpy(_data((3, N), seed=n + N, dtype=np.float64)).to(
+        cuda, dtype)
+    w = torch.from_numpy(_data(ws, seed=n, dtype=np.float64)).to(cuda, dtype)
+    launches, mapped, pads = (dict(cc.LAUNCHES), dict(cc.MAPPED),
+                              dict(cc.PADS))
+    got = cc.savgol_padded_cuda(x, w, "reflect", n, 0.01)
+    assert {k: cc.LAUNCHES[k] - launches[k] for k in launches} == {
+        k: int(k == "sg1d_pad") for k in launches}
+    assert {k: cc.MAPPED[k] - mapped[k] for k in mapped} == {
+        k: int(k == "reflect") for k in mapped}
+    assert cc.PADS == pads
+    want = cc.savgol_padded_plain(x, w, "reflect", n, 0.01)
+    _assert_close(got.cpu().numpy(), want.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_mirror_call_is_one_k2_launch_and_no_host_pad(cuda):
+    """An exact ``mode="mirror"`` call launches K2 once, maps its reflect
+    in the kernel and pads nothing on the host; ``method="bf16"`` keeps the
+    host pad and K3."""
+    x = torch.from_numpy(_data((4, 5000), seed=7)).to(cuda)
+    launches, mapped, pads = (dict(cc.LAUNCHES), dict(cc.MAPPED),
+                              dict(cc.PADS))
+    tsc.savgol_filter(x, 25, 4, mode="mirror")
+    assert {k: cc.LAUNCHES[k] - launches[k] for k in launches} == {
+        k: int(k == "sg1d_pad") for k in launches}
+    assert {k: cc.MAPPED[k] - mapped[k] for k in mapped} == {
+        k: int(k == "reflect") for k in mapped}
+    assert cc.PADS == pads
+    launches = dict(cc.LAUNCHES)
+    tsc.savgol_filter(x, 25, 4, mode="mirror", method="bf16")
+    assert {k: cc.LAUNCHES[k] - launches[k] for k in launches} == {
+        k: int(k == "corr1d_valid") for k in launches}
+    assert cc.PADS["reflect"] == pads["reflect"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("deriv,delta", [(0, 1.0), (1, 0.5)])
+def test_cuda_mirror_matches_the_host_pad_route(cuda, deriv, delta, dtype):
+    """K2's mirror against the route it replaced (the host reflect pad, K3,
+    then ``* 1/delta**deriv``): within the f32 tolerance, and bit for bit
+    at ``dt_inv`` = 1, where both run one fma chain over the same samples
+    and taps in the same order."""
+    x = torch.from_numpy(_data((5, 9233), seed=8, dtype=np.float64)).to(
+        cuda, dtype)
+    got = tsc.savgol_filter(x, 25, 4, deriv=deriv, delta=delta,
+                            mode="mirror")
+    cw = torch.from_numpy(tsc._compat_weights_np(12, 4, deriv)[0]).to(
+        cuda, dtype)
+    want = cc.correlate_valid_cuda(cc.pad_last(x, 12, "reflect"), cw) * (
+        1.0 / delta ** deriv)
+    if deriv == 0:
+        assert torch.equal(got, want)
+    _assert_close(got.cpu().numpy(), want.cpu().numpy(),
+                  F32_TOL if dtype == torch.float32 else 1e-12)
