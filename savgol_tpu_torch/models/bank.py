@@ -20,6 +20,7 @@ from savgol_tpu_torch.config import PAD_MODE, BoundaryMode, SavgolConfig
 from savgol_tpu_torch.ops.apply import (_check_device, _compute_dtype,
                                         _move_axis_last, correlate_bank,
                                         savgol_apply_core)
+from savgol_tpu_torch.ops.cuda_conv import scale_of
 from savgol_tpu_torch.ops.sweep import edge_blocks, fit_edges
 from savgol_tpu_torch.ops.weights import savgol_weights_np
 
@@ -182,8 +183,10 @@ class SavgolBank(nn.Module):
             x = x.to(self.center_weights.dtype)
         # half inputs compute in f32; restored on output below
         x, restore = _compute_dtype(x)
-        dt = self.dt_inv.to(x.dtype)
-        wdt = self.center_weights.to(x.dtype) * dt[:, None]
+        dt = scale_of(self.dt_inv, x)
+        wdt = self.center_weights.to(x.dtype)
+        if dt is not None:
+            wdt = wdt * dt[:, None]
         boundary = self.configs[0].boundary
         if boundary is not BoundaryMode.POLYNOMIAL:
             y = correlate_bank(x, wdt, n, PAD_MODE[boundary], kernel=True)

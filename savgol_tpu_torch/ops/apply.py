@@ -31,7 +31,9 @@ length N >= 2n + 1 runs in bf16, where the JAX package falls back to its
 exact path at lengths no TPU block width admits (a tiling artefact; e.g.
 N = 12289). The padded boundaries take the TPU's fused route (``dt_inv``
 in the taps); ``apply_valid`` multiplies by ``dt_inv`` after, in the
-compute dtype, as the JAX package does. Dispatch is by the tensor's device
+compute dtype, as the JAX package does. Every route resolves ``dt_inv``
+once (``cuda_conv.scale_of``) and does nothing with an exact 1 that needs
+no gradient, since ``y * 1`` is ``y``. Dispatch is by the tensor's device
 only: a CUDA tensor reaches a kernel or an error, never the plain version
 by fallback.
 
@@ -60,7 +62,7 @@ from savgol_tpu_torch.ops.cuda_conv import (correlate_valid_bf16_cuda,
                                             savgol_polynomial_bf16_cuda,
                                             savgol_polynomial_cuda,
                                             savgol_polynomial_plain,
-                                            scalar_like)
+                                            scale_of)
 
 __all__ = [
     "correlate_bank",
@@ -115,14 +117,6 @@ def _compute_dtype(x: torch.Tensor, bf16: bool = False):
     return x, None
 
 
-def _scale_of(v, x: torch.Tensor) -> torch.Tensor:
-    """``v`` as a 0-dim tensor of ``x``'s compute dtype (float32 for bf16
-    storage) on its device."""
-    if x.dtype == torch.bfloat16:
-        return scalar_like(v, x.new_empty((), dtype=torch.float32))
-    return scalar_like(v, x)
-
-
 def _exact_twin(plain, x: torch.Tensor, *args):
     """``plain(x, *args)`` in ``x``'s compute dtype, returned in ``x``'s
     dtype: the exact function whose autograd gives a route's gradients (a
@@ -154,8 +148,11 @@ def _restore_axis(y: torch.Tensor, axis):
 
 def _grads_through(plain, saved, needs, g):
     """Gradients of ``plain(*saved)`` against cotangent ``g`` for the
-    inputs flagged in ``needs`` (None for the others)."""
-    inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+    inputs flagged in ``needs`` (None for the others). The others go in as
+    they were saved (a scale None among them), so a scale tensor stays the
+    one :func:`scale_of` has already read."""
+    inputs = [t.detach().requires_grad_() if need else t
+              for t, need in zip(saved, needs)]
     wanted = [t for t, need in zip(inputs, needs) if need]
     if not wanted:
         return [None] * len(saved)
@@ -251,11 +248,13 @@ class _BankFn(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _padded(x: torch.Tensor, center_w: torch.Tensor, dt: torch.Tensor,
-            n: int, pad_mode: str, kernel: bool, bf16: bool = False):
-    """Same-length apply over the row padded in ``pad_mode``, ``dt`` folded
-    into the taps: kernel K2 (in its bf16 mode for ``bf16``) through
-    :class:`_SavgolPadFn`, or the exact plain version (``kernel`` False)."""
+def _padded(x: torch.Tensor, center_w: torch.Tensor,
+            dt: Optional[torch.Tensor], n: int, pad_mode: str, kernel: bool,
+            bf16: bool = False):
+    """Same-length apply over the row padded in ``pad_mode``, ``dt`` (None:
+    no scale) folded into the taps: kernel K2 (in its bf16 mode for
+    ``bf16``) through :class:`_SavgolPadFn`, or the exact plain version
+    (``kernel`` False)."""
     if kernel:
         return _SavgolPadFn.apply(x.contiguous(), center_w, dt, n, pad_mode,
                                   bf16)
@@ -319,7 +318,7 @@ def savgol_apply_core(
     bf16 = method == "bf16"
     x = _ensure_float(x, center_w)
     x, restore = _compute_dtype(x, bf16)
-    dt = _scale_of(dt_inv, x)
+    dt = scale_of(dt_inv, x)
 
     if boundary is BoundaryMode.POLYNOMIAL:
         lead_sign = 1.0
@@ -396,7 +395,10 @@ def savgol_apply_valid(
         bf16 = method == "bf16"
         xl = _ensure_float(xl, center_w)
         xl, restore = _compute_dtype(xl, bf16)
-        y = _correlate(xl, center_w, kernel, bf16) * _scale_of(dt_inv, xl)
+        y = _correlate(xl, center_w, kernel, bf16)
+        s = scale_of(dt_inv, xl)
+        if s is not None:
+            y = y * s
         if restore is not None:
             y = y.to(restore)
         return _restore_axis(y, moved)

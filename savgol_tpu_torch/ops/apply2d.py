@@ -54,7 +54,6 @@ traced stencil away from its separable kernel.
 from __future__ import annotations
 
 import functools
-import weakref
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,7 +64,7 @@ from savgol_tpu_torch.config import Boundary2D, Savgol2DConfig
 from savgol_tpu_torch.ops.apply import (_check_device, _complex_split,
                                         _compute_dtype, _exact_twin,
                                         _grads_through)
-from savgol_tpu_torch.ops.cuda_conv import scalar_like
+from savgol_tpu_torch.ops.cuda_conv import _memo_get, _memo_put, scale_of
 from savgol_tpu_torch.ops.cuda_conv2d import (_svd_stencil_np,
                                               correlate2d_sep_cuda,
                                               correlate2d_sep_plain,
@@ -200,15 +199,6 @@ def _promote(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _scale_tensor(scale, x: torch.Tensor) -> Optional[torch.Tensor]:
-    """``scale`` as a 0-dim tensor of ``x``'s dtype and device, or None for
-    a Python scale of exactly 1.0. A tensor scale is never read on the host
-    (that would synchronise the stream)."""
-    if not isinstance(scale, torch.Tensor) and float(scale) == 1.0:
-        return None
-    return scalar_like(scale, x)
-
-
 class _Corr2dFn(torch.autograd.Function):
     """Dense 2D correlation (kernel K2D-dense on CUDA, in its bf16 mode for
     ``bf16``) whose backward is autograd through the exact
@@ -266,41 +256,27 @@ def _rank_rtol(*dtypes) -> float:
 
 
 # Rank factors of the stencils that took K2D-sep or were placed from the
-# host (``_prime_factors``): (id(stencil), compute dtype, device) ->
-# (weak reference, in-place version, factors). An entry goes when its
-# stencil tensor does.
+# host (``_prime_factors``), by (id(stencil), compute dtype, device)
+# (``cuda_conv._memo_put``): an entry goes when its stencil tensor does.
 _FACTORS: dict = {}
-
-
-def _version(w: torch.Tensor):
-    """``w``'s in-place version; None for an inference tensor, which keeps
-    no version counter (an in-place change to one inside
-    ``torch.inference_mode`` goes unseen)."""
-    return None if w.is_inference() else w._version
 
 
 def _cached_factors(w: torch.Tensor, dtype, device) -> Optional[list]:
     """The cached factors of ``w`` in ``dtype`` on ``device`` while ``w``
     is unchanged since they were found, else None: a dictionary lookup,
     no work on the card."""
-    hit = _FACTORS.get((id(w), dtype, device))
-    if hit is not None and hit[0]() is w and hit[1] == _version(w):
-        return hit[2]
-    return None
+    return _memo_get(_FACTORS, (id(w), dtype, device), w)
 
 
 def _store(w: torch.Tensor, w_host: np.ndarray, dtype, device) -> list:
     """Factor ``w_host`` (``w``'s values as f64 on the host, (H, W) or (K,
     H, W)) at ``_rank_rtol``, cast to ``dtype`` on ``device``, and cache
     the factors under ``w``."""
-    key = (id(w), dtype, device)
     rtol = _rank_rtol(w.dtype, dtype)
     factors = [tuple(torch.as_tensor(f, dtype=dtype, device=device)
                      for f in _svd_stencil_np(wk, rtol))
                for wk in (w_host if w_host.ndim == 3 else w_host[None])]
-    ref = weakref.ref(w, lambda _, k=key: _FACTORS.pop(k, None))
-    _FACTORS[key] = (ref, _version(w), factors)
-    return factors
+    return _memo_put(_FACTORS, (id(w), dtype, device), w, factors)
 
 
 def _factors(w: torch.Tensor, dtype, device) -> list:
@@ -422,7 +398,8 @@ def savgol2d_apply(
         x, restore = _compute_dtype(_promote(x, weights), route == "bf16")
         pad_mode = (None if boundary is Boundary2D.VALID
                     else _PAD_MODE_2D[boundary])
-        y = _correlate(x, weights, _scale_tensor(scale, x), pad_mode, route)
+        y = _correlate(x, weights, scale_of(scale, x, x.dtype), pad_mode,
+                       route)
         return y.to(restore) if restore is not None else y
     finally:
         tracing.end(span)
@@ -454,8 +431,9 @@ def savgol2d_apply_stack(
                                     route == "bf16")
         # the output's dtype, never an integer input's: fractional
         # derivative scales must not truncate
-        s = (None if scales is None
-             else torch.as_tensor(scales, dtype=x.dtype, device=x.device))
+        if scales is not None and not isinstance(scales, torch.Tensor):
+            scales = torch.as_tensor(scales)
+        s = scale_of(scales, x, x.dtype)
         pad_mode = (None if boundary is Boundary2D.VALID
                     else _PAD_MODE_2D[boundary])
         y = _correlate(x, weight_stack, s, pad_mode, route)

@@ -33,6 +33,7 @@ their launches under the same kernel names.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
@@ -47,6 +48,7 @@ __all__ = [
     "MODE_CODE",
     "PADS",
     "reset_launches",
+    "scale_of",
     "pad_index",
     "pad_last",
     "savgol_polynomial_cuda",
@@ -99,13 +101,83 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def scalar_like(v, x: torch.Tensor) -> torch.Tensor:
-    """``v`` as a 0-dim tensor of ``x``'s dtype and device. A Python number
-    becomes a fill on the device: ``torch.as_tensor`` would copy it from
-    the host and synchronise the stream."""
-    if isinstance(v, torch.Tensor):
-        return v.to(dtype=x.dtype, device=x.device)
-    return torch.full((), float(v), dtype=x.dtype, device=x.device)
+def _version(t: torch.Tensor):
+    """``t``'s in-place version; None for an inference tensor, which keeps
+    no version counter (an in-place change to one inside
+    ``torch.inference_mode`` goes unseen)."""
+    return None if t.is_inference() else t._version
+
+
+def _memo_get(memo: dict, key, t: torch.Tensor):
+    """What :func:`_memo_put` stored in ``memo`` under ``key`` for ``t``,
+    while ``t`` is unchanged in place since; else None."""
+    hit = memo.get(key)
+    if hit is not None and hit[0]() is t and hit[1] == _version(t):
+        return hit[2]
+    return None
+
+
+def _memo_put(memo: dict, key, t: torch.Tensor, value):
+    """Store ``value`` in ``memo`` under ``key`` for ``t`` at its in-place
+    version, until ``t`` goes; returns ``value``."""
+    ref = weakref.ref(t, lambda _, k=key: memo.pop(k, None))
+    memo[key] = (ref, _version(t), value)
+    return value
+
+
+# Scale tensors scale_of has decided, by id: whether every element is
+# exactly 1
+_SCALES: dict = {}
+
+
+def _is_one(v: torch.Tensor) -> bool:
+    """Whether every element of ``v`` is exactly 1, read on the host once
+    per tensor and in-place version; a view is read as its base (a base of
+    ones holds only ones)."""
+    t = v if v._base is None else v._base
+    one = _memo_get(_SCALES, id(t), t)
+    if one is None:
+        one = _memo_put(_SCALES, id(t), t, bool((t == 1).all()))
+    return one
+
+
+def scale_of(v, x: torch.Tensor, dtype=None) -> Optional[torch.Tensor]:
+    """The derivative scale ``v`` (``dt_inv`` in 1D, ``scale`` in 2D) as it
+    reaches a result computed from ``x``: None ("no scale") where it is
+    exactly 1 and needs no gradient, so that no route multiplies by 1, else
+    a tensor in ``dtype`` (default ``x``'s; float32 for bf16 storage) on
+    ``x``'s device. The one rule of every route:
+
+    * None, or a Python number equal to 1: None, with no device operation;
+    * any other Python number: a 0-dim fill on the device
+      (``torch.as_tensor`` would copy it from the host and synchronise the
+      stream);
+    * a tensor that requires grad, an inference or a meta tensor: that
+      tensor, never read on the host;
+    * any other tensor (a module's buffer): read on the host once per
+      tensor and in-place version (:func:`_is_one`), so that a ``.to()``, a
+      ``load_state_dict`` or an in-place write is seen and no later call
+      pays a sync; None where every element is 1.
+
+    A tensor this returns counts as read, so a route that is handed it and
+    asks again pays no read."""
+    if v is None:
+        return None
+    if dtype is None:
+        dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    if not isinstance(v, torch.Tensor):
+        if float(v) == 1.0:
+            return None
+        s = torch.full((), float(v), dtype=dtype, device=x.device)
+    elif v.requires_grad or v.is_inference() or v.is_meta:
+        return v.to(dtype=dtype, device=x.device)
+    elif _is_one(v):
+        return None
+    else:
+        s = v.to(dtype=dtype, device=x.device)
+    if s is not v:
+        _memo_put(_SCALES, id(s), s, False)
+    return s
 
 
 def pad_index(n: int, lo: int, hi: int, pad_mode: str,
@@ -178,7 +250,8 @@ def savgol_polynomial_plain(x: torch.Tensor, center_w: torch.Tensor,
     """Same-length POLYNOMIAL apply along the last axis (counterpart of
     ``xla_poly`` in ``savgol_tpu.ops.apply._pallas_poly_diff``): the valid
     center, then the n leading outputs from the reversed first window and
-    the n trailing ones from the last window, then ``* dt_inv``."""
+    the n trailing ones from the last window, then ``* dt_inv``
+    (:func:`scale_of`)."""
     ws = 2 * n + 1
     N = x.shape[-1]
     center = correlate_valid_plain(x, center_w)
@@ -186,7 +259,8 @@ def savgol_polynomial_plain(x: torch.Tensor, center_w: torch.Tensor,
     lead = _edge_sums(ew, x[..., :ws].flip(-1)) * lead_sign
     trail = _edge_sums(ew, x[..., N - ws:]).flip(-1)
     y = torch.cat([lead, center, trail], dim=-1)
-    return y * scalar_like(dt_inv, x)
+    s = scale_of(dt_inv, x)
+    return y if s is None else y * s
 
 
 def savgol_padded_plain(x: torch.Tensor, center_w: torch.Tensor,
@@ -195,11 +269,12 @@ def savgol_padded_plain(x: torch.Tensor, center_w: torch.Tensor,
     (counterpart of ``xla_twin`` in ``savgol_tpu.ops.apply._pallas_pad_diff``),
     or scipy's ``mirror``: pad by n in ``pad_mode`` ("symmetric" / "wrap" /
     "edge", or numpy's "reflect"), the VALID correlation, then
-    ``* dt_inv``."""
+    ``* dt_inv`` (:func:`scale_of`)."""
     if pad_mode not in _K2_CODE:
         raise ValueError(f"unsupported pad mode {pad_mode!r}")
     y = correlate_valid_plain(pad_last(x, int(n), pad_mode), center_w)
-    return y * scalar_like(dt_inv, x)
+    s = scale_of(dt_inv, x)
+    return y if s is None else y * s
 
 
 def _check_cuda_input(x: torch.Tensor, name: str) -> None:
@@ -253,9 +328,10 @@ def _plain_or_cuda(x: torch.Tensor, name: str) -> bool:
 def _operands(x: torch.Tensor, taps, dt_inv, bf16: bool, name: str):
     """(storage the kernel reads, its taps, dtype to restore or None) for
     either mode, after the taps' device check. Exact: ``x`` as it is, the
-    taps in its dtype times ``dt_inv`` (None: not multiplied). bf16:
-    :func:`_bf16_storage` and :func:`bf16_taps`. The taps are prepared in
-    a ``savgol.taps`` span."""
+    taps in its dtype times ``dt_inv`` (:func:`scale_of`; with no scale,
+    the caller's own taps where they are already in ``x``'s dtype and
+    contiguous). bf16: :func:`_bf16_storage` and :func:`bf16_taps`. The
+    taps are prepared in a ``savgol.taps`` span."""
     for t in taps:
         _same_device(t, x, name)
     xs, restore = _bf16_storage(x) if bf16 else (x, None)
@@ -265,8 +341,9 @@ def _operands(x: torch.Tensor, taps, dt_inv, bf16: bool, name: str):
             ws = [bf16_taps(t, dt_inv) for t in taps]
         else:
             ws = [t.to(x.dtype) for t in taps]
-            if dt_inv is not None:
-                ws = [t * scalar_like(dt_inv, x) for t in ws]
+            s = scale_of(dt_inv, x)
+            if s is not None:
+                ws = [t * s for t in ws]
         return xs, [t.contiguous() for t in ws], restore
     finally:
         tracing.end(span)
@@ -442,11 +519,11 @@ def bf16_taps(w: torch.Tensor, dt_inv=None) -> torch.Tensor:
     """The taps of ``method="bf16"`` as float32 holding bf16 values:
     ``bf16(w)``, or ``bf16(bf16(w) * bf16(dt_inv))`` with ``dt_inv`` (the
     product of two bf16 values rounded once, as ``pallas_conv.py:723-726``
-    forms them). The kernels and the plain versions take them from here."""
+    forms them; no product where :func:`scale_of` finds no scale). The
+    kernels and the plain versions take them from here."""
     t = w.to(torch.bfloat16)
-    if dt_inv is not None:
-        t = t * scalar_like(dt_inv, t)
-    return t.float()
+    s = scale_of(dt_inv, t, torch.bfloat16)
+    return (t if s is None else t * s).float()
 
 
 def bf16_ulp_gate(want: torch.Tensor) -> torch.Tensor:
@@ -489,7 +566,7 @@ def savgol_polynomial_bf16_plain(x: torch.Tensor, center_w: torch.Tensor,
     returned in ``x``'s dtype."""
     y = savgol_polynomial_plain(_bf16_operand(x),
                                 bf16_taps(center_w, dt_inv),
-                                bf16_taps(edge_w, dt_inv), n, 1.0, lead_sign)
+                                bf16_taps(edge_w, dt_inv), n, None, lead_sign)
     return _bf16_result(y, x.dtype)
 
 
@@ -501,7 +578,7 @@ def savgol_padded_bf16_plain(x: torch.Tensor, center_w: torch.Tensor,
     :func:`savgol_padded_plain` as :func:`savgol_polynomial_bf16_plain`
     rounds."""
     y = savgol_padded_plain(_bf16_operand(x), bf16_taps(center_w, dt_inv),
-                            pad_mode, n, 1.0)
+                            pad_mode, n, None)
     return _bf16_result(y, x.dtype)
 
 

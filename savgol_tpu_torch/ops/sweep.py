@@ -35,6 +35,7 @@ from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import (MAX_HALF_WINDOW, MAX_POLY_ORDER,
                                      PAD_MODE, BoundaryMode)
 from savgol_tpu_torch.ops.apply import _compute_dtype, correlate_bank
+from savgol_tpu_torch.ops.cuda_conv import scale_of
 
 __all__ = ["savgol_weights_masked", "savgol_apply_sweep"]
 
@@ -241,13 +242,14 @@ def _sweep_weights_cached(hw_key: tuple, po_key: tuple, derivative: int,
     """The weights of a CONCRETE config tuple, generated on the device
     once: the centred stencils (C, 65) and :func:`edge_blocks`' blocks
     for rows of ``length`` samples (any length >= 65 gives the same
-    blocks), ``dt_inv`` (a number, or None for 1) folded in and the lead
-    rows negated under ``flip_lead``."""
+    blocks), the number ``dt_inv`` folded in (:func:`scale_of`) and the
+    lead rows negated under ``flip_lead``."""
     center, lead, trail = savgol_weights_masked(hw_key, po_key, derivative,
                                                 dtype, device=device)
     C = len(hw_key)
-    dt = (None if dt_inv is None else
-          torch.full((C,), dt_inv, dtype=dtype, device=device))
+    dt = scale_of(dt_inv, center, dtype)
+    if dt is not None:
+        dt = dt.expand(C)
     sign = (torch.full((C,), -1.0, dtype=dtype, device=device) if flip_lead
             else None)
     head, tail, reach = edge_blocks(center, lead, trail, hw_key, length,
@@ -319,15 +321,17 @@ def savgol_apply_sweep(
             f"(2*{max_n}+1 = {2 * max_n + 1})")
     x, restore = _compute_dtype(x)
     d = int(derivative)
+    # a number is folded into the cached weights; a tensor dt_inv
+    # multiplies them a call, so that it stays differentiable
     number = not isinstance(dt_inv, torch.Tensor)
     center, head, tail, reach = _sweep_weights_cached(
         hw, po, d, dtype, x.device, min(N, _W),
-        float(dt_inv) if number and float(dt_inv) != 1.0 else None,
+        float(dt_inv) if number else 1.0,
         reference_edge_sign and d % 2 == 1)
     center, head, tail = (a.to(x.dtype) for a in (center, head, tail))
-    if not number:      # a tensor dt_inv stays differentiable
-        center, head, tail = (a * dt_inv.to(x.dtype) for a in
-                              (center, head, tail))
+    s = None if number else scale_of(dt_inv, x)
+    if s is not None:
+        center, head, tail = (a * s for a in (center, head, tail))
     kernel = method != "xla"
     if boundary is not BoundaryMode.POLYNOMIAL:
         y = correlate_bank(x, center, _M, PAD_MODE[boundary], kernel=kernel)

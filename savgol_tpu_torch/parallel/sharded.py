@@ -31,9 +31,9 @@ import torch.distributed as dist
 
 from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.config import BoundaryMode
-from savgol_tpu_torch.ops.apply import (_correlate, _ensure_float, _scale_of,
+from savgol_tpu_torch.ops.apply import (_correlate, _ensure_float,
                                         _use_kernel)
-from savgol_tpu_torch.ops.cuda_conv import _edge_sums, scalar_like
+from savgol_tpu_torch.ops.cuda_conv import _edge_sums, scale_of
 from savgol_tpu_torch.ops.cuda_halo import halo_exchange_plain
 from savgol_tpu_torch.parallel.ici_halo import (exchange_last,
                                                 halo_exchange_rdma)
@@ -161,25 +161,28 @@ def _local_apply(x_local, center_w, edge_w, n, boundary, dt_inv, lead_sign,
         # the JAX package's sharded bf16 route: K3 in bf16 on the unscaled
         # taps, the outer edge rows exact in the compute dtype, then
         # * dt_inv (not the single-device route's fused bf16 edge rows)
-        dt = _scale_of(dt_inv, x_local)
+        dt = scale_of(dt_inv, x_local)
         y = _correlate(xp, center_w, kernel, bf16=True)
     else:
         # dt_inv folded into the (tiny) taps, as kernel K1 folds it, instead
         # of a pass over the output
-        dt = scalar_like(dt_inv, x_local)
-        y = _correlate(xp, center_w.to(dt.dtype) * dt, kernel)  # (..., nloc)
+        dt = scale_of(dt_inv, x_local, x_local.dtype)
+        cw = center_w.to(x_local.dtype)
+        y = _correlate(xp, cw if dt is None else cw * dt, kernel)
 
     if boundary is BoundaryMode.POLYNOMIAL:
         # the edge rows as products and sums (no matmul, so no TF32),
         # written over the n outputs they replace
-        ew = edge_w.to(y.dtype) if bf16 else edge_w.to(dt.dtype) * dt
+        ew = edge_w.to(y.dtype)
+        if not bf16 and dt is not None:
+            ew = ew * dt
         if is_first:
             y[..., :n] = _edge_sums(ew, x_local[..., :ws].flip(-1)) \
                 * lead_sign
         if is_last:
             y[..., nloc - n:] = _edge_sums(ew,
                                            x_local[..., nloc - ws:]).flip(-1)
-    return y * dt.to(y.dtype) if bf16 else y
+    return y * dt.to(y.dtype) if bf16 and dt is not None else y
 
 
 def apply_sharded(

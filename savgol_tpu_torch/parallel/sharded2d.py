@@ -22,8 +22,8 @@ import torch
 from savgol_tpu_torch.config import Boundary2D
 from savgol_tpu_torch.ops.apply import _check_device, _compute_dtype
 from savgol_tpu_torch.ops.apply2d import (_PAD_MODE_2D, _correlate, _promote,
-                                          _resolve_method2d, _scale_tensor)
-from savgol_tpu_torch.ops.cuda_conv import pad_last
+                                          _resolve_method2d)
+from savgol_tpu_torch.ops.cuda_conv import pad_last, scale_of
 from savgol_tpu_torch.ops.cuda_halo import halo_exchange_plain
 from savgol_tpu_torch.parallel.ici_halo import (exchange_rows,
                                                 halo_exchange_rdma,
@@ -100,7 +100,8 @@ def _local2d_tiled(x_local, weights, scale, boundary, rows, cols, route,
                  _exchange_cols(x_local, nx, cols[0], halo))
     xr = _extend(xc, ny, boundary, rows, -2,
                  _exchange_rows(xc, ny, rows[0], halo))
-    return _correlate(xr, weights, _scale_tensor(scale, xr), None, route)
+    return _correlate(xr, weights, scale_of(scale, xr, xr.dtype), None,
+                      route)
 
 
 def _local2d(x_local, weights, scale, boundary, rows, route, halo):
@@ -117,7 +118,8 @@ def _local2d(x_local, weights, scale, boundary, rows, route, halo):
                  _exchange_rows(x_local, ny, rows[0], halo))
     if boundary is not Boundary2D.VALID:
         xr = pad_last(xr, nx, _PAD_MODE_2D[boundary])
-    return _correlate(xr, weights, _scale_tensor(scale, xr), None, route)
+    return _correlate(xr, weights, scale_of(scale, xr, xr.dtype), None,
+                      route)
 
 
 def _trim(y, n: int, ring, dim: int):

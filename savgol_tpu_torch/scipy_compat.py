@@ -42,9 +42,9 @@ from savgol_tpu_torch.config import BoundaryMode, SavgolConfig
 from savgol_tpu_torch.ops.apply import (_complex_split, _compute_dtype,
                                         _correlate, _ensure_float,
                                         _move_axis_last, _padded,
-                                        _restore_axis, _scale_of,
-                                        _use_kernel, savgol_apply_core)
-from savgol_tpu_torch.ops.cuda_conv import pad_last
+                                        _restore_axis, _use_kernel,
+                                        savgol_apply_core)
+from savgol_tpu_torch.ops.cuda_conv import pad_last, scale_of
 from savgol_tpu_torch.ops.weights import (_gram_table, _norm_factors,
                                           _weights_from_table,
                                           savgol_weights_np)
@@ -202,14 +202,15 @@ def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
     bf16 = method == "bf16"
 
     def ext_apply(xv):
+        s = scale_of(dt_inv, xv)
         if mode == "mirror" and not bf16:
-            return _padded(xv, cw, _scale_of(dt_inv, xv), n, "reflect",
-                           kernel)
+            return _padded(xv, cw, s, n, "reflect", kernel)
         if mode == "mirror":
             xp = pad_last(xv, n, "reflect")
         else:
             xp = pad_last(xv, n, "constant", cval)
-        return _correlate(xp, cw, kernel, bf16) * _scale_of(dt_inv, xv)
+        y = _correlate(xp, cw, kernel, bf16)
+        return y if s is None else y * s
 
     if xl.is_complex():
         # real-linear split, as on the native-mode branch

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from savgol_tpu_torch._device import card_unless_named
 from savgol_tpu_torch.ops.apply import (_check_device, _compute_dtype,
                                         _correlate, _ensure_float)
-from savgol_tpu_torch.ops.cuda_conv import _edge_sums
+from savgol_tpu_torch.ops.cuda_conv import _edge_sums, scale_of
 
 __all__ = [
     "StreamState",
@@ -77,14 +77,6 @@ class StreamState(NamedTuple):
 def _count(v) -> torch.Tensor:
     """A counter: a 0-dim int64 CPU tensor."""
     return torch.tensor(int(v), dtype=torch.int64)
-
-
-def _dt(dt_inv, ref: torch.Tensor):
-    """``dt_inv`` in ``ref``'s dtype: a 0-dim tensor on ``ref``'s device,
-    or a Python number (a scalar operand, no host-to-device copy)."""
-    if isinstance(dt_inv, torch.Tensor):
-        return dt_inv.to(dtype=ref.dtype, device=ref.device)
-    return float(dt_inv)
 
 
 def stream_init(half_window: int, dtype=torch.float32, *,
@@ -133,8 +125,13 @@ def stream_buffered(state: StreamState) -> int:
     return min(int(state.samples_received), state.buffer.shape[0])
 
 
+def _scaled(y: torch.Tensor, dt) -> torch.Tensor:
+    """``y * dt``, ``dt`` as :func:`scale_of` gives it (None: ``y``)."""
+    return y if dt is None else y * dt
+
+
 def _center(aligned: torch.Tensor, center_w: torch.Tensor, dt):
-    return (center_w.to(aligned.dtype) * aligned).sum(-1) * dt
+    return _scaled((center_w.to(aligned.dtype) * aligned).sum(-1), dt)
 
 
 def _leading_outputs(aligned, edge_w, dt, lead_sign=1.0):
@@ -143,13 +140,14 @@ def _leading_outputs(aligned, edge_w, dt, lead_sign=1.0):
     corrects the reference's odd-derivative sign flip at the leading edge:
     ``(-1)**derivative`` for the correct sign, 1.0 for reference parity."""
     out = _edge_sums(edge_w.to(aligned.dtype), aligned.flip(-1))
-    return out * (dt * lead_sign)
+    return out * (lead_sign if dt is None else dt * lead_sign)
 
 
 def _trailing_outputs(aligned, edge_w, dt):
     """Trailing-edge values in flush order: output i uses edge row n-1-i,
     forward traversal (src/savgol_stream.c:243-248)."""
-    return (_edge_sums(edge_w.to(aligned.dtype), aligned) * dt).flip(-1)
+    return _scaled(_edge_sums(edge_w.to(aligned.dtype), aligned),
+                   dt).flip(-1)
 
 
 def stream_push(
@@ -165,7 +163,7 @@ def stream_push(
     valid = stream_ready(state)
     if valid:
         a = _aligned(state)
-        value = _center(a, center_w, _dt(dt_inv, a))
+        value = _center(a, center_w, scale_of(dt_inv, a))
     else:
         value = state.buffer.new_zeros(())
     return _emitted(state, int(valid)), value, valid
@@ -210,7 +208,7 @@ def stream_push_full(
         outputs, count = state.buffer.new_zeros(n + 1), 0
     else:
         a = _aligned(state)
-        dt = _dt(dt_inv, a)
+        dt = scale_of(dt_inv, a)
         center = _center(a, center_w, dt)[None]
         if was_filling:
             outputs = torch.cat([_leading_outputs(a, edge_w, dt, lead_sign),
@@ -245,7 +243,7 @@ def stream_flush(
     buffer never filled (src/savgol_stream.c:229-252)."""
     del center_w  # kept for API symmetry
     return _edge_flush(state, max_count, lambda a: _trailing_outputs(
-        a, edge_w, _dt(dt_inv, a)))
+        a, edge_w, scale_of(dt_inv, a)))
 
 
 def stream_flush_leading(
@@ -257,7 +255,7 @@ def stream_flush_leading(
 ) -> Tuple[StreamState, torch.Tensor, int]:
     """Leading-edge flush (src/savgol_stream.c:254-275)."""
     return _edge_flush(state, max_count, lambda a: _leading_outputs(
-        a, edge_w, _dt(dt_inv, a), lead_sign))
+        a, edge_w, scale_of(dt_inv, a), lead_sign))
 
 
 def stream_apply(
@@ -296,8 +294,8 @@ def stream_apply(
     if not reference_edge_sign and int(derivative) % 2 == 1:
         lead_sign = -1.0
     x, restore = _compute_dtype(_ensure_float(x, center_w))
-    dt = _dt(dt_inv, x)
-    centers = _correlate(x[None], center_w, kernel=True)[0] * dt
+    dt = scale_of(dt_inv, x)
+    centers = _scaled(_correlate(x[None], center_w, kernel=True)[0], dt)
     y = torch.cat([_leading_outputs(x[:ws], edge_w, dt, lead_sign), centers,
                    _trailing_outputs(x[T - ws:], edge_w, dt)])
     return y.to(restore) if restore is not None else y
@@ -363,14 +361,15 @@ def stream_process_chunk(
     chunk = torch.as_tensor(chunk, dtype=state.tail.dtype,
                             device=state.tail.device)
     C = chunk.shape[0]
-    dt = _dt(dt_inv, state.tail)
+    dt = scale_of(dt_inv, state.tail)
     t0 = int(state.samples_received)
     t1 = t0 + C
 
     # ext[i] = stream sample t0 - ws + i (zeros where negative); the window
     # starting at ext index i is centred at p(i) = t0 - n - 1 + i
     ext = torch.cat([state.tail, chunk])
-    centers = _correlate(ext[None], center_w, kernel=True)[0] * dt  # (C+1,)
+    centers = _scaled(_correlate(ext[None], center_w, kernel=True)[0],
+                      dt)                                          # (C+1,)
 
     # centre p is emitted once p + n + 1 samples exist: this chunk emits
     # p in [max(n, t0 - n), t1 - 1 - n]
@@ -405,7 +404,8 @@ def stream_flush_chunked(
     n = (ws - 1) // 2
     if int(state.samples_received) < ws:
         return state, state.tail.new_zeros(n), 0
-    trail = _trailing_outputs(state.tail, edge_w, _dt(dt_inv, state.tail))
+    trail = _trailing_outputs(state.tail, edge_w,
+                              scale_of(dt_inv, state.tail))
     return state._replace(samples_output=_count(
         int(state.samples_output) + n)), trail, n
 

@@ -310,38 +310,43 @@ def test_dtypes_of_the_2d_bf16_route():
 
 
 def test_unit_scale_is_not_multiplied(monkeypatch):
-    """``Savgol2D`` hands a scale buffer of exactly 1 to the route as the
-    Python 1.0, so the bf16 route makes no pass over its output to
-    multiply by 1 (as the JAX package's ``_apply_scale`` skips a concrete
-    1.0); it reads the buffer again after a change to it, and hands over
-    the buffer itself for any other value or when it needs a gradient.
-    The values are those of the buffer's call either way."""
-    from savgol_tpu_torch.models import filter2d
-    real = filter2d.savgol2d_apply
+    """A ``Savgol2D`` scale buffer of exactly 1 reaches the route as no
+    scale (``cuda_conv.scale_of``), so the bf16 route makes no pass over
+    its output to multiply by 1 (as the JAX package's ``_apply_scale``
+    skips a concrete 1.0); the buffer is read again after a change to it,
+    and any other value, or a buffer that needs a gradient, reaches the
+    route as a tensor. The values are those of a multiply by the buffer
+    either way."""
+    from savgol_tpu_torch.ops import apply2d
+    real = apply2d._correlate
     seen = []
 
-    def spy(*a, **kw):
-        seen.append(kw["scale"])
-        return real(*a, **kw)
+    def spy(x, w, s, *a):
+        seen.append(s)
+        return real(x, w, s, *a)
 
-    monkeypatch.setattr(filter2d, "savgol2d_apply", spy)
+    monkeypatch.setattr(apply2d, "_correlate", spy)
     f = _port(half_window_x=2, half_window_y=2, poly_order=3)
     x = torch.from_numpy(_data((2, 24, 20), 85)).to(torch.bfloat16)
     for boundary in ("constant", "valid"):
         y = f.apply(x, boundary=boundary, method="bf16")
-        assert type(seen[-1]) is float and seen[-1] == 1.0
-        assert torch.equal(y, real(x, f.weights, boundary=boundary,
-                                   scale=f.scale, method="bf16"))
+        assert seen[-1] is None
+        one = torch.tensor(1.0, requires_grad=True)     # multiplied by 1
+        assert torch.equal(y, sgt.savgol2d_apply(
+            x, f.weights, boundary=boundary, scale=one,
+            method="bf16").detach())
+        assert seen[-1] is not None
     f.load_state_dict({"weights": f.weights, "scale": torch.tensor(2.0)})
     y = f.apply(x, method="bf16")
-    assert seen[-1] is f.scale
-    assert torch.equal(y, 2 * real(x, f.weights, method="bf16"))
+    assert seen[-1] is not None and float(seen[-1]) == 2.0
+    assert torch.equal(y, 2 * sgt.savgol2d_apply(x, f.weights,
+                                                 method="bf16"))
     f.scale.fill_(1.0)
     f.apply(x, method="bf16")
-    assert seen[-1] == 1.0
+    assert seen[-1] is None
     f.scale.requires_grad_()
     f.apply(x, method="bf16")
-    assert seen[-1] is f.scale
+    assert seen[-1] is not None and seen[-1].requires_grad
 
 
 # -- on the card ----------------------------------------------------------------
