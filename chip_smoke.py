@@ -36,8 +36,9 @@ and inf samples, whose pattern must match exactly); the padded
 ``Savgol1D.apply``, ``SavgolBank.smooth_and_derivatives(12, 4, 2)`` and the
 (n, m) sweep at full size against float64, ``scipy_compat.savgol_filter`` in
 all five modes against scipy, each entry point's launches counted (and
-the scipy modes' host pads, ``ops.cuda_conv.PADS``, and K2's mapped ones,
-``ops.cuda_conv.MAPPED``);
+the scipy modes' host pads, ``ops.cuda_conv.PADS``, K2's mapped ones,
+``ops.cuda_conv.MAPPED``, and a warm call's held weights,
+``scipy_compat.WEIGHTS``);
 gradients; and timings beside the route the padded modes took before K2.
 Then K1, K2 and K3 at window 101 against their plain versions and
 ``scipy_compat.savgol_filter`` on a numpy array at window 101 against scipy.
@@ -1741,7 +1742,9 @@ def bank_slice(sgt, dev, card) -> list:
         require(e_sc[mode] <= GATE_ABS, f"scipy_compat {mode} vs scipy: "
                 f"{e_sc[mode]:.3e}")
         # the import swap: a numpy array is computed on the card by the
-        # same kernel and comes back as a numpy array, as scipy returns it
+        # same kernel and comes back as a numpy array, as scipy returns it;
+        # a warm call, so its weights are the ones the tensor call left
+        weights = dict(tsc.WEIGHTS)
         yn, _ = counted_all(
             lambda: tsc.savgol_filter(x_np[[0, 127]], 25, 4, mode=mode),
             want, f"scipy_compat.savgol_filter(numpy, mode={mode!r})")
@@ -1749,12 +1752,16 @@ def bank_slice(sgt, dev, card) -> list:
                 and np.array_equal(yn, y.cpu().numpy()),
                 f"scipy_compat {mode} on numpy input: {type(yn)} or values "
                 f"differ from the tensor call")
+        weights = {k: v - weights[k] for k, v in tsc.WEIGHTS.items()}
+        require(weights == {"hit": 1, "built": 0}, f"scipy_compat {mode}'s "
+                f"warm call counted {weights} in WEIGHTS, expected one hit")
     print(f"scipy_compat.savgol_filter(x, 25, 4) on 2 x {N_FULL} f32: "
           + ", ".join(f"{m} {nz(l_sc[m])} {e_sc[m]:.3e}" for m in l_sc)
           + f" max abs err vs scipy f64 (gate {GATE_ABS}); one host pad a "
           f"call for {sorted(SCIPY_PADS)}, one pad mapped in K2 for "
           f"{sorted(SCIPY_MAPPED)}, none for interp; numpy input: "
-          f"the same launches on the card and the same values, as numpy")
+          f"the same launches on the card and the same values, as numpy, "
+          f"its weights held (one WEIGHTS hit a mode)")
 
     # -- gradients through K2 and K4 against method="xla" --
     xg_np = np.random.default_rng(24).standard_normal((24, 4099)).astype(

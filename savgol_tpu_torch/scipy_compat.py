@@ -29,9 +29,18 @@ JAX package's order of operations). As in scipy, input that is
 not a tensor comes back as a numpy array; it is computed on ``device``,
 the card by default, which raises where there is none (pass
 ``device="cpu"`` to compute on the CPU).
+
+The weights are built on the host in f64 and uploaded once per window,
+polyorder, deriv, compute dtype, device and need of the edge rows, then
+held on the device (the 64 keys used last; ``delta`` reaches only the
+scale), so a repeated call is its kernel's launch alone, with no host
+table, no copy and no stream sync. ``WEIGHTS`` counts the calls that
+found them held (``hit``) and those that built them (``built``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -50,6 +59,11 @@ from savgol_tpu_torch.ops.weights import (_gram_table, _norm_factors,
                                           savgol_weights_np)
 
 __all__ = ["savgol_coeffs", "savgol_filter"]
+
+# Calls of savgol_filter that reached the weights since the process
+# started: "hit" where the device weights were held from an earlier call,
+# "built" where they were built on the host and uploaded (_device_weights).
+WEIGHTS = {"hit": 0, "built": 0}
 
 
 def _compat_weights_np(n: int, polyorder: int, deriv: int):
@@ -80,6 +94,25 @@ _NATIVE_MODES = {
     "wrap": BoundaryMode.PERIODIC,
     "nearest": BoundaryMode.CONSTANT,
 }
+
+
+@functools.lru_cache(maxsize=64)
+def _device_weights(n: int, polyorder: int, deriv: int, dtype: torch.dtype,
+                    device: torch.device, edges: bool):
+    """(center, edge rows or None) of :func:`_compat_weights_np` in
+    ``dtype`` on ``device``, the edge rows only with ``edges``: built and
+    uploaded once per key and held, so they stay internal to
+    :func:`_filter`, whose routes only read them. Made outside inference
+    mode, so that an autograd call can save them for backward, and uploaded
+    synchronously, so that they are whole before any stream reads them.
+    Counts one ``built`` in :data:`WEIGHTS`."""
+    center, edge = _compat_weights_np(n, polyorder, deriv)
+    with torch.inference_mode(False):
+        cw = torch.as_tensor(center, dtype=dtype, device=device)
+        ew = (torch.as_tensor(edge, dtype=dtype, device=device) if edges
+              else None)
+    WEIGHTS["built"] += 1
+    return cw, ew
 
 
 def savgol_coeffs(window_length: int, polyorder: int, deriv: int = 0,
@@ -165,16 +198,18 @@ def _filter(x: torch.Tensor, window_length: int, polyorder: int, deriv: int,
         return torch.zeros(x.shape, dtype=x.dtype if x.is_floating_point()
                            or x.is_complex() else torch.float32,
                            device=x.device)
-    # the weights built on the host and uploaded, in x's real dtype
-    # (complex input filters its parts); the edge rows only where used
+    # the device weights in x's real dtype (complex input filters its
+    # parts), the edge rows only where used: held from an earlier call, or
+    # built and uploaded now
     span = tracing.begin("savgol.taps") if tracing.on() else None
     try:
-        center, edge = _compat_weights_np(n, polyorder, deriv)
         dtype = (x.real.dtype if x.is_complex() else
                  x.dtype if x.is_floating_point() else torch.float32)
-        cw = torch.as_tensor(center, dtype=dtype, device=x.device)
-        if mode in _NATIVE_MODES:
-            ew = torch.as_tensor(edge, dtype=dtype, device=x.device)
+        built = WEIGHTS["built"]
+        cw, ew = _device_weights(n, polyorder, deriv, dtype, x.device,
+                                 mode in _NATIVE_MODES)
+        if WEIGHTS["built"] == built:
+            WEIGHTS["hit"] += 1
     finally:
         tracing.end(span)
     dt_inv = 1.0 / (float(delta) ** deriv)

@@ -30,7 +30,8 @@ So a site opens and closes its span in this form::
   ``savgol.apply``: the complex-input route nests a second.
 - ``savgol.taps``: a call's preparation of its taps on the host side:
   dtype cast, the ``dt_inv`` or scale fold, ``.contiguous()``; in
-  ``scipy_compat``, the weights' build on the host and their upload.
+  ``scipy_compat``, the lookup of its held device weights, which a miss
+  builds on the host and uploads (counted in ``scipy_compat.WEIGHTS``).
 - ``savgol.pad``: a pad made outside any kernel, whose device operations
   the card runs before the kernel (``ops.cuda_conv.pad_last``: the
   ``scipy_compat`` mode ``constant`` and ``mirror`` under
