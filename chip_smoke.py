@@ -2943,9 +2943,10 @@ def _contract(got, ref, what) -> float:
 def bf16_slice_1d(sgt, dev, card) -> list:
     """The 1D headline in bf16 through the user's entry points: ``apply``
     on bf16 and on f32 storage, ``apply_valid`` and the three pad
-    boundaries, each counted in its own zeroed window and held to the
-    contract against float64; each kernel against its plain version at the
-    headline; f64 gradients through the bf16 routes; times. Returns the
+    boundaries, each counted in its own zeroed window (its launches, and
+    the tap tensors and storage it rounds, ``cuda_conv.ROUNDED``) and held
+    to the contract against float64; each kernel against its plain version
+    at the headline; f64 gradients through the bf16 routes; times. Returns the
     bf16 modes' records."""
     from savgol_tpu_torch.ops import cuda_conv as cc
     from savgol_tpu_torch.ops.weights import savgol_weights_np
@@ -2977,7 +2978,15 @@ def bf16_slice_1d(sgt, dev, card) -> list:
             lambda v, m=mode: cc.savgol_padded_plain(v, c64, m, 12))
     launches, errs = {}, {}
     for name, (run, want, inp, oracle) in runs.items():
+        before = dict(cc.ROUNDED)
         y, launches[name] = counted_all(run, want, f"Savgol1D {name}")
+        # K1 rounds its centre and edge taps, K2 and K3 their one stencil;
+        # f32 and bf16 storage go to the kernel unrounded
+        rounded = {k: cc.ROUNDED[k] - before[k] for k in before}
+        taps = 2 if "sg1d_poly" in want else 1
+        require(rounded == {"taps": taps, "storage": 0},
+                f"{name}: rounded {rounded}, expected {taps} tap tensors "
+                f"and no storage")
         require(y.dtype == inp.dtype and bool(torch.isfinite(y).all()),
                 f"{name}: dtype {y.dtype} or non-finite output")
         require(torch.equal(y, y.to(torch.bfloat16).to(y.dtype)),

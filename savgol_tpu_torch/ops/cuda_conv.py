@@ -28,7 +28,8 @@ the host side by :func:`bf16_taps` for both versions, so both get the same
 bits), products are exact in f32, sums are f32, and each output is rounded
 to bf16. The kernels read and write the caller's f32 or bf16 storage;
 other dtypes are rounded to bf16 first and get their dtype back. They count
-their launches under the same kernel names.
+their launches under the same kernel names, and their roundings of taps and
+of storage in ``ROUNDED``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ __all__ = [
     "MAPPED",
     "MODE_CODE",
     "PADS",
+    "ROUNDED",
     "reset_launches",
     "scale_of",
     "pad_index",
@@ -94,6 +96,13 @@ _K2_CODE = {"edge": 1, "symmetric": 2, "wrap": 3, "reflect": 4}
 # started, one count per mode: the in-kernel twin of PADS. Only a K2 launch
 # that succeeded adds to them.
 MAPPED = dict.fromkeys(_K2_CODE, 0)
+
+# method="bf16"'s roundings since the process started: ``taps``, the tap
+# tensors :func:`bf16_taps` rounds (both versions; two a POLYNOMIAL call);
+# ``storage``, the inputs :func:`_bf16_storage` rounds to bf16 storage on
+# the kernel route (an f64 caller's: f32 and bf16 go to the kernel as they
+# are, and ``ops.apply`` promotes f16 to f32 first).
+ROUNDED = {"taps": 0, "storage": 0}
 
 
 def reset_launches() -> None:
@@ -520,10 +529,13 @@ def bf16_taps(w: torch.Tensor, dt_inv=None) -> torch.Tensor:
     ``bf16(w)``, or ``bf16(bf16(w) * bf16(dt_inv))`` with ``dt_inv`` (the
     product of two bf16 values rounded once, as ``pallas_conv.py:723-726``
     forms them; no product where :func:`scale_of` finds no scale). The
-    kernels and the plain versions take them from here."""
+    kernels and the plain versions take them from here, each call counted
+    in ``ROUNDED["taps"]``."""
     t = w.to(torch.bfloat16)
     s = scale_of(dt_inv, t, torch.bfloat16)
-    return (t if s is None else t * s).float()
+    t = (t if s is None else t * s).float()
+    ROUNDED["taps"] += 1
+    return t
 
 
 def bf16_ulp_gate(want: torch.Tensor) -> torch.Tensor:
@@ -545,10 +557,13 @@ def _bf16_operand(x: torch.Tensor) -> torch.Tensor:
 
 def _bf16_storage(x: torch.Tensor):
     """(storage the bf16 kernels take, dtype to return): f32 and bf16 as
-    they are; any other dtype rounded to bf16 first and restored after."""
+    they are; any other dtype rounded to bf16 first (counted in
+    ``ROUNDED["storage"]``) and restored after."""
     if x.dtype in (torch.float32, torch.bfloat16):
         return x, None
-    return x.to(torch.bfloat16), x.dtype
+    xs = x.to(torch.bfloat16)
+    ROUNDED["storage"] += 1
+    return xs, x.dtype
 
 
 def _bf16_result(y: torch.Tensor, dtype) -> torch.Tensor:

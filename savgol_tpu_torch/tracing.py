@@ -31,7 +31,12 @@ So a site opens and closes its span in this form::
 - ``savgol.taps``: a call's preparation of its taps on the host side:
   dtype cast, the ``dt_inv`` or scale fold, ``.contiguous()``; in
   ``scipy_compat``, the lookup of its held device weights, which a miss
-  builds on the host and uploads (counted in ``scipy_compat.WEIGHTS``).
+  builds on the host and uploads (counted in ``scipy_compat.WEIGHTS``);
+  under ``method="bf16"``, the rounding of each tap tensor to bf16
+  (``ops.cuda_conv.bf16_taps``, two casts a tensor, counted in
+  ``ops.cuda_conv.ROUNDED["taps"]``). An f64 caller's samples rounded to
+  bf16 storage before it lie in ``savgol.apply`` alone and count in
+  ``ROUNDED["storage"]``.
 - ``savgol.pad``: a pad made outside any kernel, whose device operations
   the card runs before the kernel (``ops.cuda_conv.pad_last``: the
   ``scipy_compat`` mode ``constant`` and ``mirror`` under

@@ -6,8 +6,9 @@ spanned (``ops.cuda_conv._enqueue``).
 
 The CPU cases run the kernel route's Python with a stand-in library (a
 CUDA tensor's route taken by a CPU tensor, the foreign call faked), so the
-spans' nesting is checked here; the ``cuda`` case checks the real launches
-on the card. The scipy entry's spans (``savgol.apply``, the weights'
+spans' nesting is checked here; the ``cuda`` cases check the real launches
+on the card (the exact K1 and K7, and a ``method="bf16"`` call's tap casts
+and K1-bf16). The scipy entry's spans (``savgol.apply``, the weights'
 ``savgol.taps`` and the host pad's ``savgol.pad``) are checked on its CPU
 route."""
 
@@ -212,6 +213,40 @@ def test_the_kernel_route_spans_taps_then_launch_inside_apply(
     assert all(s["ts"] + s["dur"] <= launch["ts"] for s in tap_spans)
 
 
+def test_a_bf16_call_casts_its_taps_in_taps_and_launches_in_launch(
+        filters, tmp_path, kernel_route):
+    # method="bf16" on bf16 storage: the two tap tensors rounded to bf16
+    # and back (four copies, cuda_conv.bf16_taps) inside savgol.taps, K1's
+    # bf16 entry inside savgol.launch, both in one outermost savgol.apply,
+    # and no copy of the call outside savgol.taps
+    f = filters[0]
+    x = torch.randn(3, 64).to(torch.bfloat16)
+    before = cuda_conv.LAUNCHES["sg1d_poly"], dict(cuda_conv.ROUNDED)
+    with torch.profiler.profile(activities=CPU) as prof:
+        y = f.apply(x, method="bf16")
+    assert y.dtype == torch.bfloat16
+    assert cuda_conv.LAUNCHES["sg1d_poly"] == before[0] + 1
+    assert kernel_route.called == ["sg1d_poly_bf16"]
+    assert {k: cuda_conv.ROUNDED[k] - before[1][k] for k in before[1]} == {
+        "taps": 2, "storage": 0}
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    applies = [s for s in spans if s["name"] == "savgol.apply"]
+    apply_, = _outermost(applies)
+    taps, = [s for s in spans if s["name"] == "savgol.taps"]
+    launch, = [s for s in spans if s["name"] == "savgol.launch"]
+    foreign, = [s for s in spans if s["name"] == "foreign call"]
+    copies = [e for e in events if e.get("cat") == "cpu_op"
+              and e["name"] == "aten::copy_" and _inside(e, apply_)]
+    assert len(applies) == 1
+    assert _inside(taps, apply_) and _inside(launch, apply_)
+    assert _inside(foreign, launch)
+    assert len(copies) == 4 and all(_inside(c, taps) for c in copies)
+
+
 @pytest.mark.parametrize("mode, pads", [("mirror", 1), ("constant", 1),
                                         ("interp", 0)])
 def test_the_scipy_entry_spans_its_weights_and_its_pad(tmp_path, mode, pads):
@@ -305,3 +340,41 @@ def test_cuda_every_kernel_launch_of_a_traced_call_is_in_a_launch_span(
                for e in profiling.device_events(events, w)}
     assert all(id(e) in spanned for e in k1 + k2d)
     assert len(launches) == 6
+
+
+@pytest.mark.cuda
+def test_cuda_every_operation_of_a_traced_bf16_call_lies_in_a_span(
+        cuda, tmp_path):
+    # method="bf16" on bf16 storage: the tap casts launched inside
+    # savgol.taps, K1-bf16 inside savgol.launch, nothing of the call
+    # outside savgol.apply; one sg1d_poly launch a call
+    f1 = sgt.Savgol1D.create(sgt.SavgolConfig(12, 4), device=cuda)
+    x = torch.randn(64, 1 << 16, device=cuda).to(torch.bfloat16)
+    f1.apply(x, method="bf16")           # build and load the library
+    torch.cuda.synchronize()
+    before = cuda_conv.LAUNCHES["sg1d_poly"]
+
+    def run():
+        f1.apply(x, method="bf16")
+        torch.cuda.synchronize()
+
+    events, takes = profiling.trace_events(run, str(tmp_path))
+    assert cuda_conv.LAUNCHES["sg1d_poly"] - before == takes
+
+    def spans(name):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("ph") == "X"
+                      and e.get("cat") == "user_annotation"
+                      and e.get("name") == name)
+
+    def launched(name):
+        return [e for w in spans(name)
+                for e in profiling.device_events(events, w)]
+
+    ops = profiling.device_events(events)
+    in_apply, in_launch = launched("savgol.apply"), launched("savgol.launch")
+    casts = launched("savgol.taps")
+    assert len(spans("savgol.apply")) == 1
+    assert sorted(map(id, in_apply)) == sorted(map(id, ops))
+    assert len(in_launch) == 1 and "sg1d_bf16" in in_launch[0]["name"]
+    assert len(casts) == 4 and len(ops) == 5
