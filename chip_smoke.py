@@ -4148,9 +4148,14 @@ def main() -> int:
     # the main path: Savgol2D.apply, CONSTANT, method="auto" -> K2D-sep (a
     # rank-2 stencil whose factors Savgol2D.create cached, on a batch that
     # fills the card: apply2d._sep_cheaper)
+    staged = dict(c2.STAGING)
     y2, launches2 = counted(lambda: f2.apply(img),
                             {"corr2d_valid": 0, "corr2d_sep": 1},
                             "Savgol2D.apply")
+    # ... staged through K2D-sep's input ring (aligned 2048-sample rows)
+    require(c2.STAGING == {**staged, "ring": staged["ring"] + 1},
+            f"Savgol2D.apply staged {c2.STAGING} (before {staged}), "
+            "expected one ring")
     y2_sep, launches_sep = counted(lambda: f2.apply(img, method="sep"),
                                    {"corr2d_valid": 0, "corr2d_sep": 1},
                                    "Savgol2D.apply(method='sep')")
@@ -4202,7 +4207,8 @@ def main() -> int:
             f"2D kernels vs plain at full size: dense {kd_err:.3e} sep "
             f"{ks_err:.3e}")
     print(f"2D slice {IMG_FULL} f32 11x11 order 3 CONSTANT: launches "
-          f"apply {launches2}, apply(method='sep') {launches_sep}, "
+          f"apply {launches2} (staged by the ring), apply(method='sep') "
+          f"{launches_sep}, "
           f"gradient + hessian + laplacian {launches_der}, laplacian of "
           f"the batch {launches_lap}; max abs err "
           f"apply vs f64 {e_apply:.3e}, "

@@ -78,6 +78,8 @@ _SIGNATURES = {
     "corr2d_sep_f64": [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _I, _P],
     # H, W, rank, element size -> the instance a launch runs
     "corr2d_sep_instance": [_LL, _LL, _LL, _I],
+    # H, W, rank, element size, C, the input's address -> how it stages
+    "corr2d_sep_stages": [_LL, _LL, _LL, _I, _LL, _LL],
     # gram, rhs, quorum, pair_index, coef, ok, k, pos, use_rcond,
     # sqrt_rcond, scratch, scratch_threads, stream
     "plane_solve_f32": [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _D, _P, _LL, _P],

@@ -78,10 +78,18 @@
 #include <mutex>
 #include <tuple>
 
+#include "bulk_copy.cuh"
 #include "stencil_tile.cuh"
 
 namespace sgx {
 
+// a stage's mbarrier: one arrival a use, by thread 0, which also counts the
+// bytes of the stage's bulk copy
+using sgb::bar_arrive;
+using sgb::bar_init;
+using sgb::bar_wait;
+using sgb::bulk_copy;
+using sgb::smem_addr;
 using sgt::madd;
 
 constexpr int kThreads = 256;
@@ -148,10 +156,6 @@ template <typename T> struct Args {
 
 // -- copies ------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 template <typename T>
 __device__ __forceinline__ void copy16(T* dst, const T* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -175,43 +179,6 @@ __device__ __forceinline__ void commit() {
 // Waits until at most P committed groups of this thread are in flight.
 template <int P> __device__ __forceinline__ void wait_prior() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(P) : "memory");
-}
-
-// A stage's mbarrier: one arrival a use, by thread 0, which also counts the
-// bytes of the stage's bulk copy.
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar, unsigned bytes) {
-  unsigned long long state;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;\n"
-               : "=l"(state) : "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Waits until the phase of bar with this parity has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 "
-                 "p, [%1], %2; selp.u32 %0, 1, 0, p; }\n"
-                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity)
-                 : "memory");
-  } while (!done);
-}
-
-// One bulk copy (the tensor memory accelerator) of `bytes`, a multiple of
-// 16 between 16-byte aligned ends, completing on bar. The proxy fence
-// orders the stage's earlier reads and writes before it.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  bar_arrive(bar, bytes);
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-               "::bytes [%0], [%1], %2, [%3];\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
-                  "r"(smem_addr(bar)) : "memory");
 }
 
 // Starts the copies of xv[in0, in0 + n) of a row of N samples into st

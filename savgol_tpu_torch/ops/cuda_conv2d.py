@@ -17,7 +17,8 @@ precision. Samples and taps are rounded to bf16, products are exact and
 summed in f32; f32 input gets the f32 sums unrounded, any other dtype the
 sums rounded to bf16 (in its own dtype), as the JAX package's wrappers emit
 them. :func:`row_bands` states the band matrices that kernel multiplies.
-The bf16 kernel counts its launches under ``corr2d_valid``.
+The bf16 kernel counts its launches under ``corr2d_valid``; K2D-sep's
+sweep launches count in ``STAGING`` too, by how each staged its input.
 
 As in 1D, each wrapper dispatches on the device of the tensor it is given:
 a CPU tensor takes the plain version, a CUDA tensor launches the kernel or
@@ -27,6 +28,8 @@ in TF32, and no ``F.pad``, which has no numpy "symmetric" mode).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -40,6 +43,7 @@ from savgol_tpu_torch.ops.cuda_conv import (MODE_CODE, _bf16_operand,
 
 __all__ = [
     "LAUNCHES",
+    "STAGING",
     "reset_launches",
     "pad2d_plain",
     "correlate2d_valid_plain",
@@ -50,11 +54,19 @@ __all__ = [
     "correlate2d_valid_bf16_cuda",
     "row_bands",
     "sep_instance",
+    "sep_staging",
 ]
 
 # Kernel launches since the last reset_launches(), one count per wrapper.
 # Only the line that launches a kernel adds to its count.
 LAUNCHES = {"corr2d_valid": 0, "corr2d_sep": 0}
+
+# K2D-sep's sweep launches since the process started, one count per
+# staging (:func:`sep_staging`): "ring", bulk copies into a ring of stages,
+# the next chunks loading while one computes; "stage4", each chunk by
+# 16-byte loads through registers. Only a sweep launch that succeeded adds
+# to them; the tile instance counts in neither.
+STAGING = {"ring": 0, "stage4": 0}
 
 _MAX_TAPS = 33      # 2 * MAX_HALF_WINDOW_2D + 1: the kernels' staged halo
 
@@ -219,6 +231,28 @@ def sep_instance(H: int, W: int, rank: int, dtype=torch.float32) -> str:
     return {0: "tile", 1: "sweep"}.get(code, f"sweep {code}x{code}")
 
 
+@functools.lru_cache(maxsize=256)
+def _staging(H: int, W: int, rank: int, size: int, C: int, base: int):
+    """:func:`sep_staging` of the library's rule; ``base`` the input's
+    address modulo 16."""
+    code = library().corr2d_sep_stages(H, W, rank, size, C, base)
+    if code < 0:
+        raise ValueError(f"sep_staging: K2D-sep takes no {H} x {W} stencil "
+                         f"of rank {rank} for {size}-byte samples")
+    return None if code == 0 else "ring" if code > 1 else "stage4"
+
+
+def sep_staging(x: torch.Tensor, H: int, W: int, rank: int):
+    """How a K2D-sep launch on ``x`` (..., R, C) with an H x W stencil of
+    this rank stages its input, as ``csrc/corr2d_sep.cu`` decides it
+    (``corr2d_sep_stages``): ``"ring"`` (bulk copies into a ring of stages,
+    where a ring keeps the blocks an SM and ``x``'s base and rows are
+    16-byte aligned), ``"stage4"`` (the sweep's other instances), or None
+    for the tile instance. Builds the kernel library."""
+    return _staging(int(H), int(W), int(rank), x.element_size(),
+                    int(x.shape[-1]), x.data_ptr() % 16)
+
+
 def correlate2d_sep_cuda(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                          pad_mode=None) -> torch.Tensor:
     """Separable 2D correlation of ``x`` (..., R, C) with the stencil
@@ -226,7 +260,8 @@ def correlate2d_sep_cuda(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     (..., R', C').
 
     CUDA tensor: kernel K2D-sep (``csrc/corr2d_sep.cu``, the instance
-    :func:`sep_instance` names) on the current stream, no
+    :func:`sep_instance` names, staged as :func:`sep_staging` says and
+    counted in :data:`STAGING`) on the current stream, no
     synchronisation. CPU tensor: :func:`correlate2d_sep_plain`.
     """
     name = "correlate2d_sep_cuda"
@@ -246,6 +281,9 @@ def correlate2d_sep_cuda(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         _launch(name, LAUNCHES, "corr2d_sep", "corr2d_sep", x, False,
                 x.data_ptr(), uc.data_ptr(), vc.data_ptr(), out.data_ptr(),
                 B, R, C, rank, H, W, MODE_CODE[pad_mode])
+        staging = sep_staging(x, H, W, rank)
+        if staging is not None:
+            STAGING[staging] += 1
     return out
 
 

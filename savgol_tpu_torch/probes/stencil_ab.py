@@ -3,7 +3,7 @@ kernels of one checkout of this package on the card, so that two checkouts
 can be compared in one call, in turns (parent, change, change, parent):
 
     python savgol_tpu_torch/probes/stencil_ab.py [--root DIR]
-        [--only exact|bf16]
+        [--only exact|bf16|sep]
 
 imports ``savgol_tpu_torch`` from DIR (default: the checkout this file is
 in), builds its kernels and prints one JSON record: the card's name and
@@ -42,10 +42,13 @@ are compared bit for bit), and CUDA-event medians in ms (L2 flushed) of
   three (a width that ``Savgol2D.apply(method="auto")`` also sends to this
   kernel);
 - K7 (``csrc/corr2d_sep.cu``) on the same image and stencil, with the
-  path's rank-2 factors and with the rank-6 factors of the float32 stencil,
-  and with the factors ``Savgol2D.apply(method="auto")`` takes for 21 x 21
-  order 4 (rank 3), 33 x 33 order 6 (rank 4) and the rectangle 17 x 25
-  order 4 (rank 3), which are wider than the dense kernel's widths;
+  path's rank-2 factors (in the four boundaries, and in f64) and with the
+  rank-6 factors of the float32 stencil, and with the factors
+  ``Savgol2D.apply(method="auto")`` takes for 21 x 21 order 4 (rank 3),
+  33 x 33 order 6 (rank 4) and the rectangle 17 x 25 order 4 (rank 3),
+  which are wider than the dense kernel's widths, each with its bits'
+  digest, and its entry point ``Savgol2D.apply`` with the host's work;
+  ``--only sep`` times these alone;
 - the bf16 1D tile (``csrc/sg1d_bf16.cuh``) at the 1D headline, (128,
   1,048,576), n = 12, m = 4: K1-bf16 (``sg1d_poly_bf16`` in
   ``csrc/sg1d_poly.cu``) in bf16 and f32 storage, K2-bf16
@@ -89,10 +92,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = pathlib.Path(__file__).resolve().parents[2]
     ap.add_argument("--root", default=str(here))
-    ap.add_argument("--only", choices=("exact", "bf16"),
+    ap.add_argument("--only", choices=("exact", "bf16", "sep"),
                     help="time only the exact 1D kernels and their entry "
                          "points, or only the bf16 kernels (1D and "
-                         "K2D-dense's) and apply_valid(method='bf16')")
+                         "K2D-dense's) and apply_valid(method='bf16'), or "
+                         "only K7 and Savgol2D.apply")
     ap.add_argument("--clocks", action="store_true",
                     help="sample the SM clock and power during the f32 "
                          "exact 1D kernels")
@@ -248,7 +252,7 @@ def main() -> int:
                     bits=True)
 
     def exact_2d():
-        """The exact K2D-dense and K7 at the 2D headline."""
+        """The exact K2D-dense at the 2D headline."""
         for k, w in (("K=1", w1), ("K=3", w3)):
             run(f"K2D-dense f32 {k}",
                 lambda: c2.correlate2d_valid_cuda(img, w, "edge"))
@@ -262,6 +266,10 @@ def main() -> int:
         for k, w in (("K=1", w15[0]), ("K=3", w15[1:])):
             run(f"K2D-dense f32 15x15 {k}",
                 lambda: c2.correlate2d_valid_cuda(img, w, "edge"))
+
+    def sep_2d():
+        """K7 at the 2D headline and its wide windows, bit digests, and
+        Savgol2D.apply with the host's work."""
         # K7 with the path's factors (rank 2: the f64 stencil, as
         # Savgol2D.apply(method="sep") factors it), and with the rank 6 that
         # the float32 stencil's rounding noise gives at _svd_stencil_np's
@@ -269,24 +277,39 @@ def main() -> int:
         u, v = (torch.from_numpy(a).to(dev, torch.float32)
                 for a in c2._svd_stencil_np(savgol2d_weights_np(
                     cfg, np.float64)))
-        run("K7", lambda: c2.correlate2d_sep_cuda(img, u, v, "edge"))
+        run("K7", lambda: c2.correlate2d_sep_cuda(img, u, v, "edge"),
+            bits=True)
+        for mode in (None, "symmetric", "wrap"):
+            run(f"K7 {mode or 'valid'}",
+                lambda: c2.correlate2d_sep_cuda(img, u, v, mode), bits=True)
+        img64, u64, v64 = img.double(), u.double(), v.double()
+        run("K7 f64", lambda: c2.correlate2d_sep_cuda(img64, u64, v64,
+                                                      "edge"), bits=True)
+        del img64
         u6, v6 = (torch.from_numpy(a).to(dev, torch.float32)
                   for a in c2._svd_stencil_np(w1.double().cpu().numpy()))
         run(f"K7 rank {u6.shape[0]}",
-            lambda: c2.correlate2d_sep_cuda(img, u6, v6, "edge"))
+            lambda: c2.correlate2d_sep_cuda(img, u6, v6, "edge"), bits=True)
         # the wide windows method="auto" sends to K7, with its factors
         for nx, ny, m in ((10, 10, 4), (16, 16, 6), (12, 8, 4)):
             f2 = sgt.Savgol2D.create(sgt.Savgol2DConfig(nx, ny, m),
                                      device=dev)
             (uw, vw), = _factors(f2.weights, torch.float32, dev)
             run(f"K7 {2 * ny + 1}x{2 * nx + 1} rank {uw.shape[0]}",
-                lambda: c2.correlate2d_sep_cuda(img, uw, vw, "edge"))
+                lambda: c2.correlate2d_sep_cuda(img, uw, vw, "edge"),
+                bits=True)
+        f2 = sgt.Savgol2D.create(cfg, device=dev)
+        out = f2.apply(img)
+        digests["Savgol2D.apply"] = digest(out)
+        del out
+        ms["Savgol2D.apply with host"] = timing.cuda_time_ms(
+            lambda: f2.apply(img))
 
     # each section with the --only groups it belongs to (none: the whole
     # run only)
     for section, groups in ((exact_1d, ("exact",)), (bank, ()),
                             (bf16_1d, ("bf16",)), (bf16_2d, ("bf16",)),
-                            (exact_2d, ())):
+                            (exact_2d, ()), (sep_2d, ("sep",))):
         if args.only is None or args.only in groups:
             section()
     print(json.dumps({"card": card(), "root": str(root), "ms": ms,

@@ -22,8 +22,10 @@ instead of the ``cp.async`` one, other register caps and 4096-output
 tiles; K7 (``csrc/corr2d_sep.cu``) with every window on its
 runtime-width sweep (no compile-time widths) or on its 64 x 64 tiles,
 with rings past 113 KB on the tiles, with the runtime-width passes
-unrolled less, without its L1 prefetch, with an L2 one, other register
-caps and shorter bands; K12 (``csrc/resample.cu``) with one, four or
+unrolled less, with its input ring held to 1 stage (every chunk staged by
+stage4, the sweep before the ring) or 2, with the ring at every f32 width
+(no FMA cap), with chunks of 16 rows, other register caps and shorter
+bands; K12 (``csrc/resample.cu``) with one, four or
 eight rows a thread in its compile-time-m form and two in its runtime
 one, blocks of 128 queries and no register cap; K13's stream route
 (``csrc/halo_ring.cu``) with ``halo_send`` waiting 5 or 20 us on the SMs
@@ -128,6 +130,22 @@ _SEP_COL_ONE_TAP = ("  for (int i = 0; i < kQRS + H - 1; ++i) {",
                     "  for (int i = 0; i < kQRS; ++i) {")
 _SEP_ROW_FOUR_TAPS = ("  for (int q = 0; q < (W + 3) / 4; ++q) {",
                       "  for (int q = 0; q < 1; ++q) {")
+
+# K7's ring with every stage copied row by row (no tensor-map boxes)
+_SEP_NO_BOX = ("  if (box != nullptr && row0 >= 0", "  if (false && row0 >= 0")
+# ... and without its copies (each stage's arrival announces no bytes, so
+# the passes run on whatever the stages hold): the block's own work alone
+_SEP_NO_COPIES = [
+    _SEP_NO_BOX,
+    ("    if (lane == 0) sgb::bar_arrive(bar, __popc(copied) * bytes);",
+     "    if (lane == 0) sgb::bar_arrive(bar, 0u * copied * bytes);"),
+    ("    if (gr >= 0) {\n      sgb::proxy_fence();",
+     "    if (false) {\n      sgb::proxy_fence();")]
+# K7 with its outputs computed and not stored (a store only of a value the
+# sums never take keeps them live)
+_SEP_NO_STORES = ("  if (ocol < Co) {",
+                  "  if (ocol < Co && acc[0][0] == T(1.25e-30)) {")
+_SEP_S1 = ("constexpr int kMaxStages = 3;", "constexpr int kMaxStages = 1;")
 
 VARIANTS = {
     "dense": ("corr2d_valid.cu", {
@@ -251,12 +269,16 @@ VARIANTS = {
     # K7's sweep: every stencil whose ring fits on the runtime-width sweep
     # (no compile-time widths), every stencil on the 64 x 64 tiles, rings
     # past 113 KB (one block an SM) on the tiles, the runtime-width passes
-    # unrolled less (f64 spills 16 B), without
-    # the L1 prefetch of the next chunk, with an L2 prefetch, every f32
-    # width's registers capped for 3 and for 4 blocks an SM, bands of 8
-    # chunks;
-    # attribution: the column pass cut to one tap (row_only), the
-    # row pass to one group of 4 taps (col_only), both (stage_store)
+    # unrolled less (f64 spills 16 B), the input ring held to 1 stage
+    # (stage4 and its L1 prefetch everywhere: the sweep before the ring)
+    # and to 2, the ring at every f32 width (no FMA cap), chunks of 16 rows
+    # (bands of 32 chunks, so still 512 rows; windows past 17 rows then
+    # take the tiles), every f32 width's registers capped for 3 and for 4
+    # blocks an SM, bands of 8 chunks, the ring's stages copied row by row
+    # (no tensor-map boxes); attribution: the column pass cut to one tap
+    # (row_only), the row pass to one group of 4 taps (col_only), both
+    # (stage_store, and with 1 stage), the ring's copies left out
+    # (no_copies), the stores left out (no_stores, and with 1 stage)
     "sep": ("corr2d_sep.cu", {
         "as_is": [],
         "runtime_width": [
@@ -272,12 +294,14 @@ VARIANTS = {
         "rt_col_unroll2": [("#pragma unroll 4\n  for (int y = 0; y < H; ++y)",
                             "#pragma unroll 2\n  for (int y = 0; y < H; "
                             "++y)")],
-        "no_prefetch": [
-            ("    if (c + 1 < nch)\n      prefetch_rows(",
-             "    if (false)\n      prefetch_rows("),
-            ("  prefetch_rows(img, R, C, r0 - oy + H - 1, kCH, c0 - ox, SW, "
-             "mode);\n", "")],
-        "prefetch_l2": [("prefetch.global.L1", "prefetch.global.L2")],
+        "stages_1": [_SEP_S1],
+        "stages_2": [("constexpr int kMaxStages = 3;",
+                      "constexpr int kMaxStages = 2;")],
+        "ring_wide": [("constexpr int kRingMaxFma = 144;",
+                       "constexpr int kRingMaxFma = 1 << 20;")],
+        "chunk_16": [("constexpr int kCH = 32;", "constexpr int kCH = 16;"),
+                     ("constexpr int kChunks = 16;",
+                      "constexpr int kChunks = 32;")],
         "blocks_3": [("return sizeof(T) == 8 ? 2 : H <= 21 ? 4 : 3;",
                       "return sizeof(T) == 8 ? 2 : 3;")],
         "blocks_4": [("return sizeof(T) == 8 ? 2 : H <= 21 ? 4 : 3;",
@@ -287,6 +311,11 @@ VARIANTS = {
         "row_only": [_SEP_COL_ONE_TAP],
         "col_only": [_SEP_ROW_FOUR_TAPS],
         "stage_store": [_SEP_COL_ONE_TAP, _SEP_ROW_FOUR_TAPS],
+        "row_copies": [_SEP_NO_BOX],
+        "no_copies": _SEP_NO_COPIES,
+        "no_stores": [_SEP_NO_STORES],
+        "stage_store_s1": [_SEP_COL_ONE_TAP, _SEP_ROW_FOUR_TAPS, _SEP_S1],
+        "no_stores_s1": [_SEP_NO_STORES, _SEP_S1],
     }),
     # K12: rows a thread in the compile-time m form (1, 4, 8) and in the
     # runtime one (2), blocks of 128 queries, no register cap below 255
@@ -345,7 +374,8 @@ VARIANTS = {
 # variants whose outputs differ from the kernel's by design
 ATTRIBUTION = {"moments_only", "solve_only", "no_loads", "stage_store",
                "row_only", "col_only", "empty", "no_taps",
-               "no_store", "no_lds", "no_wait", "no_recv"}
+               "no_store", "no_lds", "no_wait", "no_recv", "no_copies",
+               "no_stores", "stage_store_s1", "no_stores_s1"}
 
 _X = "sg1d_exact.cuh"
 _EXACT_Q = "constexpr int kQF32 = 12;\nconstexpr int kQF64 = 10;"
@@ -880,12 +910,15 @@ def main() -> int:
                 xx, oo = (img, out3) if dt == "f32" else (img64, out64)
                 tag = f"K7 {H}x{W} rank {r}" + ("" if dt == "f32" else
                                                " f64")
-                cases[tag] = (
-                    lambda u=u, v=v, r=r, H=H, W=W, xx=xx, oo=oo, dt=dt:
-                    lambda L: getattr(L, f"corr2d_sep_{dt}")(
-                        xx.data_ptr(), u.data_ptr(), v.data_ptr(),
-                        oo.data_ptr(), 16, 2048, 2048, r, H, W, 1,
-                        stream()))()
+                # the headline's stencil also in VALID, whose ring rows
+                # start at the strip's first input column (no offset)
+                for mode in (1, 0) if tag == "K7 11x11 rank 2" else (1,):
+                    cases[tag + ("" if mode else " valid")] = (
+                        lambda u=u, v=v, r=r, H=H, W=W, xx=xx, oo=oo, dt=dt,
+                        mode=mode: lambda L: getattr(L, f"corr2d_sep_{dt}")(
+                            xx.data_ptr(), u.data_ptr(), v.data_ptr(),
+                            oo.data_ptr(), 16, 2048, 2048, r, H, W, mode,
+                            stream()))()
             # the ranks the float32 stencils' rounding noise gives at
             # _svd_stencil_np's default cutoff (11 x 11: 6, 13 x 13: 6,
             # 15 x 15: 7)

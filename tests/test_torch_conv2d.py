@@ -421,3 +421,113 @@ def test_cuda_sep_tile_matches_plain(cuda, dtype, rank):
     for mode in (None, *MODES):
         _assert_close(c2.correlate2d_sep_cuda(x, u, v, mode).cpu(),
                       c2.correlate2d_sep_plain(x, u, v, mode).cpu(), tol)
+
+
+# K2D-sep's staging: the input ring (bulk copies) where a ring keeps the
+# blocks an SM and the rows are 16-byte aligned, stage4 otherwise
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,rank,dtype,want", [
+    (11, 11, 2, torch.float32, "ring"), (11, 11, 6, torch.float32, "ring"),
+    (13, 13, 2, torch.float32, "ring"), (17, 25, 3, torch.float32, "stage4"),
+    (21, 21, 3, torch.float32, "stage4"), (23, 23, 3, torch.float32, "ring"),
+    (25, 25, 3, torch.float32, "stage4"), (33, 33, 4, torch.float32, "stage4"),
+    (33, 33, 4, torch.float64, "ring"),
+    (11, 11, 2, torch.float64, "ring"), (33, 33, 2, torch.float64, "stage4"),
+    (33, 33, 13, torch.float32, None), (33, 33, 7, torch.float64, None)])
+def test_sep_staging_follows_the_ring_rule(cuda, H, W, rank, dtype, want):
+    """K2D-sep's staging, as the kernel library decides it: the ring where
+    up to 3 stages keep the SM's blocks (21 x 21 rank 3 in f32 would lose
+    one, 33 x 33 rank 2 in f64 too) and an f32 stencil takes at most 144
+    FMAs a pixel (25 x 25 rank 3 takes 150), stage4 otherwise and for an
+    image whose base or rows are not 16-byte aligned; None for the
+    tiles."""
+    x = torch.zeros(1, 64, 64, device=cuda, dtype=dtype)
+    assert c2.sep_staging(x, H, W, rank) == want
+    for bad in (_misaligned(x), torch.zeros(1, 64, 63, device=cuda,
+                                            dtype=dtype)):
+        assert c2.sep_staging(bad, H, W, rank) == (want and "stage4")
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` one sample past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+# every compile-time width of the sweep and two of its runtime one
+_RING_WINDOWS = [(h, h) for h in (11, 19, 21, 23, 25, 27, 29, 31, 33)] + [
+    (13, 13), (17, 25)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nonfinite", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("H,W", _RING_WINDOWS)
+def test_cuda_sep_ring_matches_plain_and_stage4(cuda, H, W, dtype,
+                                                nonfinite):
+    """K2D-sep's input ring at every compile-time width and at runtime
+    widths, rank 1 (a ring at every width) and the widths' ring ranks, on
+    an image of 600 rows (neither a multiple of 32 nor of 512) and 200
+    columns (not a multiple of 64), in every boundary, with and without
+    NaN, +inf and -inf on chunk, band and strip boundaries and at an edge:
+    within the plain version's gate (the same non-finite outputs), and bit
+    for bit the stage4 route's outputs for the same image one sample past
+    a 16-byte boundary; one count in STAGING each."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    tol = 1e-5 if dtype == torch.float32 else F64_TOL
+    x = torch.from_numpy(_data((2, 600, 200), seed=H * W, dtype=npdt)).to(
+        cuda)
+    if nonfinite:
+        for b, r, c, v in ((0, 31, 63, "nan"), (0, 32, 64, "inf"),
+                           (0, 511, 100, "-inf"), (1, 512, 127, "nan"),
+                           (1, 0, 199, "inf"), (1, 300, 40, "inf"),
+                           (1, 300, 42, "-inf"), (1, 599, 0, "nan")):
+            x[b, r, c] = float(v)
+    shifted = _misaligned(x)
+    ranks = [r for r in (1, 2, 3) if c2.sep_staging(x, H, W, r) == "ring"]
+    assert ranks[0] == 1
+    for rank in ranks:
+        u = torch.from_numpy(_data((rank, H), H + rank, npdt)).to(cuda)
+        v = torch.from_numpy(_data((rank, W), W + rank, npdt)).to(cuda)
+        for mode in (None, *MODES):
+            before = dict(c2.STAGING)
+            got = c2.correlate2d_sep_cuda(x, u, v, mode)
+            assert c2.STAGING == {**before, "ring": before["ring"] + 1}
+            other = c2.correlate2d_sep_cuda(shifted, u, v, mode)
+            assert c2.STAGING == {"ring": before["ring"] + 1,
+                                  "stage4": before["stage4"] + 1}
+            assert torch.equal(_bits(got), _bits(other)), (rank, mode)
+            want = c2.correlate2d_sep_plain(x, u, v, mode)
+            if nonfinite:
+                got, want = _same_nonfinite(got, want)
+            _assert_close(got.cpu(), want.cpu(), tol)
+
+
+@pytest.mark.cuda
+def test_cuda_headline_counts_one_ring_and_unaligned_rows_stage4(cuda):
+    """Savgol2D(5, 5, 3).apply on an aligned (16, 2048, 2048) f32 batch is
+    one K2D-sep launch through the ring; a column slice x[..., 1:] and
+    2047-sample rows go through stage4 and give, bit for bit, the ring's
+    outputs for the same rows with their last column repeated (the
+    CONSTANT border repeats it anyway)."""
+    from savgol_tpu_torch import Savgol2D
+    f = Savgol2D.create(Savgol2DConfig(5, 5, 3), device=cuda)
+    x = torch.from_numpy(_data((16, 2048, 2048), seed=28)).to(cuda)
+    before = dict(c2.STAGING), dict(c2.LAUNCHES)
+    f.apply(x)
+    assert c2.STAGING == {**before[0], "ring": before[0]["ring"] + 1}
+    assert c2.LAUNCHES == {**before[1],
+                           "corr2d_sep": before[1]["corr2d_sep"] + 1}
+    for part in (x[..., 1:], x[..., :2047]):
+        before = dict(c2.STAGING)
+        got = f.apply(part)
+        assert c2.STAGING == {**before, "stage4": before["stage4"] + 1}
+        ring = f.apply(torch.cat([part, part[..., -1:]], -1))[..., :2047]
+        assert c2.STAGING["ring"] == before["ring"] + 1
+        assert torch.equal(_bits(got), _bits(ring.contiguous()))
